@@ -1,0 +1,1 @@
+"""Operators of the PyTorch port (counterpart of ``v2ap_tpu.ops``)."""
