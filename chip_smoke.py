@@ -5,14 +5,20 @@
 
 Phases, each of which fails the run (exit 1, no result line) if it fails:
 
-  1. build   — print the card, compile ``v2ap_torch/csrc/flash_fwd.cu`` with
-               nvcc for sm_90a, print the build seconds;
-  2. kernels — each kernel (K1 packed, K2 4D) on the card at the main path's
-               shapes against its plain PyTorch version on the same bf16
-               inputs, computed in f32, K1 also with logits in softclamp's
-               range; kernel / plain / library times (K1: compiled
-               flex_attention, K2: scaled_dot_product_attention) and the
-               card's least time for the same work (bound);
+  1. build   — print the card, compile ``v2ap_torch/csrc/flash_fwd.cu`` and
+               ``flash_bwd.cu`` with nvcc for sm_90a (one nvcc each, started
+               together), print the build seconds;
+  2. kernels — each kernel on the card at its main path's shapes against its
+               plain PyTorch version on the same inputs, computed in f32:
+               K1 (packed) and K2 (4D) forwards, K1 also with logits in
+               softclamp's range; K3 (forward with lse), K4 (dq) and K5
+               (dk, dv) at the training shapes, with logits of std 40, with
+               a fully masked batch element (exactly zero gradient) and in
+               f32; kernel / plain times (CUDA events), library times
+               (device time from the profiler: compiled flex_attention with
+               the softclamp and mask, its backward for K4 + K5, SDPA for
+               K2 and for K1 at nk = 1) and the card's least time for the
+               same work (bound);
   3. small   — a small f32 configuration through the port's entry points on
                the card (kernels) and on the CPU (plain versions), same
                weights and x0: CLIP features, sampled latents and waveform
@@ -27,9 +33,27 @@ Phases, each of which fails the run (exit 1, no result line) if it fails:
                each timed run and read just after; K1 must run (steps-1) x
                48 times and K2 48 x (tower chunks) times in each;
   5. profile — CUDA time by kernel group and by kernel over one more
-               generate, and its share of that run's wall.
+               generate, and its share of that run's wall;
+  6. small train — one train step of tiny_test() (f32, dropout 0, the
+               loss's draws made on the CPU) on the card and on the CPU from
+               the same weights: loss, every gradient and the updated
+               parameters must agree; then 20 steps on the card (lr 1e-3,
+               warmup 2, one batch, fixed draws): the loss must fall;
+  7. train   — the full-width V2A training step: v2a_default() (12 layers,
+               dim 1024, bf16 compute, f32 params, dropout 0.1), AdamW with
+               TrainConfig() defaults and EMA, random weights from seed 0,
+               a synthetic batch from seed 0 (TRAIN_BATCH x 750 latents,
+               782 tokens with the registers, prompt context of 16 with
+               4-16 valid). One warm-up step, then TRAIN_STEPS timed ones,
+               the launch counters zeroed before each and read after:
+               K3, K4 and K5 must run 48 times each per step, K1 and K2
+               not at all; loss and gradient norm finite; parameters and
+               EMA moved. Median step time, audio-seconds per second, peak
+               memory;
+  8. train profile — CUDA time by kernel group over one more train step.
 
-The line before the last is a JSON object with one entry per kernel; the
+The line before the last is a JSON object with one entry per kernel (K1-K5;
+the launches of K1/K2 from one generate, of K3-K5 from one train step); the
 last is {"ok": true, "device": {...}}. Without CUDA, or without the repo
 around it, the script exits non-zero and prints no result.
 """
@@ -52,12 +76,28 @@ F32_FLOP_PER_S = 67e12             # H100 SXM f32 outside the tensor cores
 # max(1, max|ref|). Rounding the output costs half a bf16 ulp, at most
 # 2^-8 |o| (K2 read 3.648e-3 at 1 <= |o| < 2, K1 1.539e-3); rounding P to
 # bf16 before P.V costs at most 2^-9 max|v| spread over a row's weights.
+# K3-K5 read at most 3.1e-3 max|ref| (K5 with logits of std 40: 2.781e-2
+# at max|ref| 9.065; the cross-attention's dk 5.784e-2 at 24.62), inside
+# the half-ulp 2^-8 max|ref| of their bf16 outputs.
 KERNEL_RTOL = 2.0 ** -7
+# f32 kernel vs f32 plain version: |err| <= F32_RTOL * max(1, max|ref|)
+# (summation order and expf only)
+F32_RTOL = 1e-4
+LSE_ATOL = 1e-3                    # lse of bf16 inputs, f32 either way
 SOFTCLAMP_Q_GAIN = 40.0            # logits of std 40: softclamp's own range
 SMALL_REL_RMS = 1e-3               # f32 card vs CPU, other summation orders
+# updated parameters, card vs CPU: Adam's first update is +-lr g/|g|, so an
+# element whose gradient is at rounding level may move by 2 lr the other
+# way; over all parameters (scale ~0.05) that stays far below this
+SMALL_PARAM_REL_RMS = 1e-5
 CLIP_S = 10.0
 FPS = 25
 GENERATE_RUNS = 5                  # timed full-width generates (median)
+TRAIN_BATCH = 8                    # TrainConfig.batch_size
+TRAIN_LATENTS = 750                # DataConfig.target_length, 10 s at 75 Hz
+TRAIN_CONTEXT = 16                 # prompt tokens, as scripts/bench_train.py
+TRAIN_STEPS = 5                    # timed full-width train steps (median)
+TINY_STEPS = 20                    # tiny loss-falls check (scripts/train_smoke.py)
 
 
 def log(*args) -> None:
@@ -86,9 +126,44 @@ def time_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def kernel_rows(prof) -> list:
+    """The profiler's rows for CUDA kernels, without the user annotations
+    (e.g. ``Optimizer.step#AdamW.step``) that it also puts on the device
+    timeline and that would count their kernels twice."""
+    return [e for e in prof.key_averages()
+            if getattr(e, "device_time_total", 0) > 0
+            and e.device_type.name == "CUDA"
+            and not getattr(e, "is_user_annotation", False)]
+
+
+def device_ms(torch, fn, iters: int = 10, warmup: int = 3) -> float:
+    """Device time of one call: the CUDA kernels' durations summed over
+    ``iters`` calls under the profiler, over ``iters``. Host gaps between
+    launches do not count, so a call whose wall time is its host overhead
+    reads its device work. Fails if the profiler records no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.device_time_total for e in kernel_rows(prof))
+    if not total:
+        raise RuntimeError("the profiler recorded no device time")
+    return total / 1e3 / iters
+
+
 def rel_rms(a, b) -> float:
     a, b = a.double(), b.double()
-    return float(((a - b).pow(2).mean().sqrt() / b.pow(2).mean().sqrt()).item())
+    den = b.pow(2).mean().sqrt()
+    num = (a - b).pow(2).mean().sqrt()
+    if den == 0:
+        return 0.0 if num == 0 else float("inf")
+    return float((num / den).item())
 
 
 # --------------------------------------------------------------- phase 2
@@ -144,8 +219,13 @@ def kernel_cases(torch):
                 return fa.attention_reference(*un, m, softclamp=50.0
                                               ).transpose(1, 2).flatten(2)
 
-            library = (flex_softclamp(torch, q, k, v, m, h)
-                       if k.shape[1] > 1 else None)
+            if k.shape[1] > 1:
+                library = flex_softclamp(torch, q, k, v, m, h)
+            else:       # one key: its weight is 1 whatever the softclamp
+                def library(q=q, k=k, v=v, h=h):
+                    return torch.nn.functional.scaled_dot_product_attention(
+                        *(fa._heads_view(t, h, 64) for t in (q, k, v)),
+                        scale=64 ** -0.5).transpose(1, 2).flatten(2)
             shape = (q.shape[0], h, q.shape[1], k.shape[1], 64)
         else:
             scale = 104 ** -0.5
@@ -229,7 +309,7 @@ def phase_kernels(torch) -> dict:
                                    f"with the plain version ({lib_err:.3e})")
         ms = time_ms(torch, run)
         plain_ms = time_ms(torch, plain, iters=5)
-        lib_ms = time_ms(torch, library) if library is not None else None
+        lib_ms = device_ms(torch, library) if library is not None else None
         bound_ms, bound_by, flops = bound(
             shape, 2, mask.numel() if mask is not None else 0)
         log(f"  {label}: max|ref| {ref_max:.3f}, max_abs_err {err:.3e} (tol "
@@ -354,8 +434,10 @@ def phase_generate(torch, pipe, cfg, frames) -> dict:
     per_eval = (m.depth + (m.depth if m.if_cross_attn else 0)
                 + 2 * m.text_depth)
     chunks = math.ceil(len(frames) / 64)
-    expect = {"flash_attention_packed": evals * per_eval,
-              "flash_attention": pipe.clip_cfg.num_layers * chunks}
+    from v2ap_torch.ops.flash_attention import launch_counts as lc
+    expect = dict.fromkeys(lc, 0)
+    expect.update(flash_attention_packed=evals * per_eval,
+                  flash_attention=pipe.clip_cfg.num_layers * chunks)
 
     t0 = time.perf_counter()
     gen()                                         # warm: handles, plans
@@ -391,37 +473,35 @@ def phase_generate(torch, pipe, cfg, frames) -> dict:
 
 # kernel-name fragments -> the group a kernel's time is reported under
 PROFILE_GROUPS = (("K2 flash_fwd d104", "flash_fwd_kernel<__nv_bfloat16, 104>"),
-                  ("K1 flash_fwd d64", "flash_fwd_kernel<__nv_bfloat16, 64>"),
+                  ("K1/K3 flash_fwd d64", "flash_fwd_kernel<__nv_bfloat16, 64>"),
+                  ("K4 flash_bwd_dq", "flash_bwd_dq_kernel"),
+                  ("K5 flash_bwd_dkv", "flash_bwd_dkv_kernel"),
                   ("matmul (cuBLAS)", "nvjet", "gemm", "xmma", "cutlass"),
+                  ("optimizer / EMA (foreach)", "multi_tensor_apply"),
                   ("dtype casts / copies", "copy_kernel"),
                   ("LSTM", "lstm", "LSTM", "RNN"),
                   ("convolution", "conv", "cudnn"))
 
 
-def phase_profile(torch, pipe, frames) -> None:
-    """CUDA kernel time over one generate, by group and by kernel, and its
-    share of the profiled run's wall time. A failed generate or profiler
-    fails the run; a profiler that records no device time is reported as
-    not measured."""
+def phase_profile(torch, label: str, run) -> None:
+    """CUDA kernel time over one ``run()`` (which raises on a bad result),
+    by group and by kernel, and its share of the profiled run's wall time.
+    A failed run or profiler fails the run; a profiler that records no
+    device time is reported as not measured."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        wav, _ = pipe.generate(None, steps=25, cfg_strength=2.0, seed=0,
-                               frames_cache=[(frames, CLIP_S, 1)])
+        run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    if not __import__("numpy").isfinite(wav).all():
-        raise RuntimeError("profile: non-finite waveform")
-    rows = [e for e in prof.key_averages()
-            if getattr(e, "device_time_total", 0) > 0
-            and e.device_type.name == "CUDA"]
+    rows = kernel_rows(prof)
     total = sum(e.device_time_total for e in rows)
     if not total:
         log("  profile: no device time recorded (not measured)")
         return
-    log(f"  profile: {total / 1e3:.1f} ms CUDA kernel time in one generate "
+    log(f"  profile: {total / 1e3:.1f} ms CUDA kernel time in one {label} "
         f"of {wall * 1e3:.1f} ms wall under the profiler (kernels busy "
         f"{total / 1e6 / wall:.1%} of it)")
     groups = {}
@@ -431,11 +511,402 @@ def phase_profile(torch, pipe, frames) -> None:
         ms, n = groups.get(name, (0.0, 0))
         groups[name] = (ms + e.device_time_total / 1e3, n + e.count)
     for name, (ms, n) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
-        log(f"    group {name:22s} {ms:9.2f} ms {n:7d} launches "
+        log(f"    group {name:26s} {ms:9.2f} ms {n:7d} launches "
             f"{ms * 1e3 / total:6.1%}")
     for e in sorted(rows, key=lambda e: -e.device_time_total)[:12]:
         log(f"    {e.device_time_total / 1e3:9.2f} ms {e.count:6d}x "
             f"{e.device_time_total / total:6.1%}  {e.key[:90]}")
+
+
+# --------------------------------------------------------------- phase 2b
+
+def flex_grad_calls(torch, qh, kh, vh, mask, dout):
+    """K3's and K4 + K5's functions as PyTorch calls, yardsticks only:
+    compiled ``flex_attention`` with softclamp 50 and the mask as an f32
+    bias in its score_mod, forward returning lse, and its backward for
+    (dq, dk, dv). Returns (forward, backward) or None where this torch
+    lacks flex_attention."""
+    try:
+        from torch.nn.attention import flex_attention as flex_mod
+    except ImportError:
+        return None
+    from v2ap_torch.ops.flash_attention import NEG_INF
+
+    flex = torch.compile(flex_mod.flex_attention, dynamic=False)
+    bias = torch.where(mask, 0.0, NEG_INF).float()
+    aux = ({"return_aux": flex_mod.AuxRequest(lse=True)}
+           if hasattr(flex_mod, "AuxRequest") else {"return_lse": True})
+
+    def score_mod(s, b, h, qi, ki):
+        return torch.tanh(s / 50.0) * 50.0 + bias[b, ki]
+
+    def forward():
+        with torch.no_grad():
+            out, lse = flex(qh, kh, vh, score_mod=score_mod,
+                            scale=64 ** -0.5, **aux)
+        return out, getattr(lse, "lse", lse)
+
+    leaves = [t.detach().requires_grad_(True) for t in (qh, kh, vh)]
+    out = flex(*leaves, score_mod=score_mod, scale=64 ** -0.5)
+
+    def backward():
+        return torch.autograd.grad(out, leaves, dout, retain_graph=True)
+
+    return forward, backward
+
+
+def grad_bounds(b, h, nq, nk, d, mask_bytes):
+    """(K3, K4, K5) least times: FLOP at the bf16 rate or bytes at the HBM
+    rate, whichever is larger. K3 does 4 bhnq nk d FLOP; the backward's
+    10 bhnq nk d (five products) split as K4 s, dp, dq (6) and K5 dv,
+    dk (4). Bytes: each kernel's bf16 inputs and outputs once, lse and D
+    as f32 rows, the mask."""
+    qb, kb = 2 * b * h * nq * d, 2 * b * h * nk * d
+    rows = 4 * b * h * nq
+    work = {"K3": (4.0, qb + 2 * kb + qb + rows + mask_bytes),
+            "K4": (6.0, qb + 2 * kb + qb + 2 * rows + mask_bytes + qb),
+            "K5": (4.0, qb + 2 * kb + qb + 2 * rows + mask_bytes + 2 * kb)}
+    out = {}
+    for kid, (f, nbytes) in work.items():
+        t_ops = f * b * h * nq * nk * d / BF16_FLOP_PER_S
+        t_bytes = nbytes / HBM_BYTES_PER_S
+        out[kid] = (max(t_ops, t_bytes) * 1e3,
+                    "bytes" if t_bytes >= t_ops else "operations")
+    return out
+
+
+def phase_train_kernels(torch) -> dict:
+    """K3, K4 and K5 at the training shapes, each against its plain version
+    on the same inputs (the backward's lse and D from K3's output, as the
+    train step computes them)."""
+    from v2ap_torch.ops import flash_attention as fa
+
+    dev = "cuda"
+    gen = torch.Generator(device=dev).manual_seed(1)
+    n = TRAIN_LATENTS + 32
+    b = TRAIN_BATCH
+
+    def rnd(*shape, dtype=torch.bfloat16):
+        return torch.randn(*shape, generator=gen, device=dev).to(dtype)
+
+    full = torch.ones(b, n, dtype=torch.bool, device=dev)
+    ctx_len = torch.randint(4, TRAIN_CONTEXT + 1, (b,), generator=gen,
+                            device=dev)
+    ctx_mask = torch.arange(TRAIN_CONTEXT, device=dev)[None] < ctx_len[:, None]
+    one_dead = torch.ones(2, n, dtype=torch.bool, device=dev)
+    one_dead[1] = False
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [   # label, batch, heads, nk, mask, logit gain, dtype, timed
+        ("self-attn (8, 782, 16x64)", b, 16, n, full, 1.0, bf16, True),
+        ("roll self-attn (8, 782, 8x64)", b, 8, n, full, 1.0, bf16, True),
+        ("cross-attn (8, 782x16, 16x64), context 4-16 valid", b, 16,
+         TRAIN_CONTEXT, ctx_mask, 1.0, bf16, True),
+        ("self-attn, logits std 40 (8, 782, 16x64)", b, 16, n, full,
+         SOFTCLAMP_Q_GAIN, bf16, False),
+        ("element 1 fully masked (2, 782, 16x64)", 2, 16, n, one_dead, 1.0,
+         bf16, False),
+        ("f32 self-attn (2, 782, 16x64)", 2, 16, n, full[:2], 1.0, f32,
+         False),
+    ]
+    results = {}
+    for label, bb, h, nk, mask, gain, dtype, timed in cases:
+        hd = h * 64
+        q = rnd(bb, n, hd, dtype=dtype) * gain
+        if nk == n:                         # fused qkv chunks, as the model
+            qkv = rnd(bb, n, 3 * hd, dtype=dtype)
+            qkv[..., :hd] = q
+            q, k, v = qkv.chunk(3, dim=-1)
+        else:
+            k, v = rnd(bb, nk, 2 * hd, dtype=dtype).chunk(2, dim=-1)
+        qh, kh, vh = (fa._heads_view(t, h, 64) for t in (q, k, v))
+        doh = fa._heads_view(rnd(bb, n, hd, dtype=dtype), h, 64)
+        kw = dict(softclamp=50.0)
+        out, lse = fa.attention_fwd_lse(qh, kh, vh, mask, **kw)
+        delta = (doh.float() * out.float()).sum(-1)
+        args = (qh, kh, vh, mask, lse, delta, doh)
+        dq = fa.attention_bwd_dq(*args, **kw)
+        dk, dv = fa.attention_bwd_dkv(*args, **kw)
+        ref_out, ref_lse = fa.attention_fwd_lse_reference(
+            qh.float(), kh.float(), vh.float(), mask, **kw)
+        ref = fa.attention_bwd_reference(
+            qh.float(), kh.float(), vh.float(), mask, lse, delta,
+            doh.float(), **kw)
+        torch.cuda.synchronize()
+        rtol = F32_RTOL if dtype == f32 else KERNEL_RTOL
+        errs = {}
+        for kid, got, want in (("K3", (out,), (ref_out,)),
+                               ("K4", (dq,), ref[:1]),
+                               ("K5", (dk, dv), ref[1:])):
+            err, tol, top = 0.0, 0.0, 0.0
+            for g, w in zip(got, want):
+                if not torch.isfinite(g).all():
+                    raise RuntimeError(f"{kid} {label}: non-finite output")
+                top = max(top, w.abs().max().item())
+                err = max(err, (g.float() - w).abs().max().item())
+            tol = rtol * max(1.0, top)
+            errs[kid] = (err, tol, top)
+        dead_rows = ref_lse < -1e29
+        lse_err = (lse - ref_lse).masked_fill(dead_rows, 0).abs().max().item()
+        if not bool((lse[dead_rows] < -1e29).all()) or lse_err > LSE_ATOL:
+            raise RuntimeError(f"K3 {label}: lse disagrees ({lse_err:.3e})")
+        dead = ~mask.any(dim=1)             # batch elements attending nothing
+        zero_ok = not any(t[dead].any().item() for t in (dq, dk, dv))
+        log(f"  {label}: " + "; ".join(
+            f"{kid} max|ref| {top:.3f} max_abs_err {err:.3e} (tol {tol:.3e})"
+            for kid, (err, tol, top) in errs.items())
+            + f"; lse max_abs_err {lse_err:.3e}"
+            + (f"; fully masked element's grads exactly 0: {zero_ok}"
+               if dead.any() else ""))
+        for kid, (err, tol, _) in errs.items():
+            if err > tol:
+                raise RuntimeError(f"{kid} {label}: kernel disagrees with "
+                                   f"its plain version")
+        if not zero_ok:
+            raise RuntimeError(f"{label}: a fully masked element got a "
+                               f"nonzero gradient")
+        for kid, (err, _, _) in errs.items():
+            entry = results.setdefault(kid, dict(cases={}, max_abs_err=0.0))
+            entry["max_abs_err"] = max(entry["max_abs_err"], err)
+        if not timed:
+            continue
+        k3_ms = time_ms(torch, lambda: fa.attention_fwd_lse(
+            qh, kh, vh, mask, **kw))
+        k4_ms = time_ms(torch, lambda: fa.attention_bwd_dq(*args, **kw))
+        k5_ms = time_ms(torch, lambda: fa.attention_bwd_dkv(*args, **kw))
+        plain_fwd = time_ms(torch, lambda: fa.attention_fwd_lse_reference(
+            qh, kh, vh, mask, **kw), iters=5)
+        plain_bwd = time_ms(torch, lambda: fa.attention_bwd_reference(
+            *args, **kw), iters=5)
+        lib = flex_grad_calls(torch, qh, kh, vh, mask, doh)
+        lib_fwd = lib_bwd = None
+        if lib is not None:
+            lib_out, lib_lse = lib[0]()
+            lib_grads = lib[1]()
+            lib_err = max((lib_out.float() - ref_out).abs().max().item(),
+                          *((g.float() - r).abs().max().item()
+                            for g, r in zip(lib_grads, ref)))
+            lib_lse_err = (lib_lse - ref_lse).abs().max().item()
+            log(f"    library (flex_attention) max_abs_err {lib_err:.3e}, "
+                f"lse {lib_lse_err:.3e}")
+            if lib_err > 4 * max(e[1] for e in errs.values()) \
+                    or lib_lse_err > 1e-2:
+                raise RuntimeError(f"{label}: library yardstick disagrees "
+                                   f"with the plain version")
+            lib_fwd = device_ms(torch, lib[0])
+            lib_bwd = device_ms(torch, lib[1])
+        bounds = grad_bounds(bb, h, n, nk, 64, mask.numel())
+        times = {"K3": (k3_ms, plain_fwd, lib_fwd),
+                 "K4": (k4_ms, plain_bwd, lib_bwd),
+                 "K5": (k5_ms, plain_bwd, lib_bwd)}
+        for kid, (ms, plain_ms, lib_ms) in times.items():
+            bound_ms, bound_by = bounds[kid]
+            results[kid]["cases"][label] = dict(
+                ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                bound_ms=bound_ms, bound_by=bound_by)
+            log(f"    {kid}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
+                f"(K4/K5: the whole plain backward), library "
+                + ("n/a" if lib_ms is None else f"{lib_ms:.4f} ms device"
+                   + (" (flex backward: dq, dk, dv together)"
+                      if kid != "K3" else ""))
+                + f", bound {bound_ms:.4f} ms by {bound_by} "
+                f"({bound_ms / ms:.1%} of bound)")
+    return results
+
+
+# --------------------------------------------------------------- phase 6
+
+def tiny_batch(torch, cfg, b: int = 4, n: int = 96, nc: int = 8):
+    """The tiny training batch from numpy seed 0, ragged lens and context."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    r = lambda *s: torch.from_numpy(rng.normal(size=s).astype(np.float32))
+    return {"latents": r(b, n, cfg.num_channels),
+            "lens": torch.tensor([n, n - 6, n - 16, n])[:b],
+            "text_embed": r(b, n, cfg.dim_text),
+            "context": r(b, nc, cfg.dim_context),
+            "context_mask": torch.arange(nc)[None] < torch.tensor(
+                [[nc], [nc - 3], [2], [nc]])[:b]}
+
+
+def phase_small_train(torch) -> None:
+    """tiny_test() (f32, dropout 0): one train step on the card and on the
+    CPU from the same weights and the same draws (made on the CPU); then
+    TINY_STEPS steps on the card, whose loss must fall."""
+    from v2ap_torch import config as C
+    from v2ap_torch.models.cfm import CFM, draw_loss_randoms
+    from v2ap_torch.ops.flash_attention import (launch_counts,
+                                                reset_launch_counts)
+    from v2ap_torch.training import Trainer
+
+    base = C.tiny_test()
+    mcfg = dataclasses.replace(base.model, dropout=0.0)
+    tcfg = C.TrainConfig(learning_rate=1e-3, warmup_steps=2, decay_steps=1000)
+    gpu = CFM(mcfg, base.conditioning, device="cuda")
+    cpu = CFM(mcfg, base.conditioning, device="cpu")
+    cpu.load_state_dict(gpu.state_dict())
+    before = {k: v.detach().cpu().clone() for k, v in gpu.named_parameters()}
+    batch = tiny_batch(torch, mcfg)
+    b, n, c = batch["latents"].shape
+    draws = draw_loss_randoms(b, n, c, base.conditioning.frac_lengths_mask,
+                              generator=torch.Generator().manual_seed(7))
+    results = {}
+    for name, model in (("card", gpu), ("cpu", cpu)):
+        trainer = Trainer(model, tcfg)
+        dev = next(model.parameters()).device
+        reset_launch_counts()
+        loss, _ = trainer.train_step(batch, draws=draws._replace(
+            **{f: getattr(draws, f).to(dev) for f in draws._fields}))
+        results[name] = (loss.item(), trainer.last_grad_norm.item(),
+                         {k: (p.grad.cpu(), p.detach().cpu())
+                          for k, p in model.named_parameters()},
+                         dict(launch_counts))
+    (lg, ng, pg, counts), (lc, nc_, pc, _) = results["card"], results["cpu"]
+    per_step = 4 * mcfg.depth
+    for k in ("flash_attention_lse", "flash_attention_bwd_dq",
+              "flash_attention_bwd_dkv"):
+        if counts[k] != per_step:
+            raise RuntimeError(f"small train: {k} launched {counts[k]} "
+                               f"times, expected {per_step}")
+    loss_err = abs(lg - lc) / abs(lc)
+    grad_err = max(rel_rms(pg[k][0], pc[k][0]) for k in pc)
+    moved = torch.cat([(pg[k][1] - before[k]).flatten() for k in pc])
+    moved_cpu = torch.cat([(pc[k][1] - before[k]).flatten() for k in pc])
+    param_err = rel_rms(torch.cat([pg[k][1].flatten() for k in pc]),
+                        torch.cat([pc[k][1].flatten() for k in pc]))
+    log(f"  tiny_test f32 train step, card vs CPU: loss {lg:.6f} vs {lc:.6f} "
+        f"(rel {loss_err:.2e}), grad norm {ng:.5f} vs {nc_:.5f}, worst "
+        f"parameter gradient rel-RMS {grad_err:.2e} (tol {SMALL_REL_RMS}), "
+        f"updated parameters rel-RMS {param_err:.2e} (tol "
+        f"{SMALL_PARAM_REL_RMS}), update rel-RMS "
+        f"{rel_rms(moved, moved_cpu):.2e}; launches {counts}")
+    if not (loss_err < SMALL_REL_RMS and grad_err < SMALL_REL_RMS
+            and param_err < SMALL_PARAM_REL_RMS):
+        raise RuntimeError("small train: card and CPU disagree")
+
+    model = CFM(mcfg, base.conditioning, device="cuda")
+    trainer = Trainer(model, tcfg)
+    gpu_draws = draws._replace(**{f: getattr(draws, f).cuda()
+                                  for f in draws._fields})
+    losses = []
+    t0 = time.perf_counter()
+    for _ in range(TINY_STEPS):
+        loss, _ = trainer.train_step(batch, draws=gpu_draws)
+        losses.append(loss.item())
+    log(f"  tiny_test {TINY_STEPS} steps on the card (lr 1e-3, warmup 2): "
+        f"first {losses[0]:.4f} last {losses[-1]:.4f} min {min(losses):.4f}, "
+        f"{time.perf_counter() - t0:.2f} s")
+    if not losses[-1] < losses[0]:
+        raise RuntimeError("small train: the loss did not fall")
+
+    reset_launch_counts()
+    loss, _, pred = trainer.eval_step(batch, draws=gpu_draws, return_pred=True)
+    counts = dict(launch_counts)
+    expect = dict.fromkeys(counts, 0)
+    expect["flash_attention_packed"] = per_step     # no grad: K1, not K3
+    log(f"  eval step (times 0.5, no dropout, no grad): loss "
+        f"{loss.item():.4f}, pred {tuple(pred.shape)}; launches {counts}")
+    if counts != expect or not (torch.isfinite(loss)
+                                and torch.isfinite(pred).all()):
+        raise RuntimeError(f"small train: eval step launches {counts} != "
+                           f"{expect} or non-finite result")
+
+
+# --------------------------------------------------------------- phase 7
+
+def full_trainer(torch):
+    """v2a_default() CFM (bf16 compute, f32 params, dropout 0.1) from seed 0
+    on the card, TrainConfig() with EMA, and the synthetic batch."""
+    import numpy as np
+
+    from v2ap_torch import config as C
+    from v2ap_torch.models.cfm import CFM
+    from v2ap_torch.training import Trainer
+    from v2ap_torch.utils.device import seeded_init
+
+    cfg = C.v2a_default()
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    with seeded_init(0, dev):
+        model = CFM(cfg.model, cfg.conditioning, device=dev)
+    trainer = Trainer(model, C.TrainConfig(use_ema=True))
+    rng = np.random.default_rng(0)
+    b, n, nc = TRAIN_BATCH, TRAIN_LATENTS, TRAIN_CONTEXT
+    r = lambda *s: torch.from_numpy(rng.normal(size=s).astype(np.float32))
+    batch = {"latents": r(b, n, cfg.model.num_channels),
+             "lens": torch.full((b,), n),
+             "text_embed": r(b, n, cfg.model.dim_text),
+             "context": r(b, nc, cfg.model.dim_context),
+             "context_mask": torch.arange(nc)[None] < torch.from_numpy(
+                 rng.integers(4, nc + 1, size=(b, 1)))}
+    batch = {k: v.to(dev) for k, v in batch.items()}
+    torch.cuda.synchronize()
+    log(f"  build: {time.perf_counter() - t0:.2f} s, CFM "
+        f"{sum(p.numel() for p in model.parameters()) / 1e6:.1f} M f32 "
+        f"params, batch {b} x {n} latents (+32 registers), context {nc} "
+        f"with {batch['context_mask'].sum(1).tolist()} valid")
+    return trainer, batch
+
+
+def phase_train(torch, trainer, batch) -> dict:
+    """One warm-up step, then TRAIN_STEPS timed ones; counts per step."""
+    import numpy as np
+
+    from v2ap_torch.ops.flash_attention import (launch_counts,
+                                                reset_launch_counts)
+
+    model = trainer.model
+    watch = ["to_pred.weight", "transformer.registers",
+             "transformer.audio_blocks.0.attn.to_qkv.weight"]
+    params = dict(model.named_parameters())
+    start = {k: params[k].detach().clone() for k in watch}
+    ema_start = {k: trainer.ema.shadow[k].clone() for k in watch}
+    expect = dict.fromkeys(launch_counts, 0)
+    per_step = model.cfg.depth * 4        # 3 self-attentions + 1 cross
+    expect.update(flash_attention_lse=per_step,
+                  flash_attention_bwd_dq=per_step,
+                  flash_attention_bwd_dkv=per_step)
+    t0 = time.perf_counter()
+    loss, _ = trainer.train_step(batch)
+    torch.cuda.synchronize()
+    log(f"  warm-up step: {time.perf_counter() - t0:.3f} s, loss "
+        f"{loss.item():.4f}")
+    torch.cuda.reset_peak_memory_stats()
+    walls, losses, norms = [], [], []
+    for _ in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        loss, _ = trainer.train_step(batch)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        counts = dict(launch_counts)
+        losses.append(loss.item())
+        norms.append(trainer.last_grad_norm.item())
+        if counts != expect:
+            raise RuntimeError(f"train: launch counts {counts} != {expect}")
+    if not (np.isfinite(losses).all() and np.isfinite(norms).all()):
+        raise RuntimeError(f"train: non-finite loss {losses} or grad norm "
+                           f"{norms}")
+    moved = {k: (params[k] - start[k]).abs().max().item() for k in watch}
+    ema_moved = {k: (trainer.ema.shadow[k] - ema_start[k]).abs().max().item()
+                 for k in watch}
+    if not (all(moved.values()) and all(ema_moved.values())):
+        raise RuntimeError(f"train: parameters {moved} or EMA {ema_moved} "
+                           f"did not move")
+    wall = float(np.median(walls))
+    audio_s = TRAIN_BATCH * TRAIN_LATENTS / 75.0
+    log(f"  train step x{TRAIN_STEPS}: wall (s) "
+        f"{', '.join(f'{w:.4f}' for w in walls)}; median {wall:.4f} s, "
+        f"{audio_s / wall:.2f} training audio-s per s ({audio_s:.0f} s of "
+        f"audio per step); peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    log(f"  losses {', '.join(f'{x:.4f}' for x in losses)}; grad norms "
+        f"{', '.join(f'{x:.3f}' for x in norms)}; max |param change| "
+        f"{max(moved.values()):.3e}, max |EMA change| "
+        f"{max(ema_moved.values()):.3e}")
+    log(f"  launches per step: {counts}")
+    return counts
 
 
 # ------------------------------------------------------------------ main
@@ -458,42 +929,78 @@ def main() -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
 
-    log(f"[1/5] build — card: {card_line()}")
+    log(f"[1/8] build — card: {card_line()}")
     log(f"  torch {torch.__version__} (CUDA {torch.version.cuda}), "
         f"{torch.cuda.get_device_name(0)}; f32 matmul and cuDNN TF32 off")
     t0 = time.perf_counter()
     lib = fa.build_library()
     fa._library()
-    log(f"  built {os.path.relpath(lib, ROOT)} in "
-        f"{time.perf_counter() - t0:.2f} s")
+    log(f"  built {os.path.relpath(lib, ROOT)} from flash_fwd.cu and "
+        f"flash_bwd.cu in {time.perf_counter() - t0:.2f} s")
 
-    log("[2/5] kernels vs plain versions (bf16 in, f32 reference)")
+    log("[2/8] kernels vs plain versions (bf16 in, f32 reference)")
     kern = phase_kernels(torch)
-    log("[3/5] small f32 config: card vs CPU")
+    kern.update(phase_train_kernels(torch))
+    log("[3/8] small f32 config: card vs CPU")
     phase_small(torch)
-    log("[4/5] full-width V2A generate")
+    log("[4/8] full-width V2A generate")
     pipe, cfg, frames = full_pipeline(torch)
-    counts = phase_generate(torch, pipe, cfg, frames)
-    log("[5/5] profile")
-    phase_profile(torch, pipe, frames)
+    gen_counts = phase_generate(torch, pipe, cfg, frames)
+    log("[5/8] generate profile")
+
+    def generate_once():
+        wav, _ = pipe.generate(None, steps=25, cfg_strength=2.0, seed=0,
+                               frames_cache=[(frames, CLIP_S, 1)])
+        if not __import__("numpy").isfinite(wav).all():
+            raise RuntimeError("profile: non-finite waveform")
+
+    phase_profile(torch, "generate", generate_once)
+    del pipe
+    torch.cuda.empty_cache()
+    log("[6/8] small train: tiny_test() card vs CPU, then "
+        f"{TINY_STEPS} steps")
+    phase_small_train(torch)
+    log("[7/8] full-width V2A train step")
+    trainer, batch = full_trainer(torch)
+    train_counts = phase_train(torch, trainer, batch)
+    log("[8/8] train-step profile")
+
+    def train_once():
+        loss, _ = trainer.train_step(batch)
+        if not torch.isfinite(loss):
+            raise RuntimeError("train profile: non-finite loss")
+
+    phase_profile(torch, "train step", train_once)
 
     main_case = {"K1": "K1 self-attn (2, 800, 16x64)",
-                 "K2": "K2 ViT-bigG (64, 16, 257, 104)"}
-    meta = {"K1": ("flash_attention_packed",
-                   "v2ap_tpu/ops/flash_attention.py:503"),
-            "K2": ("flash_attention", "v2ap_tpu/ops/flash_attention.py:103")}
+                 "K2": "K2 ViT-bigG (64, 16, 257, 104)",
+                 "K3": "self-attn (8, 782, 16x64)",
+                 "K4": "self-attn (8, 782, 16x64)",
+                 "K5": "self-attn (8, 782, 16x64)"}
+    src = "v2ap_tpu/ops/flash_attention.py"
+    meta = {"K1": ("flash_attention_packed", "flash_fwd.cu", f"{src}:503"),
+            "K2": ("flash_attention", "flash_fwd.cu", f"{src}:103"),
+            "K3": ("flash_attention_lse", "flash_fwd.cu", f"{src}:116"),
+            "K4": ("flash_attention_bwd_dq", "flash_bwd.cu", f"{src}:151"),
+            "K5": ("flash_attention_bwd_dkv", "flash_bwd.cu", f"{src}:184")}
+    counts = {**{k: gen_counts[k] for k in ("flash_attention_packed",
+                                            "flash_attention")},
+              **{k: train_counts[k] for k in ("flash_attention_lse",
+                                              "flash_attention_bwd_dq",
+                                              "flash_attention_bwd_dkv")}}
     entries = []
-    for kid in ("K1", "K2"):
-        name, replaces = meta[kid]
+    for kid, (name, source, replaces) in meta.items():
         c = kern[kid]["cases"][main_case[kid]]
         entries.append({
             "name": name, "route": "cuda",
-            "source": "v2ap_torch/csrc/flash_fwd.cu", "replaces": replaces,
+            "source": f"v2ap_torch/csrc/{source}", "replaces": replaces,
             "launches": counts[name], "max_abs_err": kern[kid]["max_abs_err"],
             "ms": c["ms"], "plain_ms": c["plain_ms"],
             "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
             "library_ms": c["library_ms"]})
+    log(f"  chip_smoke total {time.perf_counter() - t_start:.1f} s")
     log(card_line())
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

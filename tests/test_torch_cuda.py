@@ -1,5 +1,6 @@
-"""The port's CUDA flash-attention kernel (``v2ap_torch/csrc/flash_fwd.cu``)
-on the card, against its plain PyTorch version on the same inputs.
+"""The port's CUDA flash-attention kernels (``v2ap_torch/csrc/flash_fwd.cu``:
+K1, K2 and K3; ``flash_bwd.cu``: K4 and K5) on the card, against their
+plain PyTorch versions on the same inputs.
 
 Every test here needs an NVIDIA card and nvcc and skips without them. The
 file imports no JAX, so it runs on a machine that has only PyTorch:
@@ -11,7 +12,10 @@ rest of the suite.)
 
 Tolerances, against the plain version computed in float32 from the same
 inputs: float32 1e-5 max abs (summation order only); bfloat16 1e-2 max abs
-(the output's rounding, half an ulp at |o| < 4).
+(the output's rounding, half an ulp at |o| < 4). The backward kernels get
+the same lse, D and dO as their plain version, so only the gradients'
+rounding and the summation order differ: float32 1e-4, bfloat16 2^-7, each
+times max(1, max|ref|); lse rtol 1e-5.
 """
 
 import numpy as np
@@ -116,7 +120,7 @@ def test_kernel_matches_plain_on_strided_fused_qkv(cuda):
 def test_kernel_refuses_what_it_was_not_built_for(cuda):
     """On a CUDA tensor the wrappers launch the kernel or raise; they never
     take the plain version."""
-    x = torch.zeros(1, 2, 16, 32, device=cuda)           # head dim 32
+    x = torch.zeros(1, 2, 16, 48, device=cuda)           # head dim 48
     with pytest.raises(ValueError, match="head dims"):
         fa.flash_attention(x, x, x)
     h = torch.zeros(1, 2, 16, 64, device=cuda, dtype=torch.float16)
@@ -125,3 +129,123 @@ def test_kernel_refuses_what_it_was_not_built_for(cuda):
     t = torch.zeros(1, 2, 64, 16, device=cuda).transpose(-1, -2)
     with pytest.raises(ValueError, match="contiguous last dim"):
         fa.flash_attention(t, t, t)
+
+
+BWD_CASES = [
+    # (b, h, nq, nk, d, softclamp, mask)
+    pytest.param((2, 16, 200, 200, 64, 50.0, "ragged"), id="self_d64"),
+    pytest.param((2, 8, 130, 130, 64, 50.0, "all_masked"),
+                 id="fully_masked_element"),
+    pytest.param((2, 16, 200, 16, 64, 50.0, "ragged"), id="cross_nk16"),
+    pytest.param((2, 2, 63, 65, 104, 50.0, "ragged"), id="edges_d104"),
+    pytest.param((2, 2, 70, 33, 32, 50.0, "ragged"), id="edges_d32"),
+    pytest.param((2, 2, 70, 33, 16, None, "ones"), id="edges_d16"),
+]
+
+
+def _check(got, ref, tol):
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    bound = tol * max(1.0, ref.abs().max().item())
+    assert (got.float() - ref).abs().max().item() <= bound
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", BWD_CASES)
+def test_lse_and_backward_kernels_match_plain(cuda, case, dtype):
+    """K3 (out, lse), K4 (dq) and K5 (dk, dv) on (b, h, n, d) views of
+    packed buffers against the plain versions on the same inputs; each
+    launch counted once; a fully masked batch element gets exactly zero
+    gradient."""
+    b, h, nq, nk, d, softclamp, mask_kind = case
+    rng = np.random.default_rng(2)
+    q, k, v, mask = _inputs(rng, b, h, nq, nk, d, mask_kind, dtype, cuda)
+    q, k, v = (fa._heads_view(t, h, d) for t in (q, k, v))
+    dout = torch.from_numpy(rng.normal(size=(b, h, nq, d)).astype(
+        np.float32)).to(cuda, dtype)
+    before = dict(fa.launch_counts)
+    out, lse = fa.attention_fwd_lse(q, k, v, mask, softclamp=softclamp)
+    ref_out, ref_lse = fa.attention_fwd_lse_reference(
+        q.float(), k.float(), v.float(), mask, softclamp=softclamp)
+    _check(out, ref_out, TOL[dtype])
+    torch.testing.assert_close(lse, ref_lse, rtol=1e-5, atol=1e-4)
+    delta = (dout.float() * out.float()).sum(-1)
+    args = (q, k, v, mask, lse, delta, dout)
+    dq = fa.attention_bwd_dq(*args, softclamp=softclamp)
+    dk, dv = fa.attention_bwd_dkv(*args, softclamp=softclamp)
+    ref = fa.attention_bwd_reference(q.float(), k.float(), v.float(), mask,
+                                     lse, delta, dout.float(),
+                                     softclamp=softclamp)
+    tol = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -7}[dtype]
+    for got, r in zip((dq, dk, dv), ref):
+        assert got.dtype == dtype and got.shape == r.shape
+        _check(got, r, tol)
+        if mask_kind == "all_masked":
+            assert not got[1].any()
+    for name in ("flash_attention_lse", "flash_attention_bwd_dq",
+                 "flash_attention_bwd_dkv"):
+        assert fa.launch_counts[name] == before[name] + 1
+
+
+def test_autograd_path_launches_k3_k4_k5(cuda):
+    """Under autograd the packed entry point launches K3 (not K1) and its
+    backward K4 and K5; the gradients equal the CPU autograd path's (the
+    plain versions) in f32."""
+    rng = np.random.default_rng(3)
+    b, n, h, d = 2, 150, 4, 64
+    qkv = rng.normal(size=(b, n, 3 * h * d)).astype(np.float32)
+    mask = torch.from_numpy(np.arange(n)[None].repeat(b, 0) < [[150], [99]])
+    w = torch.from_numpy(rng.normal(size=(b, n, h * d)).astype(np.float32))
+    grads = {}
+    for dev in ("cpu", "cuda"):
+        x = torch.from_numpy(qkv).to(dev).requires_grad_(True)
+        before = dict(fa.launch_counts)
+        out = fa.flash_attention_packed(*x.chunk(3, dim=-1), mask.to(dev),
+                                        heads=h, dim_head=d, softclamp=50.0)
+        (out * w.to(dev)).sum().backward()
+        grads[dev] = x.grad.cpu()
+        launched = {k: fa.launch_counts[k] - before[k] for k in before}
+        expect = dict.fromkeys(before, 0)
+        if dev == "cuda":
+            expect.update(flash_attention_lse=1, flash_attention_bwd_dq=1,
+                          flash_attention_bwd_dkv=1)
+        assert launched == expect
+    torch.cuda.synchronize()
+    assert (grads["cuda"] - grads["cpu"]).abs().max().item() <= \
+        1e-4 * max(1.0, grads["cpu"].abs().max().item())
+
+
+def test_trainer_steps_pick_their_kernels(cuda):
+    """On the tiny configuration, Trainer.train_step launches K3, K4 and K5
+    once per attention (3 self + 1 cross per layer) and no K1; eval_step
+    runs without autograd and so launches K1 and none of K3-K5."""
+    from v2ap_torch import config as C
+    from v2ap_torch.models.cfm import CFM
+    from v2ap_torch.training import Trainer
+
+    base = C.tiny_test()
+    torch.manual_seed(0)
+    model = CFM(base.model, base.conditioning, device=cuda)
+    trainer = Trainer(model, C.TrainConfig(learning_rate=1e-3,
+                                           warmup_steps=2))
+    rng = np.random.default_rng(4)
+    b, n, nc = 2, 40, 6
+    r = lambda *s: torch.from_numpy(rng.normal(size=s).astype(np.float32))
+    batch = {"latents": r(b, n, base.model.num_channels),
+             "lens": torch.tensor([n, n - 9]),
+             "text_embed": r(b, n, base.model.dim_text),
+             "context": r(b, nc, base.model.dim_context),
+             "context_mask": torch.arange(nc)[None] < torch.tensor([[nc], [3]])}
+    per_step = 4 * base.model.depth
+    for step, expect in (
+            (trainer.train_step, dict(flash_attention_lse=per_step,
+                                      flash_attention_bwd_dq=per_step,
+                                      flash_attention_bwd_dkv=per_step)),
+            (trainer.eval_step, dict(flash_attention_packed=per_step))):
+        fa.reset_launch_counts()
+        loss = step(batch)[0]
+        torch.cuda.synchronize()
+        assert torch.isfinite(loss)
+        assert fa.launch_counts == {**dict.fromkeys(fa.launch_counts, 0),
+                                    **expect}

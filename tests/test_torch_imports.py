@@ -20,7 +20,7 @@ def test_port_loads_no_jax_modules():
         "import v2ap_torch\n"
         "for m in pkgutil.walk_packages(v2ap_torch.__path__, 'v2ap_torch.'):\n"
         "    importlib.import_module(m.name)\n"
-        "import v2ap_torch.pipelines.generate\n"
+        "import v2ap_torch.pipelines.generate, v2ap_torch.training.trainer\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
         "print(repr(bad))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -49,3 +49,13 @@ def test_pipeline_refuses_missing_cuda():
     from v2ap_torch.pipelines.generate import V2APipeline
     with pytest.raises(RuntimeError, match="CUDA"):
         V2APipeline()
+
+
+def test_training_sources_are_checked():
+    """The static check above covers the training slice and the backward
+    kernel's wrapper."""
+    checked = {p.relative_to(ROOT).as_posix()
+               for p in (ROOT / "v2ap_torch").rglob("*.py")}
+    assert {"v2ap_torch/training/trainer.py",
+            "v2ap_torch/training/__init__.py",
+            "v2ap_torch/ops/flash_attention.py"} <= checked

@@ -1,7 +1,7 @@
 """Typed configuration for the PyTorch port.
 
 A copy of the fields of ``v2ap_tpu.config`` that the port's V2A serving
-slice reads (the port imports nothing of the JAX package). The field names,
+and training slices read (the port imports nothing of the JAX package). The field names,
 defaults and meanings are the JAX package's, so one configuration drives both.
 ``ModelConfig.dtype`` is the compute dtype: matmul inputs are cast to it,
 parameters stay float32, norms and softmax run in float32.
@@ -64,7 +64,7 @@ class ModelConfig:
     # compute dtypes
     dtype: str = "bfloat16"
     param_dtype: str = "float32"
-    # training-only in the JAX package; kept so one config drives both
+    # per-layer activation recomputation: not ported (True raises)
     remat: bool = False
     remat_policy: str = "full"
     # every audio layer's time-cond projections as one stacked matmul
@@ -110,10 +110,46 @@ class ConditioningConfig:
 
 
 @dataclass(frozen=True)
+class DataConfig:
+    """The training window (the JAX package's DataConfig has the data
+    pipeline's other fields, which the port does not read yet)."""
+
+    target_length: int = 750                   # 10 s of 75 Hz latents
+    min_target_length: int = 750
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    learning_rate: float = 7.5e-5
+    warmup_steps: int = 20_000
+    decay_steps: int = 1_000_000
+    grad_accum: int = 1
+    grad_clip: float = 1.0
+    batch_size: int = 8
+    epochs: int = 10
+    save_step: int = 2000
+    midi_loss_weight: float = 10.0             # not read: the V2P MIDI loss is not ported
+    mu_bf16: bool = False                      # not ported (True raises)
+    ema_decay: float = 0.999
+    use_ema: bool = False
+    switch_ema_every: int = 0                  # not read by the port: call Trainer.switch_ema
+    # DPO preference optimization: not ported (True raises)
+    dpo: bool = False
+    dpo_beta: float = 1.0
+    velocity_consistency_weight: float = -1e-5
+    # FactorCL contrastive alignment: not ported (True raises)
+    contrastive: bool = False
+    contrastive_weight: float = 1.0
+    contrastive_layer: int = 1
+
+
+@dataclass(frozen=True)
 class V2APConfig:
     model: ModelConfig = field(default_factory=ModelConfig)
     sampler: SamplerConfig = field(default_factory=SamplerConfig)
     conditioning: ConditioningConfig = field(default_factory=ConditioningConfig)
+    data: DataConfig = field(default_factory=DataConfig)
+    train: TrainConfig = field(default_factory=TrainConfig)
 
     def replace(self, **sections: Any) -> "V2APConfig":
         return dataclasses.replace(self, **sections)

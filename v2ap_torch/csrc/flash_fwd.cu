@@ -1,11 +1,16 @@
 // Flash-attention forward for Hopper (sm_90a): one strided kernel serves the
 // head-packed (b, n, h*d) layout and the (b, h, n, d) layout.
 //
-// Replaces two Pallas TPU kernels of v2ap_tpu/ops/flash_attention.py:
+// Replaces three Pallas TPU kernels of v2ap_tpu/ops/flash_attention.py:
 //   K1  _packed_fwd_kernel (+ _packed_online_softmax), entry
 //       flash_attention_packed: every attention of the CFM transformer;
 //   K2  _flash_kernel (+ _online_softmax), entry flash_attention: the 48
-//       attention layers of CLIP ViT-bigG (head dim 104).
+//       attention layers of CLIP ViT-bigG (head dim 104);
+//   K3  _flash_kernel_lse and _packed_fwd_kernel with lse_ref: the same
+//       forward under autograd, which also stores the per-row log-sum-exp
+//       lse = m + log(max(l, 1e-30)) as f32 (b, h, nq) for the backward
+//       kernels of flash_bwd.cu. One kernel with an optional second output,
+//       not a copy: a null lse pointer skips the store.
 // Both compute  out = softmax(mask(softclamp(q k^T * scale))) v  with an
 // online softmax over key tiles: running max and denominator in f32, masked
 // logits set to -1e30, the denominator floored at 1e-20. Softclamp
@@ -51,6 +56,7 @@ struct Params {
   const void* v;
   const uint8_t* mask;  // (b, nk), nonzero == attend; nullptr == all attend
   void* o;
+  float* lse;           // (b, h, nq) contiguous; nullptr == not stored
   int batch, heads, nq, nk;
   long long q_sb, q_sh, q_sn;
   long long k_sb, k_sh, k_sn;
@@ -227,6 +233,9 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd_kernel(Params p) {
         const int d = tx + 16 * cc;
         if (d < D) store_f32(o + r * p.o_sn + d, acc[i][cc] / denom);
       }
+      if (p.lse != nullptr && tx == 0)
+        p.lse[(static_cast<long long>(b) * p.heads + h) * p.nq + r] =
+            m_i[i] + logf(fmaxf(l_i[i], 1e-30f));
     }
   }
 }
@@ -243,14 +252,29 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// Head dims built: 64 (the CFM), 104 (ViT-bigG), 16 and 32 (the tiny test
+// configuration, so that it trains on the card through the same kernels).
+template <typename T>
+int dispatch_head_dim(int head_dim, const Params& p, cudaStream_t s) {
+  switch (head_dim) {
+    case 16: return launch<T, 16>(p, s);
+    case 32: return launch<T, 32>(p, s);
+    case 64: return launch<T, 64>(p, s);
+    case 104: return launch<T, 104>(p, s);
+    default: return -1;
+  }
+}
+
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16. Returns 0 on success, a cudaError_t
-// value when the launch failed, -1 for an unsupported dtype / head dim.
+// dtype: 0 = float32, 1 = bfloat16. lse may be null. Returns 0 on success,
+// a cudaError_t value when the launch failed, -1 for an unsupported dtype /
+// head dim.
 int v2ap_flash_fwd(int dtype, int head_dim, const void* q, const void* k,
-                   const void* v, const void* mask, void* o, int batch,
+                   const void* v, const void* mask, void* o, void* lse,
+                   int batch,
                    int heads, int nq, int nk, long long q_sb, long long q_sh,
                    long long q_sn, long long k_sb, long long k_sh,
                    long long k_sn, long long v_sb, long long v_sh,
@@ -263,6 +287,7 @@ int v2ap_flash_fwd(int dtype, int head_dim, const void* q, const void* k,
   p.v = v;
   p.mask = static_cast<const uint8_t*>(mask);
   p.o = o;
+  p.lse = static_cast<float*>(lse);
   p.batch = batch;
   p.heads = heads;
   p.nq = nq;
@@ -283,10 +308,8 @@ int v2ap_flash_fwd(int dtype, int head_dim, const void* q, const void* k,
   p.scale = scale;
   p.softclamp = softclamp;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && head_dim == 64) return launch<float, 64>(p, s);
-  if (dtype == 0 && head_dim == 104) return launch<float, 104>(p, s);
-  if (dtype == 1 && head_dim == 64) return launch<__nv_bfloat16, 64>(p, s);
-  if (dtype == 1 && head_dim == 104) return launch<__nv_bfloat16, 104>(p, s);
+  if (dtype == 0) return dispatch_head_dim<float>(head_dim, p, s);
+  if (dtype == 1) return dispatch_head_dim<__nv_bfloat16>(head_dim, p, s);
   return -1;
 }
 

@@ -1,6 +1,7 @@
-"""Conditional flow-matching model over EnCodec latents — the sampling side.
+"""Conditional flow-matching model over EnCodec latents: sampling and the
+V2A training loss.
 
-Counterpart of ``pred_head``, ``sample`` and ``_make_cfg_fn`` of
+Counterpart of ``pred_head``, ``sample``, ``_make_cfg_fn`` and ``loss`` of
 ``v2ap_tpu/models/cfm.py``:
 
   latents (b, n, 128)  --proj_in-->  audio stream
@@ -10,30 +11,88 @@ Counterpart of ``pred_head``, ``sample`` and ``_make_cfg_fn`` of
   times (b,)                         AdaLN conditioning
 
 Inference is Euler integration over a sway schedule with classifier-free
-guidance folded into one batch-doubled forward per step. This port builds
-no Video2Roll net (V2A feeds a zero roll); the training loss,
-``encode_frames`` and ``sample_multipass`` are not ported yet.
+guidance folded into one batch-doubled forward per step. Training is the
+span-masked flow-matching MSE with per-sample condition dropout; its seven
+random draws come from one helper, ``draw_loss_randoms``, so that a caller
+can hand in values drawn elsewhere. This port builds no Video2Roll net (V2A
+feeds a zero roll): ``encode_frames``, the V2P MIDI loss and
+``sample_multipass`` are not ported yet.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Any, NamedTuple, Optional
 
 import torch
 from torch import nn
 
 from v2ap_torch.config import ConditioningConfig, ModelConfig, SamplerConfig
 from v2ap_torch.models.transformer import TriStreamTransformer
-from v2ap_torch.ops.layers import Linear
+from v2ap_torch.ops.layers import Dropout, Linear
 from v2ap_torch.ops.sampling import (
-    euler_integrate, project_parallel, sway_timesteps,
+    euler_integrate, lens_to_mask, mask_from_frac_lengths, project_parallel,
+    sway_timesteps,
 )
 from v2ap_torch.utils.device import resolve_device
 
 
+class LossBreakdown(NamedTuple):
+    flow: torch.Tensor
+    midi: torch.Tensor
+    precision: torch.Tensor
+    recall: torch.Tensor
+    f1: torch.Tensor
+    accuracy: torch.Tensor
+    dpo: Any = 0.0
+    contrastive: Any = 0.0
+
+
+class CFMOutput(NamedTuple):
+    loss: torch.Tensor
+    pred_flow: torch.Tensor
+    pred_data: torch.Tensor
+    breakdown: LossBreakdown
+    # per-sample span-masked flow loss (b,): the DPO scores
+    per_sample_flow: Optional[torch.Tensor] = None
+
+
+class LossDraws(NamedTuple):
+    """The loss's random draws, in the JAX package's key order: span
+    fraction in [lo, hi), span start, x0, t, and the uniforms that the
+    audio / text / prompt dropout probabilities are compared with."""
+    frac: torch.Tensor          # (b,)
+    start: torch.Tensor         # (b,)
+    x0: torch.Tensor            # (b, n, c)
+    t: torch.Tensor             # (b,)
+    drop_audio: torch.Tensor    # (b,)
+    drop_text: torch.Tensor     # ()
+    drop_prompt: torch.Tensor   # (b,)
+
+
+def draw_loss_randoms(b: int, n: int, c: int,
+                      frac_lengths: tuple[float, float], *,
+                      generator: torch.Generator | None = None,
+                      device=None) -> LossDraws:
+    """Draw the loss's seven random values from ``generator`` on its own
+    device (the default CPU generator when None), then move them to
+    ``device``."""
+    gen_dev = generator.device if generator is not None else "cpu"
+    lo, hi = frac_lengths
+
+    def u(*shape):
+        return torch.rand(shape, generator=generator, device=gen_dev)
+
+    draws = LossDraws(
+        frac=lo + (hi - lo) * u(b), start=u(b),
+        x0=torch.randn((b, n, c), generator=generator, device=gen_dev),
+        t=u(b), drop_audio=u(b), drop_text=u(), drop_prompt=u(b))
+    return LossDraws(*(x.to(device) for x in draws))
+
+
 class CFM(nn.Module):
     def __init__(self, cfg: ModelConfig,
-                 cond_cfg: ConditioningConfig | None = None, *, device=None):
+                 cond_cfg: ConditioningConfig | None = None, *, device=None,
+                 dropout_seed: int = 0):
         super().__init__()
         device = resolve_device(device)
         self.cfg = cfg
@@ -53,6 +112,12 @@ class CFM(nn.Module):
         self.proj_frames = Linear(cfg.notes, cfg.dim_frames, **kw)
         self.proj_text = (Linear(cfg.dim_text_raw, cfg.dim_text, **kw)
                           if cfg.dim_text_raw else None)
+        # every dropout draws from one generator on the model's device
+        self.dropout_generator = torch.Generator(device=device)
+        self.dropout_generator.manual_seed(dropout_seed)
+        for m in self.modules():
+            if isinstance(m, Dropout):
+                m.generator = self.dropout_generator
 
     def pred_head(
         self,
@@ -65,8 +130,10 @@ class CFM(nn.Module):
         frames_embed: torch.Tensor,             # (b, n, notes) roll probs
         context: Optional[torch.Tensor],        # (b, nc, dim_context)
         context_mask: Optional[torch.Tensor],   # (b, nc)
+        deterministic: bool = True,
     ) -> torch.Tensor:
-        """One transformer evaluation -> predicted flow (b, n, C), float32."""
+        """One transformer evaluation -> predicted flow (b, n, C), float32.
+        ``deterministic=False`` applies the transformer's dropouts."""
         if cond is not None and self.cfg.concat_cond:
             h = self.proj_in(torch.cat([cond, x], dim=-1))
         else:
@@ -79,7 +146,7 @@ class CFM(nn.Module):
         out = self.transformer(
             h, times=times, mask=mask, text_embed=text_embed,
             frames_embed=self.proj_frames(frames_embed), context=context,
-            context_mask=context_mask)
+            context_mask=context_mask, deterministic=deterministic)
         return self.to_pred(out).float()
 
     def sample(
@@ -156,3 +223,84 @@ class CFM(nn.Module):
             return pred + update * sampler.cfg_strength
 
         return fn
+
+    # ------------------------------------------------------------------ loss
+    def loss(
+        self,
+        x1: torch.Tensor,                       # (b, n, C) target latents
+        *,
+        lens: torch.Tensor,                     # (b,)
+        text_embed: torch.Tensor,               # (b, n, dim_text)
+        context: Optional[torch.Tensor],        # (b, nc, dim_context)
+        context_mask: Optional[torch.Tensor],   # (b, nc)
+        generator: Optional[torch.Generator] = None,
+        draws: Optional[LossDraws] = None,
+        frames: Optional[torch.Tensor] = None,
+        times=None,                             # fixed times (val) or None
+        x0: Optional[torch.Tensor] = None,      # coupled noise, else drawn
+        val: bool = False,
+    ) -> CFMOutput:
+        """Flow-matching training objective for V2A (no keyboard frames):
+        span mask, x0 and t, w = (1-t) x0 + t x1 against the flow x1 - x0,
+        per-sample dropout of the audio condition, the CLIP stream (one draw
+        for the batch) and the prompt, dropout in the transformer unless
+        ``val``. The random values come from ``draws`` if given, else from
+        ``draw_loss_randoms`` on ``generator``."""
+        if frames is not None:
+            raise NotImplementedError("the V2P MIDI loss and encode_frames "
+                                      "are not ported")
+        cc = self.cond_cfg
+        b, n, c = x1.shape
+        dev = x1.device
+        lens = lens.to(dev)
+        mask = lens_to_mask(lens, n)
+        if draws is None:
+            draws = draw_loss_randoms(b, n, c, cc.frac_lengths_mask,
+                                      generator=generator, device=dev)
+        no_audio_cond = cc.audiocond_drop_prob > 1.0
+        lo, hi = cc.frac_lengths_mask
+        if not val:
+            frac = torch.ones(b, device=dev) if no_audio_cond else draws.frac
+            start_rand = draws.start
+        else:
+            frac = torch.full((b,), (lo + hi) / 2.0, device=dev)
+            start_rand = torch.full((b,), 0.5, device=dev)
+        span_mask = mask_from_frac_lengths(lens, frac, n, start_rand) & mask
+
+        x0 = draws.x0 if x0 is None else x0.float()
+        x1 = x1.float()
+        t = (draws.t if times is None else
+             torch.as_tensor(times, dtype=torch.float32, device=dev).expand(b))
+        tb = t[:, None, None]
+        w = (1.0 - tb) * x0 + tb * x1
+        flow = x1 - x0
+        cond = (None if no_audio_cond
+                else torch.where(span_mask[..., None], 0.0, x1))
+        frames_embed = torch.zeros(b, n, self.cfg.notes, device=dev)
+
+        if not val:
+            drop_audio = draws.drop_audio < cc.audiocond_drop_prob
+            drop_text = draws.drop_text < cc.cond_drop_prob
+            drop_prompt = draws.drop_prompt < cc.prompt_drop_prob
+        else:
+            drop_audio = drop_prompt = torch.zeros(b, dtype=torch.bool,
+                                                   device=dev)
+            drop_text = torch.zeros((), dtype=torch.bool, device=dev)
+        if cond is not None:
+            cond = torch.where(drop_audio[:, None, None], 0.0, cond)
+        text_in = torch.where(drop_text, 0.0, text_embed)
+        ctx_in = (None if context is None else
+                  torch.where(drop_prompt[:, None, None], 0.0, context))
+
+        pred = self.pred_head(
+            w, cond, times=t, mask=mask, text_embed=text_in,
+            frames_embed=frames_embed, context=ctx_in,
+            context_mask=context_mask, deterministic=val)
+        per = (pred - flow) ** 2
+        loss_flow = torch.where(span_mask[..., None], per, 0.0).sum() / \
+            torch.clamp(span_mask.sum() * c, min=1)
+        per_sample = (per.mean(-1) * span_mask).mean(-1)
+        zero = torch.zeros((), device=dev)
+        breakdown = LossBreakdown(loss_flow, zero, zero, zero, zero, zero)
+        return CFMOutput(loss_flow, pred, x0 + pred, breakdown,
+                         per_sample_flow=per_sample)

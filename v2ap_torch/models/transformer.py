@@ -7,7 +7,9 @@ the prompt context and U-Net skips), text (per-frame CLIP embeddings) and
 frames (piano roll) — exchange information per layer through zero-init
 linear fusions. 32 registers are prepended to every stream; the key-padding
 mask is shared (registers always attend). Matmuls run in the config's
-compute dtype, norms and softmax in float32.
+compute dtype, norms and softmax in float32. ``deterministic=False``
+(training) turns on the attention-output and GLU dropouts at
+``cfg.dropout``; ``cfg.remat`` (activation recomputation) is not ported.
 """
 
 from __future__ import annotations
@@ -58,19 +60,21 @@ class StreamBlock(nn.Module):
         self.conv = (DepthwiseConv1d(dim, kernel_size, dtype=dtype,
                                      device=device) if use_conv else None)
         self.attn_norm = RMSNorm(dim, device=device)
-        self.attn = Attention(dim, heads, dim_head,
+        self.attn = Attention(dim, heads, dim_head, dropout=cfg.dropout,
                               gate_value_heads=cfg.gate_value_heads,
                               softclamp_logits=cfg.softclamp_logits,
                               softclamp_value=cfg.softclamp_value,
                               dtype=dtype, device=device)
         self.ff_norm = RMSNorm(dim, device=device)
-        self.ff = GLUFeedForward(dim, ff_mult, dtype=dtype, device=device)
+        self.ff = GLUFeedForward(dim, ff_mult, cfg.dropout, dtype=dtype,
+                                 device=device)
 
-    def forward(self, x, *, rotary, mask):
+    def forward(self, x, *, rotary, mask, deterministic=True):
         if self.conv is not None:
             x = self.conv(x, mask=mask) + x
-        x = self.attn(self.attn_norm(x), rotary=rotary, mask=mask) + x
-        return self.ff(self.ff_norm(x)) + x
+        x = self.attn(self.attn_norm(x), rotary=rotary, mask=mask,
+                      deterministic=deterministic) + x
+        return self.ff(self.ff_norm(x), deterministic=deterministic) + x
 
 
 class AudioBlock(nn.Module):
@@ -86,7 +90,8 @@ class AudioBlock(nn.Module):
         self.conv = (DepthwiseConv1d(dim, cfg.kernel_size, dtype=dtype,
                                      device=device)
                      if cfg.if_audio_conv else None)
-        attn_kw = dict(gate_value_heads=cfg.gate_value_heads,
+        attn_kw = dict(dropout=cfg.dropout,
+                       gate_value_heads=cfg.gate_value_heads,
                        softclamp_logits=cfg.softclamp_logits,
                        softclamp_value=cfg.softclamp_value, dtype=dtype,
                        device=device)
@@ -106,7 +111,8 @@ class AudioBlock(nn.Module):
             self.cross_attn = None
             self.cross_self_ok = False
         self.ff_norm = AdaptiveRMSNorm(dim, device=device)
-        self.ff = GLUFeedForward(dim, cfg.ff_mult, dtype=dtype, device=device)
+        self.ff = GLUFeedForward(dim, cfg.ff_mult, cfg.dropout, dtype=dtype,
+                                 device=device)
         self.ff_gate = AdaLNZero(dim, device=device)
 
     def cond_projections(self):
@@ -117,7 +123,7 @@ class AudioBlock(nn.Module):
         return mods + [self.ff_norm, self.ff_gate]
 
     def forward(self, x, skip, *, cond, rotary, mask, context, context_mask,
-                gammas=None):
+                deterministic=True, gammas=None):
         if self.skip_proj is not None:
             x = self.skip_proj(torch.cat([x, skip], dim=-1))
         if self.conv is not None:
@@ -126,18 +132,21 @@ class AudioBlock(nn.Module):
         # inside each norm / gate
         g = (lambda i: gammas[:, i]) if gammas is not None else (lambda i: None)
         attn_out = self.attn(self.attn_norm(x, condition=cond, gamma=g(0)),
-                             rotary=rotary, mask=mask)
+                             rotary=rotary, mask=mask,
+                             deterministic=deterministic)
         x = x + self.attn_gate(attn_out, condition=cond, gamma=g(1))
         slot = 2
         if self.cross_attn is not None and (context is not None
                                             or self.cross_self_ok):
             cross_out = self.cross_attn(
                 self.cross_norm(x, condition=cond, gamma=g(2)), rotary=rotary,
-                mask=mask, context=context, context_mask=context_mask)
+                mask=mask, context=context, context_mask=context_mask,
+                deterministic=deterministic)
             x = x + self.cross_gate(cross_out, condition=cond, gamma=g(3))
         if self.cross_attn is not None:
             slot = 4
-        ff_out = self.ff(self.ff_norm(x, condition=cond, gamma=g(slot)))
+        ff_out = self.ff(self.ff_norm(x, condition=cond, gamma=g(slot)),
+                         deterministic=deterministic)
         return x + self.ff_gate(ff_out, condition=cond, gamma=g(slot + 1))
 
 
@@ -148,6 +157,9 @@ class TriStreamTransformer(nn.Module):
             raise ValueError("depth must be even for U-Net skips")
         if not 1 <= cfg.text_depth <= cfg.depth:
             raise ValueError(f"text_depth {cfg.text_depth} not in [1, depth]")
+        if cfg.remat:
+            raise NotImplementedError("remat (per-layer activation "
+                                      "recomputation) is not ported")
         self.cfg = cfg
         dtype = getattr(torch, cfg.dtype)
         r = cfg.num_registers
@@ -209,6 +221,7 @@ class TriStreamTransformer(nn.Module):
         frames_embed: torch.Tensor,          # (b, n, dim_frames)
         context: torch.Tensor | None = None,        # (b, nc, dim_context)
         context_mask: torch.Tensor | None = None,   # (b, nc)
+        deterministic: bool = True,
     ) -> torch.Tensor:
         cfg = self.cfg
         b, n, _ = x.shape
@@ -250,16 +263,19 @@ class TriStreamTransformer(nn.Module):
             layer = ind + 1
             skip = None if layer <= cfg.depth // 2 else skips.pop()
             if ind < cfg.text_depth:
-                text_embed = self.text_blocks[ind](text_embed, rotary=rot_text,
-                                                   mask=mask)
+                text_embed = self.text_blocks[ind](
+                    text_embed, rotary=rot_text, mask=mask,
+                    deterministic=deterministic)
                 frames_embed = self.frames_blocks[ind](
-                    frames_embed, rotary=rot_frames, mask=mask)
+                    frames_embed, rotary=rot_frames, mask=mask,
+                    deterministic=deterministic)
                 x, text_embed, frames_embed = self.cross_conditions[ind](
                     x, text_embed, frames_embed)
             x_mid = x
             x = self.audio_blocks[ind](
                 x, skip, cond=cond, rotary=rot_audio, mask=mask,
                 context=context, context_mask=context_mask,
+                deterministic=deterministic,
                 gammas=None if all_gammas is None else all_gammas[ind])
             if layer <= cfg.depth // 2:
                 skips.append(x_mid)

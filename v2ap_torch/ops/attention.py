@@ -4,8 +4,11 @@ Counterpart of ``v2ap_tpu/ops/attention.py``: q/k/v/out projections without
 bias (fused qkv for self-attention, split projections for cross-attention),
 rotary on q and k of self-attention only, softclamped logits, key-padding
 mask, sigmoid per-head output gates computed from the query input. Every
-call, self and cross, goes through ``flash_attention_packed`` (K1) on the
-head-packed projections. Serving only: dropout is not applied.
+call, self and cross, goes through ``flash_attention_packed`` on the
+head-packed projections (K1 in serving, K3-K5 under autograd). In training
+(``deterministic=False``) dropout applies to the attention output rows
+before the value gates, as in the JAX package (not to the probabilities,
+which the flash kernels never materialise).
 """
 
 from __future__ import annotations
@@ -14,7 +17,7 @@ import torch
 from torch import nn
 
 from v2ap_torch.ops.flash_attention import flash_attention_packed
-from v2ap_torch.ops.layers import Linear
+from v2ap_torch.ops.layers import Dropout, Linear
 from v2ap_torch.ops.rope import apply_rope
 
 
@@ -27,6 +30,7 @@ class Attention(nn.Module):
         *,
         dim_context: int | None = None,
         cross_attention: bool | None = None,
+        dropout: float = 0.0,
         gate_value_heads: bool = True,
         softclamp_logits: bool = True,
         softclamp_value: float = 50.0,
@@ -52,6 +56,7 @@ class Attention(nn.Module):
         self.to_out = Linear(inner, dim, **kw)
         self.to_v_gates = (Linear(dim, heads, dtype=dtype, device=device)
                            if gate_value_heads else None)
+        self.dropout = Dropout(dropout)
 
     def forward(
         self,
@@ -61,6 +66,7 @@ class Attention(nn.Module):
         mask: torch.Tensor | None = None,           # (b, n) key padding (self)
         context: torch.Tensor | None = None,        # (b, nc, dim_context)
         context_mask: torch.Tensor | None = None,   # (b, nc)
+        deterministic: bool = True,
     ) -> torch.Tensor:
         has_context = context is not None
         if self.fused_qkv and not has_context:
@@ -79,6 +85,7 @@ class Attention(nn.Module):
                                      context_mask if has_context else mask,
                                      heads=h, dim_head=d,
                                      softclamp=self.softclamp)
+        out = self.dropout(out, deterministic=deterministic)
         if self.to_v_gates is not None:
             gates = torch.sigmoid(self.to_v_gates(x))      # (b, n, heads)
             out = (out.unflatten(-1, (h, d)) * gates[..., None]).flatten(2)

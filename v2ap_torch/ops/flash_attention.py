@@ -1,24 +1,35 @@
-"""Flash-attention forward: the plain PyTorch version and the wrappers over
-the hand-written CUDA kernel in ``v2ap_torch/csrc/flash_fwd.cu``.
+"""Flash attention: the plain PyTorch versions and the wrappers over the
+hand-written CUDA kernels in ``v2ap_torch/csrc/`` (forward ``flash_fwd.cu``,
+backward ``flash_bwd.cu``).
 
 Counterpart of ``v2ap_tpu/ops/flash_attention.py``. Two entry points keep
 the JAX signatures:
 
-  * ``flash_attention_packed`` (K1) on head-packed (b, n, h*d) q/k/v — every
+  * ``flash_attention_packed`` on head-packed (b, n, h*d) q/k/v — every
     attention of the CFM transformer;
-  * ``flash_attention`` (K2) on (b, h, n, d) — the CLIP ViT-bigG tower.
+  * ``flash_attention`` on (b, h, n, d) — the CLIP ViT-bigG tower.
 
-On a CPU tensor each takes the plain version (``attention_reference``). On a
-CUDA tensor it launches the kernel or raises; there is no fallback. Unlike
-the Pallas kernels the CUDA kernel takes any sequence lengths (it masks the
-ragged edges itself) and any strides with a contiguous last dim, so the
-serving bucket's 800 tokens, CLIP's 257 and a length-1 cross-attention
-context all run on it. ``launch_counts`` counts kernel launches per entry
-point.
+Without autograd (serving) each launches the forward kernel: K1 for the
+packed layout, K2 for the 4D one. Under autograd (an input requires grad)
+each goes through ``_FlashAttentionFn``, the counterpart of ``_packed_ad`` /
+``_flash_ad``: the forward launches K3 (the same kernel, also storing the
+per-row log-sum-exp) and saves (q, k, v, mask, out, lse); the backward
+computes D = rowsum(dO * O) in plain PyTorch, as JAX does outside its
+kernels, then launches K4 (dq) and K5 (dk, dv), which recompute the
+probabilities from lse and give masked keys exactly zero probability.
 
-The kernel is compiled with nvcc for sm_90a at first use into
-``build/v2ap_torch/`` (named by the source's hash, so an edited source is
-rebuilt) and loaded with ctypes.
+On a CPU tensor every path takes the plain version (``attention_reference``,
+``attention_fwd_lse_reference``, ``attention_bwd_reference``). On a CUDA
+tensor it launches the kernel or raises; there is no fallback. Unlike the
+Pallas kernels the CUDA kernels take any sequence lengths (they mask the
+ragged edges themselves) and any strides with a contiguous last dim, so the
+serving bucket's 800 tokens, CLIP's 257, the 782 tokens of a training
+window and a short cross-attention context all run on them.
+``launch_counts`` counts kernel launches by kernel.
+
+The kernels are compiled with nvcc for sm_90a at first use into one
+library in ``build/v2ap_torch/`` (named by the sources' hash, so an edited
+source is rebuilt) and loaded with ctypes.
 """
 
 from __future__ import annotations
@@ -35,13 +46,18 @@ import torch
 
 NEG_INF = -1e30
 
-launch_counts = {"flash_attention": 0, "flash_attention_packed": 0}
+# K1 flash_attention_packed, K2 flash_attention, K3 flash_attention_lse,
+# K4 flash_attention_bwd_dq, K5 flash_attention_bwd_dkv
+launch_counts = {"flash_attention": 0, "flash_attention_packed": 0,
+                 "flash_attention_lse": 0, "flash_attention_bwd_dq": 0,
+                 "flash_attention_bwd_dkv": 0}
 
-_SRC = Path(__file__).resolve().parents[1] / "csrc" / "flash_fwd.cu"
+_CSRC = Path(__file__).resolve().parents[1] / "csrc"
+_SOURCES = (_CSRC / "flash_fwd.cu", _CSRC / "flash_bwd.cu")
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "v2ap_torch"
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
-               "-std=c++17", "-shared", "-Xcompiler", "-fPIC")
-_HEAD_DIMS = (64, 104)
+               "-std=c++17", "-Xcompiler", "-fPIC")
+_HEAD_DIMS = (16, 32, 64, 104)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -74,6 +90,67 @@ def attention_reference(
     return out.to(q.dtype)
 
 
+def _logits(q, k, softclamp, scale):
+    """Softclamped logits in f32 and the softclamp's chain-rule factor
+    d(clamped)/d(raw) = 1 - (clamped/c)^2 (None without softclamp)."""
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float() * scale, k.float())
+    if softclamp is None:
+        return s, None
+    s = torch.tanh(s / softclamp) * softclamp
+    return s, 1.0 - (s / softclamp) ** 2
+
+
+def attention_fwd_lse_reference(
+    q: torch.Tensor,                       # (b, h, nq, d)
+    k: torch.Tensor,                       # (b, h, nk, d)
+    v: torch.Tensor,                       # (b, h, nk, d)
+    kv_mask: torch.Tensor | None = None,   # (b, nk) True == attend
+    softclamp: float | None = None,
+    scale: float | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """K3's function: ``attention_reference``'s output and the f32 (b, h, nq)
+    log-sum-exp of the masked logits (-1e30 where masked)."""
+    scale = scale if scale is not None else q.shape[-1] ** -0.5
+    s, _ = _logits(q, k, softclamp, scale)
+    if kv_mask is not None:
+        s = s.masked_fill(~kv_mask.bool()[:, None, None, :], NEG_INF)
+    out = torch.einsum("bhqk,bhkd->bhqd", torch.softmax(s, dim=-1),
+                       v.float())
+    return out.to(q.dtype), torch.logsumexp(s, dim=-1)
+
+
+def attention_bwd_reference(
+    q: torch.Tensor,                       # (b, h, nq, d)
+    k: torch.Tensor,                       # (b, h, nk, d)
+    v: torch.Tensor,                       # (b, h, nk, d)
+    kv_mask: torch.Tensor | None,          # (b, nk) True == attend
+    lse: torch.Tensor,                     # (b, h, nq) f32, from the forward
+    delta: torch.Tensor,                   # (b, h, nq) f32, rowsum(dO * O)
+    dout: torch.Tensor,                    # (b, h, nq, d)
+    softclamp: float | None = None,
+    scale: float | None = None,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K4's and K5's function, ``_recompute_p``'s formulas: p = exp(s_c -
+    lse) with masked p forced to 0 (so a fully masked batch element gets
+    exactly zero gradient), ds = p (dp - D) (1 - (s_c/c)^2), dq = scale ds k,
+    dk = ds^T (q scale), dv = p^T dO. Returns (dq, dk, dv) in the inputs'
+    dtypes."""
+    scale = scale if scale is not None else q.shape[-1] ** -0.5
+    s, deriv = _logits(q, k, softclamp, scale)
+    p = torch.exp(s - lse[..., None])
+    if kv_mask is not None:
+        p = p.masked_fill(~kv_mask.bool()[:, None, None, :], 0.0)
+    dout = dout.float()
+    dp = torch.einsum("bhqd,bhkd->bhqk", dout, v.float())
+    ds = p * (dp - delta[..., None])
+    if deriv is not None:
+        ds = ds * deriv
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, k.float()) * scale
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, q.float() * scale)
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, dout)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
 def _heads_view(t: torch.Tensor, heads: int, dim_head: int) -> torch.Tensor:
     """(b, n, h*d) -> (b, h, n, d) view (no copy)."""
     return t.unflatten(-1, (heads, dim_head)).transpose(1, 2)
@@ -91,22 +168,42 @@ def _nvcc() -> str:
     return path
 
 
+def _run_all(cmds: list) -> None:
+    """Run the commands side by side; raise with the stderr of each that
+    failed."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True))
+             for cmd in cmds]
+    failed = []
+    for cmd, proc in procs:
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{' '.join(cmd)}:\n{err}")
+    if failed:
+        raise RuntimeError("nvcc failed on\n" + "\n".join(failed))
+
+
 def build_library() -> Path:
-    """Compile ``flash_fwd.cu`` unless a library built from the same source
-    and flags exists; return its path."""
-    digest = hashlib.sha256(_SRC.read_bytes()
+    """Compile the kernel sources into one library, unless a library of the
+    same sources and flags is built already: one nvcc per source, all
+    started together, then one link. Returns the library's path."""
+    digest = hashlib.sha256(b"".join(src.read_bytes() for src in _SOURCES)
                             + " ".join(_NVCC_FLAGS).encode()).hexdigest()
-    out = _BUILD_DIR / f"libflash_fwd_{digest[:16]}.so"
-    if out.exists():
-        return out
+    lib = _BUILD_DIR / f"libflash_{digest[:16]}.so"
+    if lib.exists():
+        return lib
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    proc = subprocess.run([_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), str(_SRC)],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {_SRC}:\n{proc.stderr}")
-    os.replace(tmp, out)
-    return out
+    tag = f"{digest[:16]}.{os.getpid()}"
+    objs = [_BUILD_DIR / f"{src.stem}_{tag}.o" for src in _SOURCES]
+    _run_all([[_nvcc(), *_NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+              for src, obj in zip(_SOURCES, objs)])
+    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+    _run_all([[_nvcc(), *_NVCC_FLAGS, "-shared", "-o", str(tmp),
+               *map(str, objs)]])
+    os.replace(tmp, lib)
+    for obj in objs:
+        obj.unlink()
+    return lib
 
 
 @functools.lru_cache(maxsize=None)
@@ -114,19 +211,24 @@ def _library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build_library()))
     ptr, i32, i64, f32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                           ctypes.c_float)
+    strides = ctypes.POINTER(i64)
     lib.v2ap_flash_fwd.argtypes = (
-        [i32, i32, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32]
+        [i32, i32, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32]
         + [i64] * 13 + [f32, f32, ptr])
-    lib.v2ap_flash_fwd.restype = i32
+    lib.v2ap_flash_bwd_dq.argtypes = (
+        [i32, i32] + [ptr] * 8 + [i32] * 4 + [strides, f32, f32, ptr])
+    lib.v2ap_flash_bwd_dkv.argtypes = (
+        [i32, i32] + [ptr] * 9 + [i32] * 4 + [strides, f32, f32, ptr])
+    lib.v2ap_flash_fwd.restype = lib.v2ap_flash_bwd_dq.restype = \
+        lib.v2ap_flash_bwd_dkv.restype = i32
     lib.v2ap_cuda_error_string.argtypes = [i32]
     lib.v2ap_cuda_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _launch(q, k, v, kv_mask, out, *, scale: float,
-            softclamp: float | None) -> None:
-    """Run the kernel on (b, h, n, d) views with contiguous last dims,
-    writing into the (b, h, nq, d) view ``out``."""
+def _check(q, k, v, kv_mask, others) -> torch.Tensor | None:
+    """Validate (b, h, n, d) views for the kernels; return the mask as a
+    contiguous bool (b, nk) tensor on q's device, or None."""
     b, h, nq, d = q.shape
     nk = k.shape[2]
     if q.dtype not in _DTYPE_CODES:
@@ -141,36 +243,218 @@ def _launch(q, k, v, kv_mask, out, *, scale: float,
                          f"match q {tuple(q.shape)}")
     if nq == 0 or nk == 0:
         raise ValueError("flash kernel needs nonempty q and k/v")
-    devices = {t.device for t in (q, k, v, out)}
+    named = {"q": q, "k": k, "v": v, **others}
+    devices = {t.device for t in named.values()}
     if len(devices) != 1:
-        raise ValueError(f"q/k/v/out on different devices: {devices}")
-    for name, t in (("q", q), ("k", k), ("v", v), ("out", out)):
+        raise ValueError(f"q/k/v and outputs on different devices: {devices}")
+    for name, t in named.items():
         if t.stride(-1) != 1:
             raise ValueError(f"{name} needs a contiguous last dim, strides "
                              f"{t.stride()}")
-    if kv_mask is not None:
-        if tuple(kv_mask.shape) != (b, nk):
-            raise ValueError(f"kv_mask shape {tuple(kv_mask.shape)} != {(b, nk)}")
-        kv_mask = kv_mask.to(device=q.device, dtype=torch.bool).contiguous()
+    if kv_mask is None:
+        return None
+    if tuple(kv_mask.shape) != (b, nk):
+        raise ValueError(f"kv_mask shape {tuple(kv_mask.shape)} != {(b, nk)}")
+    return kv_mask.to(device=q.device, dtype=torch.bool).contiguous()
+
+
+def _raise_on(err: int, lib, what: str, q) -> None:
+    if err == -1:
+        raise ValueError(f"{what} has no build for {q.dtype}, d={q.shape[-1]}")
+    if err != 0:
+        raise RuntimeError(f"{what} launch failed: "
+                           f"{lib.v2ap_cuda_error_string(err).decode()} "
+                           f"({err})")
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _launch(q, k, v, kv_mask, out, lse=None, *, scale: float,
+            softclamp: float | None) -> None:
+    """Run the forward kernel on (b, h, n, d) views with contiguous last
+    dims, writing into the (b, h, nq, d) view ``out`` and, if given, the
+    contiguous f32 (b, h, nq) ``lse``."""
+    b, h, nq, d = q.shape
+    nk = k.shape[2]
+    kv_mask = _check(q, k, v, kv_mask, {"out": out})
+    if out.shape != q.shape or out.dtype != q.dtype:
+        raise ValueError(f"out {tuple(out.shape)} {out.dtype} does not match q")
+    if lse is not None and (lse.shape != (b, h, nq) or lse.dtype != torch.float32
+                            or not lse.is_contiguous()):
+        raise ValueError("lse must be a contiguous f32 (b, h, nq) tensor")
     lib = _library()
     with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.v2ap_flash_fwd(
             _DTYPE_CODES[q.dtype], d, q.data_ptr(), k.data_ptr(), v.data_ptr(),
             kv_mask.data_ptr() if kv_mask is not None else None,
-            out.data_ptr(), b, h, nq, nk,
+            out.data_ptr(), lse.data_ptr() if lse is not None else None,
+            b, h, nq, nk,
             q.stride(0), q.stride(1), q.stride(2),
             k.stride(0), k.stride(1), k.stride(2),
             v.stride(0), v.stride(1), v.stride(2),
             out.stride(0), out.stride(1), out.stride(2),
             kv_mask.stride(0) if kv_mask is not None else 0,
             float(scale), float(softclamp) if softclamp is not None else 0.0,
-            stream)
-    if err == -1:
-        raise ValueError(f"flash kernel has no build for {q.dtype}, d={d}")
-    if err != 0:
-        msg = lib.v2ap_cuda_error_string(err).decode()
-        raise RuntimeError(f"flash kernel launch failed: {msg} ({err})")
+            _stream(q))
+    _raise_on(err, lib, "flash kernel", q)
+
+
+def _launch_bwd(which: str, q, k, v, kv_mask, lse, delta, dout, grads, *,
+                scale: float, softclamp: float | None) -> None:
+    """Run K4 (``which="dq"``, grads = (dq,)) or K5 (``which="dkv"``,
+    grads = (dk, dv)) on (b, h, n, d) views; lse and delta are contiguous
+    f32 (b, h, nq)."""
+    b, h, nq, d = q.shape
+    nk = k.shape[2]
+    names = ("dq",) if which == "dq" else ("dk", "dv")
+    kv_mask = _check(q, k, v, kv_mask,
+                     {"dout": dout, **dict(zip(names, grads))})
+    for name, t in (("lse", lse), ("delta", delta)):
+        if t.shape != (b, h, nq) or t.dtype != torch.float32 \
+                or not t.is_contiguous() or t.device != q.device:
+            raise ValueError(f"{name} must be a contiguous f32 (b, h, nq) "
+                             f"tensor on {q.device}")
+    likes = (q,) if which == "dq" else (k, v)
+    for name, t, like in zip(("dout",) + names, (dout,) + tuple(grads),
+                             (q,) + likes):
+        if t.shape != like.shape or t.dtype != like.dtype:
+            raise ValueError(f"{name} {tuple(t.shape)} {t.dtype} does not "
+                             f"match its input")
+    dq = grads[0] if which == "dq" else q
+    dk, dv = (k, v) if which == "dq" else grads
+    strides = [st for t in (q, k, v, dout, dq, dk, dv) for st in t.stride()[:3]]
+    strides.append(kv_mask.stride(0) if kv_mask is not None else 0)
+    arr = (ctypes.c_longlong * 22)(*strides)
+    lib = _library()
+    fn = lib.v2ap_flash_bwd_dq if which == "dq" else lib.v2ap_flash_bwd_dkv
+    with torch.cuda.device(q.device):
+        err = fn(_DTYPE_CODES[q.dtype], d, q.data_ptr(), k.data_ptr(),
+                 v.data_ptr(), dout.data_ptr(),
+                 kv_mask.data_ptr() if kv_mask is not None else None,
+                 lse.data_ptr(), delta.data_ptr(),
+                 *(t.data_ptr() for t in grads), b, h, nq, nk, arr,
+                 float(scale),
+                 float(softclamp) if softclamp is not None else 0.0,
+                 _stream(q))
+    _raise_on(err, lib, f"flash backward ({which}) kernel", q)
+
+
+# --------------------------------------------------------------------------- #
+# K3, K4, K5 wrappers and the autograd Function over them
+# --------------------------------------------------------------------------- #
+
+def _new_like_heads(t: torch.Tensor, heads: int | None) -> torch.Tensor:
+    """A fresh buffer shaped like ``t``: packed (b, n, h*d) as is, 4D
+    (b, h, n, d) as a view of a (b, n, h, d) buffer (heads merge for free)."""
+    if heads is not None:
+        return torch.empty(t.shape, dtype=t.dtype, device=t.device)
+    b, h, n, d = t.shape
+    return torch.empty((b, n, h, d), dtype=t.dtype,
+                       device=t.device).transpose(1, 2)
+
+
+def _into(dst: torch.Tensor | None, value: torch.Tensor) -> torch.Tensor:
+    """The plain version's result, copied into ``dst`` if one was given."""
+    return value if dst is None else dst.copy_(value)
+
+
+def attention_fwd_lse(q, k, v, kv_mask=None, *, softclamp=None, scale=None,
+                      out=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """K3 on (b, h, n, d) views: (out, f32 (b, h, nq) lse). The output goes
+    to ``out`` (a (b, h, nq, d) view) if given."""
+    scale = scale if scale is not None else q.shape[-1] ** -0.5
+    if not q.is_cuda:
+        ref, lse = attention_fwd_lse_reference(q, k, v, kv_mask,
+                                               softclamp=softclamp,
+                                               scale=scale)
+        return _into(out, ref), lse
+    b, h, nq, _ = q.shape
+    out = _new_like_heads(q, None) if out is None else out
+    lse = torch.empty((b, h, nq), dtype=torch.float32, device=q.device)
+    _launch(q, k, v, kv_mask, out, lse, scale=scale, softclamp=softclamp)
+    launch_counts["flash_attention_lse"] += 1
+    return out, lse
+
+
+def attention_bwd_dq(q, k, v, kv_mask, lse, delta, dout, *, softclamp=None,
+                     scale=None, dq=None) -> torch.Tensor:
+    """K4 on (b, h, n, d) views: dq, into ``dq`` if given."""
+    scale = scale if scale is not None else q.shape[-1] ** -0.5
+    if not q.is_cuda:
+        return _into(dq, attention_bwd_reference(
+            q, k, v, kv_mask, lse, delta, dout, softclamp=softclamp,
+            scale=scale)[0])
+    dq = _new_like_heads(q, None) if dq is None else dq
+    _launch_bwd("dq", q, k, v, kv_mask, lse, delta, dout, (dq,),
+                scale=scale, softclamp=softclamp)
+    launch_counts["flash_attention_bwd_dq"] += 1
+    return dq
+
+
+def attention_bwd_dkv(q, k, v, kv_mask, lse, delta, dout, *, softclamp=None,
+                      scale=None, dk=None, dv=None
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """K5 on (b, h, n, d) views: (dk, dv), into ``dk`` / ``dv`` if given."""
+    scale = scale if scale is not None else q.shape[-1] ** -0.5
+    if not q.is_cuda:
+        _, dk_ref, dv_ref = attention_bwd_reference(
+            q, k, v, kv_mask, lse, delta, dout, softclamp=softclamp,
+            scale=scale)
+        return _into(dk, dk_ref), _into(dv, dv_ref)
+    dk = _new_like_heads(k, None) if dk is None else dk
+    dv = _new_like_heads(v, None) if dv is None else dv
+    _launch_bwd("dkv", q, k, v, kv_mask, lse, delta, dout, (dk, dv),
+                scale=scale, softclamp=softclamp)
+    launch_counts["flash_attention_bwd_dkv"] += 1
+    return dk, dv
+
+
+def _views(heads: int | None):
+    """(b, n, h*d) -> (b, h, n, d) head views for ``heads``; identity for
+    tensors already (b, h, n, d) (``heads`` None)."""
+    if heads is None:
+        return lambda t: t
+    return lambda t: _heads_view(t, heads, t.shape[-1] // heads)
+
+
+class _FlashAttentionFn(torch.autograd.Function):
+    """Counterpart of ``_packed_ad`` (``heads`` given, packed (b, n, h*d)
+    tensors) and ``_flash_ad`` (``heads`` None, (b, h, n, d) tensors)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_mask, heads, softclamp, scale):
+        views = _views(heads)
+        kw = dict(softclamp=softclamp, scale=scale)
+        if kv_mask is not None:
+            kv_mask = kv_mask.to(device=q.device, dtype=torch.bool)
+        out = _new_like_heads(q, heads)
+        _, lse = attention_fwd_lse(views(q), views(k), views(v), kv_mask,
+                                   out=views(out), **kw)
+        ctx.save_for_backward(q, k, v, kv_mask, out, lse)
+        ctx.heads, ctx.kw = heads, kw
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, kv_mask, out, lse = ctx.saved_tensors
+        heads, kw = ctx.heads, ctx.kw
+        views = _views(heads)
+        g = g.to(out.dtype)
+        if g.stride(-1) != 1:
+            g = g.contiguous()
+        # D = rowsum(dO * O), outside the kernels as in JAX
+        delta = (views(g).float() * views(out).float()).sum(-1).contiguous()
+        args = (views(q), views(k), views(v), kv_mask, lse, delta, views(g))
+        dq, dk, dv = (_new_like_heads(t, heads) for t in (q, k, v))
+        attention_bwd_dq(*args, dq=views(dq), **kw)
+        attention_bwd_dkv(*args, dk=views(dk), dv=views(dv), **kw)
+        return dq, dk, dv, None, None, None, None
+
+
+def _needs_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
 # --------------------------------------------------------------------------- #
@@ -186,16 +470,18 @@ def flash_attention(
     softclamp: float | None = None,
     scale: float | None = None,
 ) -> torch.Tensor:
-    """Attention on (b, h, n, d) tensors (K2). Returns (b, h, nq, d); on
-    CUDA the result is a (b, h, nq, d) view of a (b, nq, h, d) buffer, so
-    merging the heads back afterwards costs no copy."""
+    """Attention on (b, h, n, d) tensors (K2; K3-K5 under autograd).
+    Returns (b, h, nq, d); on CUDA the result is a (b, h, nq, d) view of a
+    (b, nq, h, d) buffer, so merging the heads back afterwards costs no
+    copy."""
     scale = scale if scale is not None else q.shape[-1] ** -0.5
+    if _needs_grad(q, k, v):
+        return _FlashAttentionFn.apply(q, k, v, kv_mask, None, softclamp,
+                                       scale)
     if not q.is_cuda:
         return attention_reference(q, k, v, kv_mask, softclamp=softclamp,
                                    scale=scale)
-    b, h, nq, d = q.shape
-    out = torch.empty((b, nq, h, d), dtype=q.dtype,
-                      device=q.device).transpose(1, 2)
+    out = _new_like_heads(q, None)
     _launch(q, k, v, kv_mask, out, scale=scale, softclamp=softclamp)
     launch_counts["flash_attention"] += 1
     return out
@@ -212,18 +498,21 @@ def flash_attention_packed(
     softclamp: float | None = None,
     scale: float | None = None,
 ) -> torch.Tensor:
-    """Attention on head-packed (b, n, h*d) tensors (K1), e.g. the three
-    slices of a fused qkv projection, without materialising head
-    transposes. Returns (b, nq, h*d)."""
+    """Attention on head-packed (b, n, h*d) tensors (K1; K3-K5 under
+    autograd), e.g. the three slices of a fused qkv projection, without
+    materialising head transposes. Returns (b, nq, h*d)."""
     scale = scale if scale is not None else dim_head ** -0.5
+    if q.shape[-1] != heads * dim_head:
+        raise ValueError(f"packed width {q.shape[-1]} != {heads} x {dim_head}")
+    if _needs_grad(q, k, v):
+        return _FlashAttentionFn.apply(q, k, v, kv_mask, heads, softclamp,
+                                       scale)
     qh, kh, vh = (_heads_view(t, heads, dim_head) for t in (q, k, v))
     if not q.is_cuda:
         out = attention_reference(qh, kh, vh, kv_mask, softclamp=softclamp,
                                   scale=scale)
         return out.transpose(1, 2).flatten(2)
-    b, nq, _ = q.shape
-    out = torch.empty((b, nq, heads * dim_head), dtype=q.dtype,
-                      device=q.device)
+    out = _new_like_heads(q, heads)
     _launch(qh, kh, vh, kv_mask, _heads_view(out, heads, dim_head),
             scale=scale, softclamp=softclamp)
     launch_counts["flash_attention_packed"] += 1

@@ -4,7 +4,7 @@ dtype that inputs and parameters are cast to before the op (so
 ``Linear(dtype=torch.bfloat16)`` behaves as
 ``nnx.Linear(dtype=bf16, param_dtype=f32)``). Initialisers follow nnx's
 defaults; weights loaded from the JAX package replace them
-(``v2ap_torch.utils.convert``)."""
+(``v2ap_torch.utils.convert``). ``Dropout`` is ``nnx.Dropout``."""
 
 from __future__ import annotations
 
@@ -73,3 +73,27 @@ class LayerNorm(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.layer_norm(x.float(), (x.shape[-1],), self.weight.float(),
                             self.bias.float(), self.eps)
+
+
+class Dropout(nn.Module):
+    """nnx.Dropout: in training (``deterministic=False``) keep each value
+    with probability 1 - rate and scale the kept ones by 1 / (1 - rate).
+    The keep-mask is drawn from ``generator``, an explicit seeded
+    ``torch.Generator`` on the model's device (the owning model sets it);
+    with ``generator=None`` the device's default generator is used."""
+
+    def __init__(self, rate: float = 0.0):
+        super().__init__()
+        if not 0.0 <= rate < 1.0:
+            raise ValueError(f"dropout rate must be in [0, 1), got {rate}")
+        self.rate = rate
+        self.generator: torch.Generator | None = None
+
+    def forward(self, x: torch.Tensor, *, deterministic: bool = True
+                ) -> torch.Tensor:
+        if deterministic or self.rate == 0.0:
+            return x
+        keep_prob = 1.0 - self.rate
+        keep = torch.rand(x.shape, generator=self.generator,
+                          device=x.device) < keep_prob
+        return torch.where(keep, x / keep_prob, 0.0)

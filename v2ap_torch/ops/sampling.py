@@ -1,5 +1,5 @@
 """ODE sampling utilities: sway timestep schedule, fixed-grid integration,
-and the CFG parallel-component projection.
+the CFG parallel-component projection, and the training masks.
 
 Counterpart of ``v2ap_tpu/ops/sampling.py``. The JAX package runs the
 trajectory as one ``lax.scan``; here it is a Python loop over the same
@@ -63,3 +63,27 @@ def project_parallel(x: torch.Tensor, y: torch.Tensor):
     orthogonal = xf - parallel
     return (parallel.reshape(x.shape).to(x.dtype),
             orthogonal.reshape(x.shape).to(x.dtype))
+
+
+def lens_to_mask(lens: torch.Tensor, length: int) -> torch.Tensor:
+    """(b,) lengths -> (b, length) bool mask."""
+    seq = torch.arange(length, device=lens.device)
+    return seq[None, :] < lens[:, None]
+
+
+def mask_from_frac_lengths(
+    lens: torch.Tensor,           # (b,) int
+    frac_lengths: torch.Tensor,   # (b,) float
+    length: int,
+    rand: torch.Tensor,           # (b,) uniform [0, 1) start-position draw
+) -> torch.Tensor:
+    """Random contiguous span mask per row. ``frac * lens`` and
+    ``max_start * rand`` are computed in float32 and truncated to int32, as
+    the JAX package does."""
+    span = (frac_lengths.float() * lens.float()).to(torch.int32)
+    max_start = lens.to(torch.int32) - span
+    start = torch.clamp((max_start.float() * rand.float()).to(torch.int32),
+                        min=0)
+    end = start + span
+    seq = torch.arange(length, device=lens.device)
+    return (seq[None, :] >= start[:, None]) & (seq[None, :] < end[:, None])

@@ -1,0 +1,10 @@
+"""Training for the port: the V2A flow-matching train step, AdamW with
+optax's schedule and clip, EMA."""
+
+from v2ap_torch.training.trainer import (
+    EMA, ClippedAdamW, Trainer, make_eval_step, make_lr_schedule,
+    make_train_step, make_tx,
+)
+
+__all__ = ["EMA", "ClippedAdamW", "Trainer", "make_eval_step",
+           "make_lr_schedule", "make_train_step", "make_tx"]

@@ -1,0 +1,243 @@
+"""Training loop: AdamW with a warmup -> decay schedule, global-norm clip,
+gradient accumulation and EMA.
+
+Counterpart of ``v2ap_tpu/training/trainer.py``. The optimizer reproduces
+``optax.chain(clip_by_global_norm(grad_clip), adamw(schedule, b1=0.9,
+b2=0.999, weight_decay=0.01))``: optax's schedule arithmetic (step 0 uses
+0.01 * lr, the decay starts at ``warmup_steps``), optax's clip
+g * min(1, max_norm / |g|) (``torch.nn.utils.clip_grad_norm_`` adds 1e-6
+to the norm, so it is not used), and AdamW over every parameter, with a
+zero gradient where a parameter took no part in the loss (optax still
+decays its weight). The step runs eagerly and updates the model in place;
+the JAX package's remat, DPO, FactorCL, bf16 first moment, checkpoints and
+``TrainingPipeline`` are not ported (the first four raise).
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Iterable, Iterator, Optional, Sequence
+
+import numpy as np
+import torch
+from torch import nn
+
+from v2ap_torch.config import TrainConfig
+from v2ap_torch.models.cfm import CFM, LossBreakdown, LossDraws
+
+
+def _linear_schedule(init: float, end: float, steps: int) -> Callable:
+    """optax.linear_schedule in float32: init -> end over ``steps``."""
+    def schedule(count: int) -> float:
+        if steps <= 0:
+            return init
+        frac = np.float32(1.0) - np.float32(min(max(count, 0), steps)) \
+            / np.float32(steps)
+        return float(np.float32(init - end) * frac + np.float32(end))
+    return schedule
+
+
+def make_lr_schedule(cfg: TrainConfig) -> Callable[[int], float]:
+    """Linear warmup 0.01 lr -> lr over ``warmup_steps``, then linear decay
+    lr -> 0.01 lr over ``decay_steps`` (optax.join_schedules)."""
+    warmup = _linear_schedule(cfg.learning_rate * 0.01, cfg.learning_rate,
+                              cfg.warmup_steps)
+    decay = _linear_schedule(cfg.learning_rate, cfg.learning_rate * 0.01,
+                             cfg.decay_steps)
+
+    def schedule(step: int) -> float:
+        return (warmup(step) if step < cfg.warmup_steps
+                else decay(step - cfg.warmup_steps))
+    return schedule
+
+
+def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
+    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(tensors)))
+
+
+class ClippedAdamW:
+    """optax's clip_by_global_norm then adamw over ``params``; ``step()``
+    returns the global gradient norm before the clip (a device tensor)."""
+
+    def __init__(self, params: Iterable[nn.Parameter], cfg: TrainConfig):
+        if cfg.mu_bf16:
+            raise NotImplementedError("a bf16 first moment is not ported")
+        self.params = list(params)
+        self.schedule = make_lr_schedule(cfg)
+        self.grad_clip = cfg.grad_clip
+        self.count = 0
+        self.adamw = torch.optim.AdamW(self.params, lr=self.schedule(0),
+                                       betas=(0.9, 0.999), eps=1e-8,
+                                       weight_decay=0.01)
+
+    def zero_grad(self) -> None:
+        self.adamw.zero_grad(set_to_none=True)
+
+    @torch.no_grad()
+    def step(self) -> torch.Tensor:
+        for p in self.params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        grads = [p.grad for p in self.params]
+        norm = global_norm(grads)
+        torch._foreach_mul_(grads, torch.where(
+            norm < self.grad_clip, 1.0, self.grad_clip / norm))
+        for group in self.adamw.param_groups:
+            group["lr"] = self.schedule(self.count)
+        self.adamw.step()
+        self.count += 1
+        return norm
+
+
+def make_tx(cfg: TrainConfig, params: Iterable[nn.Parameter]) -> ClippedAdamW:
+    return ClippedAdamW(params, cfg)
+
+
+class EMA:
+    """Exponential moving average of a model's parameters (on its device):
+    shadow = decay * shadow + (1 - decay) * param after every step."""
+
+    def __init__(self, model: nn.Module, decay: float):
+        self.decay = decay
+        self.shadow = {name: p.detach().clone()
+                       for name, p in model.named_parameters()}
+
+    @torch.no_grad()
+    def update(self, model: nn.Module) -> None:
+        names, params = zip(*model.named_parameters())
+        shadow = [self.shadow[name] for name in names]
+        torch._foreach_mul_(shadow, self.decay)
+        torch._foreach_add_(shadow, [p.detach() for p in params],
+                            alpha=1.0 - self.decay)
+
+    @torch.no_grad()
+    def copy_to(self, model: nn.Module) -> None:
+        for name, p in model.named_parameters():
+            p.copy_(self.shadow[name])
+
+
+def _loss(model: CFM, batch: dict, *, generator, draws, val: bool = False,
+          times=None):
+    if batch.get("frames") is not None:
+        raise NotImplementedError("the V2P MIDI loss is not ported")
+    return model.loss(
+        batch["latents"], lens=batch["lens"], text_embed=batch["text_embed"],
+        context=batch.get("context"), context_mask=batch.get("context_mask"),
+        generator=generator, draws=draws, times=times, val=val)
+
+
+def _micro(batch: dict, i: int, accum: int) -> dict:
+    return {k: (v.reshape((accum, -1) + tuple(v.shape[1:]))[i]
+                if isinstance(v, torch.Tensor) and v.ndim > 0 else v)
+            for k, v in batch.items()}
+
+
+def make_train_step(train_cfg: TrainConfig):
+    """Build the train step ``step(model, optimizer, batch, *, generator,
+    draws=None) -> (loss, breakdown, grad_norm)``. The batch dict carries
+    latents (b, n, C), lens (b,), text_embed (b, n, dt), context (b, nc, dc)
+    and context_mask (b, nc). With ``grad_accum > 1`` the batch splits into
+    micro-batches along axis 0 and their gradients are averaged; ``draws``
+    is then one ``LossDraws`` per micro-batch."""
+    if train_cfg.dpo:
+        raise NotImplementedError("DPO preference training is not ported")
+    if train_cfg.contrastive:
+        raise NotImplementedError("FactorCL contrastive training is not ported")
+    accum = max(1, train_cfg.grad_accum)
+
+    def train_step(model: CFM, optimizer: ClippedAdamW, batch: dict, *,
+                   generator: Optional[torch.Generator] = None,
+                   draws: LossDraws | Sequence[LossDraws] | None = None):
+        b = batch["latents"].shape[0]
+        if b % accum:
+            raise ValueError(f"batch size {b} not divisible by grad_accum "
+                             f"{accum}")
+        optimizer.zero_grad()
+        loss_sum, bk_sum = 0.0, None
+        for i in range(accum):
+            mb = batch if accum == 1 else _micro(batch, i, accum)
+            d = draws if accum == 1 or draws is None else draws[i]
+            out = _loss(model, mb, generator=generator, draws=d)
+            (out.loss / accum).backward()
+            bk = LossBreakdown(*(x.detach() if isinstance(x, torch.Tensor)
+                                 else x for x in out.breakdown))
+            loss_sum = loss_sum + out.loss.detach()
+            bk_sum = bk if bk_sum is None else LossBreakdown(
+                *(a + c for a, c in zip(bk_sum, bk)))
+        grad_norm = optimizer.step()
+        return (loss_sum / accum, LossBreakdown(*(a / accum for a in bk_sum)),
+                grad_norm)
+
+    return train_step
+
+
+def make_eval_step():
+    """Deterministic validation forward: times 0.5, the centred span, no
+    condition dropout or transformer dropout, no autograd.
+    ``step(model, batch, *, generator, draws=None, return_pred=False)``."""
+
+    @torch.no_grad()
+    def eval_step(model: CFM, batch: dict, *,
+                  generator: Optional[torch.Generator] = None,
+                  draws: Optional[LossDraws] = None, return_pred: bool = False):
+        out = _loss(model, batch, generator=generator, draws=draws, val=True,
+                    times=0.5)
+        if return_pred:
+            return out.loss, out.breakdown, out.pred_data
+        return out.loss, out.breakdown
+
+    return eval_step
+
+
+class Trainer:
+    """Host-side orchestration: train / eval steps, EMA and switch-EMA. The
+    loss's random draws come from ``self.generator``, a ``torch.Generator``
+    on the model's device seeded from ``seed``; ``last_grad_norm`` holds the
+    last step's global gradient norm (before the clip)."""
+
+    def __init__(self, model: CFM, train_cfg: TrainConfig | None = None, *,
+                 seed: int = 0):
+        self.cfg = train_cfg or TrainConfig()
+        self.model = model
+        self._train_step = make_train_step(self.cfg)
+        self._eval_step = make_eval_step()
+        self.optimizer = make_tx(self.cfg, model.parameters())
+        self.ema = (EMA(model, self.cfg.ema_decay) if self.cfg.use_ema
+                    else None)
+        self.device = next(model.parameters()).device
+        self.generator = torch.Generator(device=self.device)
+        self.generator.manual_seed(seed)
+        self.step = 0
+        self.last_grad_norm: Optional[torch.Tensor] = None
+
+    def _on_device(self, batch: dict) -> dict:
+        return {k: v.to(self.device) if isinstance(v, torch.Tensor) else v
+                for k, v in batch.items()}
+
+    def train_step(self, batch: dict, *, draws=None) -> tuple:
+        loss, breakdown, self.last_grad_norm = self._train_step(
+            self.model, self.optimizer, self._on_device(batch),
+            generator=self.generator, draws=draws)
+        if self.ema is not None:
+            self.ema.update(self.model)
+        self.step += 1
+        return loss, breakdown
+
+    def eval_step(self, batch: dict, *, draws=None,
+                  return_pred: bool = False) -> tuple:
+        return self._eval_step(self.model, self._on_device(batch),
+                               generator=self.generator, draws=draws,
+                               return_pred=return_pred)
+
+    def switch_ema(self) -> None:
+        """Copy the EMA shadow into the live model ("switch EMA"); the
+        optimizer moments are kept."""
+        if self.ema is None:
+            raise ValueError("switch_ema requires use_ema=True")
+        self.ema.copy_to(self.model)
+
+    def run(self, batches: Iterator[dict], *, num_steps: int,
+            log_every: int = 50, callback=None) -> None:
+        for i, batch in zip(range(num_steps), batches):
+            loss, breakdown = self.train_step(batch)
+            if callback is not None and i % log_every == 0:
+                callback(self.step, float(loss), breakdown)
