@@ -19,27 +19,50 @@ Phases, each of which fails the run (exit 1, no result line) if it fails:
                the softclamp and mask, its backward for K4 + K5, SDPA for
                K2 and for K1 at nk = 1) and the card's least time for the
                same work (bound);
-  3. small   — a small f32 configuration through the port's entry points on
+  3. probe   — the P1 probe (``v2ap_torch.scripts.probe_flash_bnhd``) at its
+               defaults, b 24, n 768, 16x64 heads, bf16 from
+               numpy.random.default_rng(0): the old path (transposes to
+               (b, h, n, d), K2's entry point) and the new one (P1 on the
+               packed layout) must agree, both are timed (CUDA events), and
+               one new-path call must launch P1 once and nothing else; then
+               P1 against its plain version on the new path's inputs: bf16
+               (timed, with plain, library and bound), logits of std 40, a
+               fully masked batch element, and f32;
+  4. small   — a small f32 configuration through the port's entry points on
                the card (kernels) and on the CPU (plain versions), same
                weights and x0: CLIP features, sampled latents and waveform
-               must agree;
-  4. generate — the full-width V2A slice: v2a_default() (12 layers, dim 1024,
-               bf16), CLIP ViT-bigG, the full EnCodec, random weights from
-               seed 0 made on the device; a 10 s clip of seeded 224x224
-               uint8 frames at 25 fps through ``V2APipeline.generate`` with
-               25 steps and cfg_strength 2.0, once to warm up and then
-               GENERATE_RUNS times timed (median wall and stage times, the
-               realtime factor). The launch counters are zeroed just before
-               each timed run and read just after; K1 must run (steps-1) x
-               48 times and K2 48 x (tower chunks) times in each;
-  5. profile — CUDA time by kernel group and by kernel over one more
+               must agree; then with a prompt (T5) and a roll from 8 strips
+               at strip stride 2 (Video2Roll): context, roll, latents and
+               waveform must agree;
+  5. generate — the full-width V2A slice: v2a_default() at frame stride 1
+               (12 layers, dim 1024, bf16), CLIP ViT-bigG, the full EnCodec,
+               random weights from seed 0 made on the device; a 10 s clip of
+               seeded 224x224 uint8 frames at 25 fps through
+               ``V2APipeline.generate`` with an empty prompt, 25 steps and
+               cfg_strength 2.0, once to warm up and then GENERATE_RUNS
+               times timed (median wall and stage times, the realtime
+               factor). The launch counters are zeroed just before each
+               timed run and read just after; K1 must run (steps-1) x 48
+               times and K2 48 x (tower chunks) times in each, no other
+               kernel;
+  6. profile — CUDA time by kernel group and by kernel over one more
                generate, and its share of that run's wall;
-  6. small train — one train step of tiny_test() (f32, dropout 0, the
+  7. V2P generate — v2a_default() as shipped (frame stride 3, strip stride
+               2) with FLAN-T5-large and Video2Roll: the same frames, 250
+               seeded 100x900 uint8 keyboard strips through
+               ``strips_cache``, a prompt of PROMPT_TOKENS tokens,
+               ``piano=True``; timed as phase 5. K1 must run 1152 times
+               (prompt cross-attention at nk = 64) and K2 96 (84 frames at
+               stride 3, two chunks), no other kernel; the roll must be
+               finite, in [0, 1] and not all zero;
+  8. V2P profile — as phase 6, convolutions (Video2Roll, EnCodec) as a
+               group of their own;
+  9. small train — one train step of tiny_test() (f32, dropout 0, the
                loss's draws made on the CPU) on the card and on the CPU from
                the same weights: loss, every gradient and the updated
                parameters must agree; then 20 steps on the card (lr 1e-3,
                warmup 2, one batch, fixed draws): the loss must fall;
-  7. train   — the full-width V2A training step: v2a_default() (12 layers,
+  10. train  — the full-width V2A training step: v2a_default() (12 layers,
                dim 1024, bf16 compute, f32 params, dropout 0.1), AdamW with
                TrainConfig() defaults and EMA, random weights from seed 0,
                a synthetic batch from seed 0 (TRAIN_BATCH x 750 latents,
@@ -50,10 +73,11 @@ Phases, each of which fails the run (exit 1, no result line) if it fails:
                not at all; loss and gradient norm finite; parameters and
                EMA moved. Median step time, audio-seconds per second, peak
                memory;
-  8. train profile — CUDA time by kernel group over one more train step.
+  11. train profile — CUDA time by kernel group over one more train step.
 
-The line before the last is a JSON object with one entry per kernel (K1-K5;
-the launches of K1/K2 from one generate, of K3-K5 from one train step); the
+The line before the last is a JSON object with one entry per kernel (K1-K5
+and P1; the launches of K1/K2 from one V2A generate, of K3-K5 from one
+train step, of P1 from one new-path probe call); the
 last is {"ok": true, "device": {...}}. Without CUDA, or without the repo
 around it, the script exits non-zero and prints no result.
 """
@@ -67,6 +91,7 @@ import os
 import subprocess
 import sys
 import time
+import warnings
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM
@@ -98,6 +123,11 @@ TRAIN_LATENTS = 750                # DataConfig.target_length, 10 s at 75 Hz
 TRAIN_CONTEXT = 16                 # prompt tokens, as scripts/bench_train.py
 TRAIN_STEPS = 5                    # timed full-width train steps (median)
 TINY_STEPS = 20                    # tiny loss-falls check (scripts/train_smoke.py)
+PROBE_SHAPE = (24, 768, 16, 64)    # the P1 probe's defaults: b, n, h, d
+PROBE_REPS = 20
+# ten words: with the end token, PROMPT_TOKENS of the tokenizer's 64 tokens
+PROMPT = "a gentle piano melody over soft rain on a window"
+PROMPT_TOKENS = 11
 
 
 def log(*args) -> None:
@@ -196,9 +226,19 @@ def kernel_cases(torch):
     cases.append(("K1 cross-attn nk=1 (2, 800x1, 16x64)", "K1",
                   rnd(2, 800, 1024), rnd(2, 1, 1024), rnd(2, 1, 1024), ones,
                   dict(heads=16)))
-    q, k, v = (rnd(64, 257, 1664).unflatten(-1, (16, 104)).transpose(1, 2)
-               for _ in range(3))
-    cases.append(("K2 ViT-bigG (64, 16, 257, 104)", "K2", q, k, v, None, {}))
+    # a prompt's T5 context: the tokenizer's 64 tokens, PROMPT_TOKENS valid
+    prompt = (torch.arange(64, device=dev) < PROMPT_TOKENS)[None].expand(
+        2, 64).contiguous()
+    kv = rnd(2, 64, 2048)                       # to_k / to_v of the context
+    cases.append((f"K1 cross-attn nk=64, {PROMPT_TOKENS} valid "
+                  "(2, 800x64, 16x64)", "K1", rnd(2, 800, 1024),
+                  *kv.chunk(2, dim=-1), prompt, dict(heads=16)))
+    for label, nb in (("K2 ViT-bigG (64, 16, 257, 104)", 64),
+                      ("K2 ViT-bigG stride-3 tail chunk (20, 16, 257, 104)",
+                       84 - 64)):
+        q, k, v = (rnd(nb, 257, 1664).unflatten(-1, (16, 104)).transpose(1, 2)
+                   for _ in range(3))
+        cases.append((label, "K2", q, k, v, None, {}))
 
     out = []
     for label, kid, q, k, v, m, kw in cases:
@@ -332,11 +372,109 @@ def phase_kernels(torch) -> dict:
 
 # --------------------------------------------------------------- phase 3
 
+def phase_probe(torch) -> dict:
+    """The P1 probe (``v2ap_torch.scripts.probe_flash_bnhd``) at its
+    defaults: both paths' parity and median ms (CUDA events), P1's launches
+    per ``new_path`` call; then ``flash_bnhd`` on the new path's own inputs
+    against its plain version: bf16 (timed, with plain, library and
+    bound), logits of std 40, a fully masked batch element, and f32."""
+    from v2ap_torch.ops import flash_attention as fa
+    from v2ap_torch.ops.rope import apply_rope
+    from v2ap_torch.scripts import probe_flash_bnhd as probe
+
+    b, n, h, d = PROBE_SHAPE
+    qkv, mask, rot = probe.probe_inputs(b, n, h, d, "cuda")
+    old_path, new_path = probe.make_paths(b, n, h, d, rot, mask)
+    with torch.inference_mode():
+        rel = probe.rel_rms(new_path(qkv), old_path(qkv))
+        old_ms = probe.bench(old_path, (qkv,), PROBE_REPS)
+        new_ms = probe.bench(new_path, (qkv,), PROBE_REPS)
+        torch.cuda.synchronize()
+        fa.reset_launch_counts()
+        new_path(qkv)
+        torch.cuda.synchronize()
+        counts = dict(fa.launch_counts)
+    expect = {**dict.fromkeys(counts, 0), "flash_bnhd": 1}
+    log(f"  probe (b {b}, n {n}, {h}x{d}, bf16): parity old vs new rel-RMS "
+        f"{rel:.2e}; old bhnd+transposes {old_ms[0]:.4f} ms [{old_ms[1]:.4f}, "
+        f"{old_ms[2]:.4f}], new bnhd {new_ms[0]:.4f} ms [{new_ms[1]:.4f}, "
+        f"{new_ms[2]:.4f}] (medians of {PROBE_REPS}, CUDA events); launches "
+        f"per new_path call {counts}")
+    if counts != expect:
+        raise RuntimeError(f"probe: new_path launched {counts} != {expect}")
+    if not rel < 1e-2:
+        raise RuntimeError(f"probe: the two paths disagree ({rel:.2e})")
+
+    # the new path's inputs: rotated packed q, k and v's strided chunk
+    q, k, v = qkv.chunk(3, dim=-1)
+    q = apply_rope(q.reshape(b, n, h, d), rot, seq_axis=1).flatten(2)
+    k = apply_rope(k.reshape(b, n, h, d), rot, seq_axis=1).flatten(2)
+    one_dead = mask.clone()
+    one_dead[1] = False
+    cases = [   # label, q, mask, dtype, timed
+        ("P1 probe (24, 768, 16x64)", q, mask, torch.bfloat16, True),
+        ("P1 logits std 40", q * SOFTCLAMP_Q_GAIN, mask, torch.bfloat16,
+         False),
+        ("P1 element 1 fully masked", q, one_dead, torch.bfloat16, False),
+        ("P1 f32", q, mask, torch.float32, False)]
+    result = dict(cases={}, max_abs_err=0.0, launches=counts["flash_bnhd"])
+    for label, qq, m, dtype, timed in cases:
+        qq, kk, vv = (t.to(dtype) for t in (qq, k, v))
+
+        def run(qq=qq, kk=kk, vv=vv, m=m):
+            return probe.flash_bnhd(qq, kk, vv, m, softclamp=50.0, heads=h,
+                                    dim_head=d)
+
+        def plain(qq=qq, kk=kk, vv=vv, m=m):
+            return fa.attention_reference(
+                *(fa._heads_view(t, h, d) for t in (qq, kk, vv)), m,
+                softclamp=50.0).transpose(1, 2).flatten(2)
+
+        out = run()
+        ref = plain(*(t.float() for t in (qq, kk, vv)))
+        torch.cuda.synchronize()
+        if not torch.isfinite(out).all():
+            raise RuntimeError(f"{label}: non-finite kernel output")
+        top = ref.abs().max().item()
+        tol = (F32_RTOL if dtype == torch.float32 else KERNEL_RTOL) * \
+            max(1.0, top)
+        err = (out.float() - ref).abs().max().item()
+        log(f"  {label}: max|ref| {top:.3f}, max_abs_err {err:.3e} (tol "
+            f"{tol:.3e}) {'ok' if err <= tol else 'FAIL'}")
+        if err > tol:
+            raise RuntimeError(f"{label}: kernel disagrees with plain version")
+        result["max_abs_err"] = max(result["max_abs_err"], err)
+        if not timed:
+            continue
+        library = flex_softclamp(torch, qq, kk, vv, m, h)
+        lib_err = (library().float() - ref).abs().max().item()
+        if lib_err > tol:
+            raise RuntimeError(f"{label}: library yardstick disagrees with "
+                               f"the plain version ({lib_err:.3e})")
+        ms = time_ms(torch, run)
+        plain_ms = time_ms(torch, plain, iters=5)
+        lib_ms = device_ms(torch, library)
+        bound_ms, bound_by, flops = bound((b, h, n, n, d), 2, m.numel())
+        log(f"    kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain "
+            f"{plain_ms:.4f} ms, library {lib_ms:.4f} ms (compiled "
+            f"flex_attention, max_abs_err {lib_err:.3e}), bound "
+            f"{bound_ms:.4f} ms by {bound_by} ({bound_ms / ms:.1%} of bound)")
+        result["cases"][label] = dict(ms=ms, plain_ms=plain_ms,
+                                      library_ms=lib_ms, bound_ms=bound_ms,
+                                      bound_by=bound_by)
+    return result
+
+
+# --------------------------------------------------------------- phase 4
+
 def phase_small(torch) -> None:
     """A small f32 config whose head dims (64, 104) the kernels take: the
-    port on the card against the port on the CPU, same weights and x0."""
+    port on the card against the port on the CPU, same weights and x0: the
+    empty-prompt V2A path, then a prompt (T5) and a roll from a few strips
+    at strip stride 2 (Video2Roll)."""
     from v2ap_torch import config as C
     from v2ap_torch.models.clip_vit import CLIPVisionConfig
+    from v2ap_torch.models.t5 import T5Config
     from v2ap_torch.ops.flash_attention import launch_counts, reset_launch_counts
     from v2ap_torch.pipelines.generate import V2APipeline
 
@@ -351,10 +489,14 @@ def phase_small(torch) -> None:
     clip = CLIPVisionConfig(hidden_size=208, intermediate_size=416,
                             num_layers=2, num_heads=2, image_size=56,
                             projection_dim=128, dtype="float32")
-    gpu = V2APipeline(cfg, seed=1, device="cuda", clip_config=clip)
-    cpu = V2APipeline(cfg, seed=1, device="cpu", clip_config=clip)
+    t5 = T5Config(vocab_size=1000, d_model=128, d_kv=64, d_ff=256,
+                  num_layers=2, num_heads=2, dtype="float32")
+    gpu = V2APipeline(cfg, seed=1, device="cuda", clip_config=clip,
+                      t5_config=t5)
+    cpu = V2APipeline(cfg, seed=1, device="cpu", clip_config=clip,
+                      t5_config=t5)
     for a, b in ((gpu.cfm, cpu.cfm), (gpu.codec, cpu.codec),
-                 (gpu.clip, cpu.clip)):
+                 (gpu.clip, cpu.clip), (gpu.t5, cpu.t5)):
         b.load_state_dict(a.state_dict())
     rng = __import__("numpy").random.default_rng(1)
     frames = rng.integers(0, 256, (12, 56, 56, 3), dtype="uint8")
@@ -376,8 +518,26 @@ def phase_small(torch) -> None:
                 context_mask=torch.ones(1, 1, dtype=torch.bool, device=dev),
                 mask=mask.to(dev), sampler=sampler))
             wav.append(p.codec.decode(lat[-1][:, :n_valid]))
+    # a prompt and a roll from 8 strips (0.32 s, 9 Video2Roll windows)
+    strips = rng.integers(0, 256, (8, 100, 900), dtype="uint8")
+    ctx, roll, lat_p, wav_p = [], [], [], []
+    with torch.inference_mode():
+        for p, f in zip((gpu, cpu), feats):
+            dev = p.device
+            c, cm = p.encode_text([PROMPT])
+            r = p._roll_from_strips(p._strided_strip_plan(
+                strips[::p.strip_stride], len(strips), 0.32, n), n)
+            ctx.append(c)
+            roll.append(r)
+            lat_p.append(p.cfm.sample(
+                x0.to(dev), text_embed=f[None], frames_embed=r, context=c,
+                context_mask=cm, mask=mask.to(dev), sampler=sampler))
+            wav_p.append(p.codec.decode(lat_p[-1][:, :n_valid]))
     torch.cuda.synchronize()
-    checks = [("features", feats), ("latents", lat), ("waveform", wav)]
+    checks = [("features", feats), ("latents", lat), ("waveform", wav),
+              ("prompt context", ctx), ("roll (strip stride 2)", roll),
+              ("latents (prompt, roll)", lat_p),
+              ("waveform (prompt, roll)", wav_p)]
     for name, (g, c) in checks:
         g = g.cpu()
         if not torch.isfinite(g).all():
@@ -392,52 +552,70 @@ def phase_small(torch) -> None:
         raise RuntimeError(f"small: kernels not launched: {launch_counts}")
 
 
-# --------------------------------------------------------------- phase 4
+# --------------------------------------------------------------- phase 5
 
-def full_pipeline(torch):
+def full_pipeline(torch, label: str, **conditioning):
+    """The shipped configuration, v2a_default(), with ``conditioning``
+    changed and no feature caches, from seed 0 on the card."""
     from v2ap_torch import config as C
     from v2ap_torch.pipelines.generate import V2APipeline
 
     base = C.v2a_default()
     cfg = base.replace(conditioning=dataclasses.replace(
-        base.conditioning, frame_stride=1, feature_cache=False))
+        base.conditioning, feature_cache=False, **conditioning))
     t0 = time.perf_counter()
     pipe = V2APipeline(cfg, seed=0, device="cuda")
     torch.cuda.synchronize()
-    log(f"  build full-width pipeline: {time.perf_counter() - t0:.2f} s "
-        f"(CFM {sum(p.numel() for p in pipe.cfm.parameters()) / 1e6:.1f} M "
-        f"params f32, ViT-bigG "
-        f"{sum(p.numel() for p in pipe.clip.parameters()) / 1e6:.1f} M bf16, "
-        f"EnCodec decoder "
-        f"{sum(p.numel() for p in pipe.codec.parameters()) / 1e6:.1f} M f32)")
+
+    def m(module):
+        return sum(p.numel() for p in module.parameters()) / 1e6
+
+    v2r = pipe.cfm.video2roll
+    log(f"  build full-width {label} pipeline: {time.perf_counter() - t0:.2f} "
+        f"s (CFM {m(pipe.cfm) - (m(v2r) if v2r is not None else 0):.1f} M "
+        f"params f32 + Video2Roll {m(v2r) if v2r is not None else 0:.1f} M "
+        f"f32, ViT-bigG {m(pipe.clip):.1f} M bf16, FLAN-T5 encoder "
+        f"{m(pipe.t5):.1f} M bf16, EnCodec decoder {m(pipe.codec):.1f} M "
+        f"f32; frame stride {pipe.frame_stride}, strip stride "
+        f"{pipe.strip_stride})")
+    return pipe
+
+
+def clip_frames():
     import numpy as np
-    frames = np.random.default_rng(0).integers(
+
+    return np.random.default_rng(0).integers(
         0, 256, (int(CLIP_S * FPS), 224, 224, 3), dtype=np.uint8)
-    return pipe, cfg, frames
 
 
-def phase_generate(torch, pipe, cfg, frames) -> dict:
-    """One warm-up generate, then GENERATE_RUNS timed ones. The launch
-    counters are zeroed just before each timed run and read just after it;
-    every run must give finite audio of the clip's length and the expected
-    counts. Reports the median wall time and each stage's median."""
-    import numpy as np
+def generate_expect(pipe, n_frames: int) -> dict:
+    """Kernel launches of one 25-step CFG generate: K1 for every attention
+    of the (steps - 1) batch-doubled transformer evals, K2 for the 48
+    tower layers per chunk of 64 encoded frames, nothing else."""
+    from v2ap_torch.ops.flash_attention import launch_counts
 
-    from v2ap_torch.ops.flash_attention import launch_counts, reset_launch_counts
-
-    def gen():
-        return pipe.generate(None, steps=25, cfg_strength=2.0, seed=0,
-                             frames_cache=[(frames, CLIP_S, 1)])
-
-    m = cfg.model
+    m = pipe.cfg.model
     evals = 25 - 1
     per_eval = (m.depth + (m.depth if m.if_cross_attn else 0)
                 + 2 * m.text_depth)
-    chunks = math.ceil(len(frames) / 64)
-    from v2ap_torch.ops.flash_attention import launch_counts as lc
-    expect = dict.fromkeys(lc, 0)
+    encoded = len(range(0, n_frames, pipe.frame_stride))
+    expect = dict.fromkeys(launch_counts, 0)
     expect.update(flash_attention_packed=evals * per_eval,
-                  flash_attention=pipe.clip_cfg.num_layers * chunks)
+                  flash_attention=pipe.clip_cfg.num_layers
+                  * math.ceil(encoded / 64))
+    return expect
+
+
+def phase_generate(torch, pipe, label: str, gen, expect: dict,
+                   check=None) -> dict:
+    """One warm-up ``gen()``, then GENERATE_RUNS timed ones. The launch
+    counters are zeroed just before each timed run and read just after it;
+    every run must give finite audio of the clip's length, the expected
+    counts and pass ``check(pipe)``. Reports the median wall time and each
+    stage's median."""
+    import numpy as np
+
+    from v2ap_torch.ops.flash_attention import launch_counts, reset_launch_counts
 
     t0 = time.perf_counter()
     gen()                                         # warm: handles, plans
@@ -454,13 +632,15 @@ def phase_generate(torch, pipe, cfg, frames) -> dict:
         counts = dict(launch_counts)
         stages.append(pipe.last_timings)
         if wav.shape != (int(CLIP_S * sr),) or not np.isfinite(wav).all():
-            raise RuntimeError(f"generate: bad waveform {wav.shape}")
+            raise RuntimeError(f"{label}: bad waveform {wav.shape}")
         if counts != expect:
-            raise RuntimeError(f"generate: launch counts {counts} != {expect}")
+            raise RuntimeError(f"{label}: launch counts {counts} != {expect}")
+        if check is not None:
+            check(pipe)
     wall = float(np.median(walls))
     stage_med = ", ".join(f"{k} {np.median([s[k] for s in stages]):.4f}"
                           for k in stages[0])
-    log(f"  generate 10 s clip x{GENERATE_RUNS}: wall (s) "
+    log(f"  {label} 10 s clip x{GENERATE_RUNS}: wall (s) "
         f"{', '.join(f'{w:.4f}' for w in walls)}; median {wall:.4f} s, "
         f"realtime factor {CLIP_S / wall:.3f}x")
     log(f"  median stages (s): {stage_med}; peak memory "
@@ -471,16 +651,28 @@ def phase_generate(torch, pipe, cfg, frames) -> dict:
     return counts
 
 
+def check_roll(pipe) -> None:
+    """The roll a V2P generate used: finite, in [0, 1], not all zero."""
+    roll = pipe.last_roll
+    ok = (roll is not None and roll.isfinite().all().item()
+          and 0.0 <= roll.min().item() and roll.max().item() <= 1.0
+          and roll.any().item())
+    if not ok:
+        raise RuntimeError("V2P generate: the roll is missing, non-finite, "
+                           "outside [0, 1] or all zero")
+
+
 # kernel-name fragments -> the group a kernel's time is reported under
 PROFILE_GROUPS = (("K2 flash_fwd d104", "flash_fwd_kernel<__nv_bfloat16, 104>"),
                   ("K1/K3 flash_fwd d64", "flash_fwd_kernel<__nv_bfloat16, 64>"),
                   ("K4 flash_bwd_dq", "flash_bwd_dq_kernel"),
                   ("K5 flash_bwd_dkv", "flash_bwd_dkv_kernel"),
+                  # before matmul: cuDNN's implicit-GEMM kernels say "gemm"
+                  ("convolution", "conv", "fprop", "dgrad", "wgrad", "cudnn"),
                   ("matmul (cuBLAS)", "nvjet", "gemm", "xmma", "cutlass"),
                   ("optimizer / EMA (foreach)", "multi_tensor_apply"),
                   ("dtype casts / copies", "copy_kernel"),
-                  ("LSTM", "lstm", "LSTM", "RNN"),
-                  ("convolution", "conv", "cudnn"))
+                  ("LSTM", "lstm", "LSTM", "RNN"))
 
 
 def phase_profile(torch, label: str, run) -> None:
@@ -929,9 +1121,16 @@ def main() -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # each flex_attention yardstick compiles for its own shapes: more than
+    # dynamo's default of 8, past which it would quietly time the unfused
+    # eager version instead; that fallback fails the run
+    import torch._dynamo
+    torch._dynamo.config.recompile_limit = 64
+    warnings.filterwarnings(
+        "error", message="flex_attention called without torch.compile")
     t_start = time.perf_counter()
 
-    log(f"[1/8] build — card: {card_line()}")
+    log(f"[1/11] build — card: {card_line()}")
     log(f"  torch {torch.__version__} (CUDA {torch.version.cuda}), "
         f"{torch.cuda.get_device_name(0)}; f32 matmul and cuDNN TF32 off")
     t0 = time.perf_counter()
@@ -940,32 +1139,70 @@ def main() -> int:
     log(f"  built {os.path.relpath(lib, ROOT)} from flash_fwd.cu and "
         f"flash_bwd.cu in {time.perf_counter() - t0:.2f} s")
 
-    log("[2/8] kernels vs plain versions (bf16 in, f32 reference)")
+    log("[2/11] kernels vs plain versions (bf16 in, f32 reference)")
     kern = phase_kernels(torch)
     kern.update(phase_train_kernels(torch))
-    log("[3/8] small f32 config: card vs CPU")
+    log("[3/11] P1 probe: packed (b, n, h*d) vs (b, h, n, d) + transposes")
+    kern["P1"] = phase_probe(torch)
+    log("[4/11] small f32 config: card vs CPU")
     phase_small(torch)
-    log("[4/8] full-width V2A generate")
-    pipe, cfg, frames = full_pipeline(torch)
-    gen_counts = phase_generate(torch, pipe, cfg, frames)
-    log("[5/8] generate profile")
+    import numpy as np
 
-    def generate_once():
-        wav, _ = pipe.generate(None, steps=25, cfg_strength=2.0, seed=0,
-                               frames_cache=[(frames, CLIP_S, 1)])
-        if not __import__("numpy").isfinite(wav).all():
-            raise RuntimeError("profile: non-finite waveform")
+    frames = clip_frames()
+    log("[5/11] full-width V2A generate (frame stride 1, empty prompt)")
+    pipe = full_pipeline(torch, "V2A", frame_stride=1)
 
-    phase_profile(torch, "generate", generate_once)
+    def generate_v2a():
+        return pipe.generate(None, steps=25, cfg_strength=2.0, seed=0,
+                             frames_cache=[(frames, CLIP_S, 1)])
+
+    gen_counts = phase_generate(torch, pipe, "V2A generate", generate_v2a,
+                                generate_expect(pipe, len(frames)))
+    log("[6/11] V2A generate profile")
+
+    def profiled(gen, check=None):
+        def run():
+            wav, _ = gen()
+            if not np.isfinite(wav).all():
+                raise RuntimeError("profile: non-finite waveform")
+            if check is not None:
+                check(pipe)
+        return run
+
+    phase_profile(torch, "generate", profiled(generate_v2a))
     del pipe
     torch.cuda.empty_cache()
-    log("[6/8] small train: tiny_test() card vs CPU, then "
+    log("[7/11] full-width V2P generate with a prompt (v2a_default(): frame "
+        "stride 3, strip stride 2; FLAN-T5-large, Video2Roll)")
+    pipe = full_pipeline(torch, "V2P")
+    strips = np.random.default_rng(1).integers(
+        0, 256, (int(CLIP_S * FPS), 100, 900), dtype=np.uint8)
+    valid = int(pipe.tokenize([PROMPT])[1].sum())
+    if valid != PROMPT_TOKENS:
+        raise RuntimeError(f"V2P: the prompt gives {valid} tokens, not "
+                           f"{PROMPT_TOKENS}")
+
+    def generate_v2p():
+        return pipe.generate(None, PROMPT, steps=25, cfg_strength=2.0, seed=0,
+                             piano=True, frames_cache=[(frames, CLIP_S, 1)],
+                             strips_cache=[(strips, CLIP_S)])
+
+    phase_generate(torch, pipe, "V2P generate", generate_v2p,
+                   generate_expect(pipe, len(frames)), check=check_roll)
+    roll = pipe.last_roll
+    log(f"  roll {tuple(roll.shape)}: min {roll.min().item():.4f}, max "
+        f"{roll.max().item():.4f}, mean {roll.mean().item():.4f}")
+    log("[8/11] V2P generate profile")
+    phase_profile(torch, "V2P generate", profiled(generate_v2p, check_roll))
+    del pipe, roll
+    torch.cuda.empty_cache()
+    log("[9/11] small train: tiny_test() card vs CPU, then "
         f"{TINY_STEPS} steps")
     phase_small_train(torch)
-    log("[7/8] full-width V2A train step")
+    log("[10/11] full-width V2A train step")
     trainer, batch = full_trainer(torch)
     train_counts = phase_train(torch, trainer, batch)
-    log("[8/8] train-step profile")
+    log("[11/11] train-step profile")
 
     def train_once():
         loss, _ = trainer.train_step(batch)
@@ -978,18 +1215,22 @@ def main() -> int:
                  "K2": "K2 ViT-bigG (64, 16, 257, 104)",
                  "K3": "self-attn (8, 782, 16x64)",
                  "K4": "self-attn (8, 782, 16x64)",
-                 "K5": "self-attn (8, 782, 16x64)"}
+                 "K5": "self-attn (8, 782, 16x64)",
+                 "P1": "P1 probe (24, 768, 16x64)"}
     src = "v2ap_tpu/ops/flash_attention.py"
     meta = {"K1": ("flash_attention_packed", "flash_fwd.cu", f"{src}:503"),
             "K2": ("flash_attention", "flash_fwd.cu", f"{src}:103"),
             "K3": ("flash_attention_lse", "flash_fwd.cu", f"{src}:116"),
             "K4": ("flash_attention_bwd_dq", "flash_bwd.cu", f"{src}:151"),
-            "K5": ("flash_attention_bwd_dkv", "flash_bwd.cu", f"{src}:184")}
+            "K5": ("flash_attention_bwd_dkv", "flash_bwd.cu", f"{src}:184"),
+            "P1": ("flash_bnhd", "flash_fwd.cu",
+                   "scripts/probe_flash_bnhd.py:44")}
     counts = {**{k: gen_counts[k] for k in ("flash_attention_packed",
                                             "flash_attention")},
               **{k: train_counts[k] for k in ("flash_attention_lse",
                                               "flash_attention_bwd_dq",
-                                              "flash_attention_bwd_dkv")}}
+                                              "flash_attention_bwd_dkv")},
+              "flash_bnhd": kern["P1"]["launches"]}
     entries = []
     for kid, (name, source, replaces) in meta.items():
         c = kern[kid]["cases"][main_case[kid]]

@@ -1,6 +1,6 @@
 """The port's CUDA flash-attention kernels (``v2ap_torch/csrc/flash_fwd.cu``:
-K1, K2 and K3; ``flash_bwd.cu``: K4 and K5) on the card, against their
-plain PyTorch versions on the same inputs.
+K1, K2, K3 and the probe's P1; ``flash_bwd.cu``: K4 and K5) on the card,
+against their plain PyTorch versions on the same inputs.
 
 Every test here needs an NVIDIA card and nvcc and skips without them. The
 file imports no JAX, so it runs on a machine that has only PyTorch:
@@ -15,7 +15,8 @@ inputs: float32 1e-5 max abs (summation order only); bfloat16 1e-2 max abs
 (the output's rounding, half an ulp at |o| < 4). The backward kernels get
 the same lse, D and dO as their plain version, so only the gradients'
 rounding and the summation order differ: float32 1e-4, bfloat16 2^-7, each
-times max(1, max|ref|); lse rtol 1e-5.
+times max(1, max|ref|); lse rtol 1e-5. P1 is held as ``chip_smoke.py``
+holds it: float32 1e-4, bfloat16 2^-7, each times max(1, max|ref|).
 """
 
 import numpy as np
@@ -214,6 +215,59 @@ def test_autograd_path_launches_k3_k4_k5(cuda):
     torch.cuda.synchronize()
     assert (grads["cuda"] - grads["cpu"]).abs().max().item() <= \
         1e-4 * max(1.0, grads["cpu"].abs().max().item())
+
+
+BNHD_CASES = [
+    # (b, n, h, d, softclamp, mask)
+    pytest.param((2, 768, 16, 64, 50.0, "ones"), id="probe_width"),
+    pytest.param((2, 130, 8, 64, 50.0, "all_masked"),
+                 id="fully_masked_element"),
+    pytest.param((2, 100, 4, 64, None, "ragged"), id="no_softclamp_ragged"),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", BNHD_CASES)
+def test_flash_bnhd_matches_plain(cuda, case, dtype):
+    """P1 (``flash_bnhd``, the probe's packed-layout kernel) on packed
+    tensors against the plain version, its launch counted once under its
+    own key and no other kernel's."""
+    from v2ap_torch.scripts.probe_flash_bnhd import flash_bnhd
+
+    b, n, h, d, softclamp, mask_kind = case
+    q, k, v, mask = _inputs(np.random.default_rng(5), b, h, n, n, d,
+                            mask_kind, dtype, cuda)
+    ref = fa.attention_reference(
+        *(fa._heads_view(t.float(), h, d) for t in (q, k, v)), mask,
+        softclamp=softclamp).transpose(1, 2).flatten(2)
+    before = dict(fa.launch_counts)
+    out = flash_bnhd(q, k, v, mask, softclamp=softclamp, heads=h,
+                     dim_head=d)
+    torch.cuda.synchronize()
+    launched = {k_: fa.launch_counts[k_] - before[k_] for k_ in before}
+    assert launched == {**dict.fromkeys(before, 0), "flash_bnhd": 1}
+    assert out.shape == q.shape and out.dtype == dtype
+    assert torch.isfinite(out).all()
+    tol = {torch.float32: 1e-4, torch.bfloat16: 2.0 ** -7}[dtype]
+    assert (out.float() - ref).abs().max().item() <= \
+        tol * max(1.0, ref.abs().max().item())
+
+
+def test_probe_paths_agree_on_the_card(cuda):
+    """The probe's two paths at a small width: the old one launches K2's
+    entry point, the new one P1, once each; they agree to bf16 rounding."""
+    from v2ap_torch.scripts import probe_flash_bnhd as probe
+
+    b, n, h, d = 2, 96, 4, 64
+    qkv, mask, rot = probe.probe_inputs(b, n, h, d, cuda)
+    old_path, new_path = probe.make_paths(b, n, h, d, rot, mask)
+    fa.reset_launch_counts()
+    old, new = old_path(qkv), new_path(qkv)
+    torch.cuda.synchronize()
+    assert fa.launch_counts == {**dict.fromkeys(fa.launch_counts, 0),
+                                "flash_attention": 1, "flash_bnhd": 1}
+    assert probe.rel_rms(new, old) < 1e-2
 
 
 def test_trainer_steps_pick_their_kernels(cuda):

@@ -52,10 +52,16 @@ def test_pipeline_refuses_missing_cuda():
 
 
 def test_training_sources_are_checked():
-    """The static check above covers the training slice and the backward
-    kernel's wrapper."""
+    """The static check above covers the training slice, the backward
+    kernel's wrapper, the V2P / prompt slice's models and the probe script
+    (which ``test_port_loads_no_jax_modules`` also imports: its ``main`` is
+    guarded)."""
     checked = {p.relative_to(ROOT).as_posix()
                for p in (ROOT / "v2ap_torch").rglob("*.py")}
     assert {"v2ap_torch/training/trainer.py",
             "v2ap_torch/training/__init__.py",
-            "v2ap_torch/ops/flash_attention.py"} <= checked
+            "v2ap_torch/ops/flash_attention.py",
+            "v2ap_torch/models/t5.py",
+            "v2ap_torch/models/video2roll.py",
+            "v2ap_torch/scripts/__init__.py",
+            "v2ap_torch/scripts/probe_flash_bnhd.py"} <= checked

@@ -49,17 +49,23 @@ def model_cfgs(**kw):
 
 # ------------------------------------------------------------------ config
 
-@pytest.mark.parametrize("name", ["v2a_default", "tiny_test"])
+@pytest.mark.parametrize("name", ["v2a_default", "tiny_test", "v2p_88key"])
 def test_config_matches_jax(name):
     """The port's copy of the configuration: the same fields and values, so
     one configuration drives both packages."""
+    from v2ap_torch.models import t5 as t_t5
+    from v2ap_tpu.models import t5 as j_t5
+
     j, t = getattr(j_config, name)(), getattr(t_config, name)()
     for section in ("model", "sampler", "conditioning"):
         assert dataclasses.asdict(getattr(t, section)) == \
             dataclasses.asdict(getattr(j, section)), section
-    for fn in ("clip_vit_bigg", "clip_tiny_test"):
-        assert dataclasses.asdict(getattr(t_clip, fn)()) == \
-            dataclasses.asdict(getattr(j_clip, fn)())
+    for mod_t, mod_j, fns in (
+            (t_clip, j_clip, ("clip_vit_bigg", "clip_tiny_test")),
+            (t_t5, j_t5, ("flan_t5_large", "t5_tiny_test"))):
+        for fn in fns:
+            assert dataclasses.asdict(getattr(mod_t, fn)()) == \
+                dataclasses.asdict(getattr(mod_j, fn)())
     assert dataclasses.asdict(t_encodec.EncodecConfig()) == \
         dataclasses.asdict(j_encodec.EncodecConfig())
 
@@ -357,10 +363,13 @@ def test_video_io_matches_jax(tmp_path):
 
 def test_load_jax_params_rejects_unknown_and_missing_keys(cfm_pair):
     _, tm, _, flat = cfm_pair
-    with pytest.warns(UserWarning, match="video2roll.conv1.kernel"):
+    with pytest.warns(UserWarning, match="encoder.conv1.kernel"):
         skipped = load_jax_params(
-            tm, {**flat, "video2roll.conv1.kernel": np.zeros(3)})
-    assert skipped == ["video2roll.conv1.kernel"]
+            tm, {**flat, "encoder.conv1.kernel": np.zeros(3)})
+    assert skipped == ["encoder.conv1.kernel"]
+    # Video2Roll is ported: its keys need a CFM built with it
+    with pytest.raises(KeyError, match="no place"):
+        load_jax_params(tm, {**flat, "video2roll.fc.kernel": np.zeros(1)})
     with pytest.raises(KeyError, match="no place"):
         load_jax_params(tm, {**flat, "transformer.bogus.kernel": np.zeros(1)})
     short = dict(flat)
@@ -385,3 +394,12 @@ def test_entry_points_refuse_missing_cuda():
         t_encodec.EncodecModel()
     with pytest.raises(RuntimeError, match="CUDA"):
         t_clip.CLIPVisionModel(t_clip.clip_tiny_test())
+    # the models a caller may build on their own: the transformer defaulted
+    # to the CPU before (ROADMAP section 3)
+    from v2ap_torch.models.t5 import T5Encoder, t5_tiny_test
+    from v2ap_torch.models.transformer import TriStreamTransformer
+    from v2ap_torch.models.video2roll import Video2RollNet
+    for build in (lambda: TriStreamTransformer(tcfg),
+                  lambda: T5Encoder(t5_tiny_test()), Video2RollNet):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            build()

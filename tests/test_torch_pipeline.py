@@ -1,14 +1,18 @@
-"""The port's V2A serving slice end to end against the JAX package's, on
-the CPU in float32: the same decoded frames through
-``encode_video_frames_clip(..., frames_cache=...)``, then ``CFM.sample``
-with CFG from the same x0, then ``EncodecModel.decode``, for both
-pipelines with the JAX pipeline's weights carried across.
+"""The port's serving slices end to end against the JAX package's, on the
+CPU in float32, with the JAX pipeline's weights carried across: the same
+decoded frames through ``encode_video_frames_clip(..., frames_cache=...)``
+at frame stride 1 and 3, the same prompt through ``encode_text`` (T5), the
+same keyboard strips through the roll path at strip stride 1 and 2
+(``encode_piano_frames`` / ``_strided_strip_plan`` + ``_roll_from_strips``,
+Video2Roll), then ``CFM.sample`` with CFG from the same x0, then
+``EncodecModel.decode``.
 
-Tolerances: CLIP features atol 1e-5 (two tiny f32 towers); latents and the
-waveform 1e-4 relative RMS (4 CFG steps of a 4-layer transformer in f32,
-summation order differs).
+Tolerances: CLIP features atol 1e-5 (two tiny f32 towers); the strided
+features, the prompt context, the roll, latents and the waveform 1e-4
+relative RMS (f32 matmuls and convolutions in another summation order).
 """
 
+import contextlib
 import dataclasses
 
 import numpy as np
@@ -17,8 +21,10 @@ import torch
 
 from tests.test_torch_models import rel_rms
 from tests.test_torch_ops import N, T, flatten_jax, randomize_jax
+from tests.test_torch_video2roll import randomize_params_and_stats
 from v2ap_torch import config as t_config
 from v2ap_torch.models import clip_vit as t_clip
+from v2ap_torch.models import t5 as t_t5
 from v2ap_torch.pipelines import generate as t_generate
 from v2ap_torch.utils.convert import load_jax_params
 from v2ap_tpu import config as j_config
@@ -29,16 +35,26 @@ from v2ap_tpu.pipelines import generate as j_generate
 
 torch.set_num_threads(2)
 
+PROMPT = "a calm piano piece in a quiet room"
+STRIP_S = 0.4                  # 10 strips at 25 fps -> 11 Video2Roll windows
+
 
 def _cfg(mod):
     """The tiny pipeline config (tower width 16, T5 width 32, 8 latent
-    channels) with reference-parity conditioning and no feature caches."""
+    channels, Video2Roll) with reference-parity conditioning (frame and
+    strip stride 1) and no feature caches."""
     cfg = mod.tiny_test()
     return cfg.replace(
         model=dataclasses.replace(cfg.model, dim_text=16, dim_context=32,
-                                  num_channels=8, video2roll=False),
+                                  num_channels=8, video2roll=True),
         conditioning=dataclasses.replace(cfg.conditioning, frame_stride=1,
-                                         feature_cache=False))
+                                         strip_stride=1, feature_cache=False))
+
+
+def _port_pipeline(cfg, **kw):
+    return t_generate.V2APipeline(cfg, device="cpu",
+                                  t5_config=t_t5.t5_tiny_test(),
+                                  clip_config=t_clip.clip_tiny_test(), **kw)
 
 
 @pytest.fixture(scope="module")
@@ -46,15 +62,58 @@ def pipelines():
     jp = j_generate.V2APipeline(_cfg(j_config), t5_config=t5_tiny_test(),
                                 clip_config=clip_tiny_test(),
                                 quantize_towers=False)
-    for i, model in enumerate((jp.cfm, jp.codec, jp.clip)):
+    for i, model in enumerate((jp.cfm, jp.codec, jp.clip, jp.t5)):
         randomize_jax(model, 20 + i, scale=0.05)
-    tp = t_generate.V2APipeline(_cfg(t_config), device="cpu",
-                                clip_config=t_clip.clip_tiny_test())
+    randomize_params_and_stats(jp.cfm.video2roll, 24)
+    tp = _port_pipeline(_cfg(t_config))
     load_jax_params(tp.cfm, flatten_jax(jp.cfm))
     with pytest.warns(UserWarning, match="encoder"):
         load_jax_params(tp.codec, flatten_jax(jp.codec))
     load_jax_params(tp.clip, flatten_jax(jp.clip))
+    load_jax_params(tp.t5, flatten_jax(jp.t5))
     return jp, tp
+
+
+@contextlib.contextmanager
+def strides(jp, tp, frame: int = 1, strip: int = 1):
+    """Both pipelines at the given frame and strip strides (the JAX
+    pipeline reads them once, at construction, into these attributes)."""
+    saved = (jp._frame_stride, jp._strip_stride, tp.frame_stride,
+             tp.strip_stride)
+    jp._frame_stride = tp.frame_stride = frame
+    jp._strip_stride = tp.strip_stride = strip
+    try:
+        yield
+    finally:
+        (jp._frame_stride, jp._strip_stride, tp.frame_stride,
+         tp.strip_stride) = saved
+
+
+def _strips():
+    return np.random.default_rng(6).integers(0, 256, (10, 100, 900),
+                                             dtype=np.uint8)
+
+
+@pytest.fixture(scope="module")
+def rolls(pipelines):
+    """{strip stride: (JAX roll, port roll)} for 10 strips of a 0.4 s clip
+    at n = 96 latents, the JAX roll through its own methods."""
+    jp, tp = pipelines
+    strips, n = _strips(), 96
+    out = {}
+    with strides(jp, tp, strip=1):
+        want = jp._roll_from_strips(jp._ship_strips(jp.encode_piano_frames(
+            "clip.mp4", n, strips_cache=[(strips, STRIP_S)])), n)
+        got = tp._roll_from_strips(tp._ship_strips(tp.encode_piano_frames(
+            "clip.mp4", n, strips_cache=[(strips, STRIP_S)])), n)
+        out[1] = (np.asarray(want), N(got))
+    with strides(jp, tp, strip=2):
+        want = jp._roll_from_strips(jp._strided_strip_plan(
+            strips[::2], len(strips), STRIP_S, n), n)
+        got = tp._roll_from_strips(tp._strided_strip_plan(
+            strips[::2], len(strips), STRIP_S, n), n)
+        out[2] = (np.asarray(want), N(got))
+    return out
 
 
 def test_v2a_slice_matches_jax(pipelines):
@@ -130,13 +189,23 @@ def test_generate_runs_on_cpu(pipelines):
     assert wav2.shape == (12_000,) and np.isfinite(wav2).all()
 
 
-@pytest.mark.parametrize("kwargs", [dict(prompt="dog barking"),
-                                    dict(piano=True), dict(passes=2)],
-                         ids=["prompt", "piano", "passes"])
-def test_generate_refuses_unported_modes(pipelines, kwargs):
+@pytest.mark.parametrize("mode", ["prompt", "piano", "passes"])
+def test_generate_refuses_unported_modes(pipelines, mode):
+    """What the port cannot serve raises, never falls back: a tokenizer
+    path (its sentencepiece assets are not supported), piano=True with no
+    strips and no video to decode (never a zero roll), passes > 1."""
     _, tp = pipelines
-    with pytest.raises(NotImplementedError):
-        tp.generate(None, duration_s=0.5, steps=2, **kwargs)
+    if mode == "prompt":
+        with pytest.raises(NotImplementedError, match="sentencepiece"):
+            _port_pipeline(_cfg(t_config), tokenizer_path="/t5/spiece.model")
+    elif mode == "piano":
+        with pytest.raises(ValueError, match="strips"):
+            tp.generate(None, duration_s=0.5, steps=2, piano=True)
+        with pytest.raises(RuntimeError, match="no keyboard strips"):
+            tp.generate("missing.mp4", steps=2, piano=True)
+    else:
+        with pytest.raises(NotImplementedError):
+            tp.generate(None, duration_s=0.5, steps=2, passes=2)
 
 
 @pytest.mark.parametrize("change,kwargs", [
@@ -145,12 +214,156 @@ def test_generate_refuses_unported_modes(pipelines, kwargs):
     (dict(video_encoder="mixed"), {}),
 ], ids=["frame_stride", "feature_cache", "int8_towers", "int8_cfm",
         "other_towers"])
-def test_pipeline_refuses_unported_conditioning(change, kwargs):
+def test_pipeline_refuses_unported_conditioning(pipelines, change, kwargs):
+    """Unported conditioning raises at construction. A frame stride above 1
+    is ported: what it refuses is a frames_cache holding frames at a step
+    that is neither 1 (full rate) nor the stride."""
     cfg = _cfg(t_config)
     cfg = cfg.replace(conditioning=dataclasses.replace(cfg.conditioning,
                                                        **change))
+    if "frame_stride" in change:
+        _, tp = pipelines
+        frames = np.zeros((6, 28, 28, 3), np.uint8)
+        with strides(*pipelines, frame=3), \
+                pytest.raises(ValueError, match="frames_cache"):
+            tp.generate(None, duration_s=0.5, steps=2,
+                        frames_cache=[(frames, 1.0, 2)])
+        return
     with pytest.raises(NotImplementedError):
-        t_generate.V2APipeline(cfg, device="cpu", **kwargs)
+        _port_pipeline(cfg, **kwargs)
+
+
+def test_encode_text_matches_jax(pipelines):
+    """A prompt through the tokenizer and T5: the context and its mask."""
+    jp, tp = pipelines
+    ctx_j, mask_j = jp.encode_text([PROMPT, "rain"])
+    ctx_t, mask_t = tp.encode_text([PROMPT, "rain"])
+    np.testing.assert_array_equal(N(mask_t), np.asarray(mask_j))
+    assert N(mask_t).sum(1).tolist() == [9, 2]         # words + eos, of 64
+    assert ctx_t.shape == (2, 64, 32)
+    assert rel_rms(N(ctx_t), ctx_j) < 1e-4
+    assert not N(ctx_t)[~N(mask_t)].any()
+
+
+@pytest.mark.parametrize("cached_step", [1, 3], ids=["full_rate", "strided"])
+def test_encode_video_frames_clip_stride3_matches_jax(pipelines, cached_step):
+    """Frame stride 3: the tower over every third frame, then the linear
+    blend to the latent rate, from full-rate frames or frames already at
+    the stride."""
+    jp, tp = pipelines
+    frames = np.random.default_rng(3).integers(0, 256, (13, 28, 28, 3),
+                                               dtype=np.uint8)
+    cache = [(frames[::cached_step], 1.04, cached_step)]
+    with strides(jp, tp, frame=3):
+        feats_j, dur_j = jp.encode_video_frames_clip(
+            "clip.mp4", 96, frames_cache=list(cache))
+        feats_t, dur_t = tp.encode_video_frames_clip(
+            "clip.mp4", 96, frames_cache=list(cache))
+    assert dur_j == dur_t == 1.04
+    assert feats_t.shape == (96, 16) and feats_t.dtype == torch.float32
+    assert rel_rms(N(feats_t), feats_j) < 1e-4
+
+
+@pytest.mark.parametrize("stride", [1, 2], ids=["strip_stride1",
+                                                "strip_stride2"])
+def test_roll_from_strips_matches_jax(rolls, stride):
+    """The roll from full-rate strips (stride 1: strips at the roll rate)
+    and from every second strip blended (stride 2), against JAX's
+    encode_piano_frames / _strided_strip_plan + _roll_from_strips."""
+    want, got = rolls[stride]
+    assert got.shape == want.shape == (1, 96, 51)
+    assert rel_rms(got, want) < 1e-4
+    assert 0.0 <= got.min() and got.max() <= 1.0
+    assert not got[0, 33:].any() and got[0, :33].any()   # 11 windows x3
+
+
+def test_sample_with_roll_and_prompt_matches_jax(pipelines, rolls):
+    """CFM.sample with the stride-2 roll and a prompt context (its mask
+    kept in the CFG null branch, whose context is zeroed), from one x0."""
+    jp, tp = pipelines
+    ctx_j, mask_j = jp.encode_text([PROMPT])
+    ctx_t, mask_t = tp.encode_text([PROMPT])
+    roll_j, roll_t = rolls[2]
+    cfg = jp.cfg.model
+    n, n_valid = 96, 30
+    rng = np.random.default_rng(7)
+    x0 = rng.normal(size=(1, n, cfg.num_channels)).astype(np.float32)
+    text = rng.normal(size=(1, n, cfg.dim_text)).astype(np.float32)
+    mask = np.arange(n)[None, :] < n_valid
+    sampler = SamplerConfig(steps=4, cfg_strength=2.0)
+    lat_j = jp._sample(jp.cfm, x0, text, roll_j, ctx_j, mask_j, mask, sampler)
+    with torch.no_grad():
+        lat_t = tp.cfm.sample(
+            T(x0), text_embed=T(text), frames_embed=T(roll_t), context=ctx_t,
+            context_mask=mask_t, mask=T(mask),
+            sampler=t_config.SamplerConfig(steps=4, cfg_strength=2.0))
+    err = rel_rms(N(lat_t), lat_j)
+    assert err < 1e-4
+    # the prompt moves the result by far more than the two packages differ
+    with torch.no_grad():
+        no_prompt = tp.cfm.sample(
+            T(x0), text_embed=T(text), frames_embed=T(roll_t),
+            context=torch.zeros_like(ctx_t[:, :1]),
+            context_mask=mask_t[:, :1], mask=T(mask),
+            sampler=t_config.SamplerConfig(steps=4, cfg_strength=2.0))
+    assert rel_rms(N(no_prompt), N(lat_t)) > 10 * err
+
+
+def test_generate_v2p_with_prompt_runs_on_cpu(pipelines):
+    """The entry point at the shipped strides (frame 3, strip 2) with a
+    prompt and piano=True, frames and strips handed in decoded: finite
+    audio of the strips' duration, a roll in [0, 1], the T5 and Video2Roll
+    stages timed; an explicit duration takes the exact (every strip)
+    path."""
+    _, tp = pipelines
+    frames = np.random.default_rng(1).integers(0, 256, (10, 28, 28, 3),
+                                               dtype=np.uint8)
+    strips = _strips()
+    with strides(*pipelines, frame=3, strip=2):
+        wav, sr = tp.generate(None, PROMPT, piano=True, steps=2, seed=5,
+                              frames_cache=[(frames, STRIP_S, 1)],
+                              strips_cache=[(strips, STRIP_S)])
+        roll = N(tp.last_roll)
+        assert set(tp.last_timings) == {
+            "video_encode_s", "text_encode_s", "roll_s", "conditioning_s",
+            "sample_s", "decode_s"}
+        exact, _ = tp.generate(None, PROMPT, piano=True, steps=2, seed=5,
+                               duration_s=STRIP_S,
+                               frames_cache=[(frames, STRIP_S, 1)],
+                               strips_cache=[(strips, STRIP_S)])
+    assert sr == 24_000 and wav.shape == exact.shape == (9_600,)
+    assert np.isfinite(wav).all() and np.isfinite(exact).all()
+    assert roll.shape == (96, 51) and 0.0 <= roll.min() and roll.max() <= 1.0
+    assert roll[:33].any() and not roll[33:].any()
+
+
+def test_generate_v2p_from_a_video_file_matches_decoded_caches(pipelines,
+                                                               tmp_path):
+    """piano=True from a video path at the shipped strides (one fused
+    decode: RGB at the frame stride, strips at the strip stride) gives the
+    same audio and roll as the full-rate frames and strips handed in
+    decoded through frames_cache and strips_cache."""
+    cv2 = pytest.importorskip("cv2")
+    path = str(tmp_path / "keys.mp4")
+    writer = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"mp4v"), 25,
+                             (64, 48))
+    rng = np.random.default_rng(9)
+    for _ in range(10):
+        writer.write(rng.integers(0, 256, (48, 64, 3), dtype=np.uint8))
+    writer.release()
+    frames, dur = t_generate.video_io.read_video_frames(path)
+    strips = t_generate.video_io.piano_preprocess(frames)
+    _, tp = pipelines
+    kw = dict(prompt=PROMPT, piano=True, steps=2, seed=3)
+    with strides(*pipelines, frame=3, strip=2):
+        wav_file, _ = tp.generate(path, **kw)
+        roll_file = N(tp.last_roll)
+        wav_cache, _ = tp.generate(None, frames_cache=[(frames, dur, 1)],
+                                   strips_cache=[(strips, dur)], **kw)
+        roll_cache = N(tp.last_roll)
+    assert wav_file.shape == (9_600,) and np.isfinite(wav_file).all()
+    np.testing.assert_array_equal(roll_file, roll_cache)
+    np.testing.assert_array_equal(wav_file, wav_cache)
 
 
 def test_bucket_length_and_tokenizer_match_jax():

@@ -1,7 +1,7 @@
 """Typed configuration for the PyTorch port.
 
-A copy of the fields of ``v2ap_tpu.config`` that the port's V2A serving
-and training slices read (the port imports nothing of the JAX package). The field names,
+A copy of the fields of ``v2ap_tpu.config`` that the port's V2A/V2P serving
+and V2A training slices read (the port imports nothing of the JAX package). The field names,
 defaults and meanings are the JAX package's, so one configuration drives both.
 ``ModelConfig.dtype`` is the compute dtype: matmul inputs are cast to it,
 parameters stay float32, norms and softmax run in float32.
@@ -158,6 +158,13 @@ class V2APConfig:
 def v2a_default() -> V2APConfig:
     """The shipped V2A/V2P config (reference: src/inference_v2a.py:74-111)."""
     return V2APConfig()
+
+
+def v2p_88key() -> V2APConfig:
+    """88-key full-keyboard variant (reference: e2_tts_crossatt3_2.py:74-76)."""
+    cfg = V2APConfig()
+    return cfg.replace(model=dataclasses.replace(cfg.model, notes=88,
+                                                 note_min=0, note_max=87))
 
 
 def tiny_test() -> V2APConfig:

@@ -11,6 +11,10 @@
 //       lse = m + log(max(l, 1e-30)) as f32 (b, h, nq) for the backward
 //       kernels of flash_bwd.cu. One kernel with an optional second output,
 //       not a copy: a null lse pointer skips the store.
+// It also serves P1, _bnhd_fwd_kernel of scripts/probe_flash_bnhd.py (entry
+// flash_bnhd of v2ap_torch/scripts/probe_flash_bnhd.py): K1's function on
+// the packed layout, no lse; its head_group unroll and block-size search
+// are TPU tiling, so here P1 is one more caller of the same launch.
 // Both compute  out = softmax(mask(softclamp(q k^T * scale))) v  with an
 // online softmax over key tiles: running max and denominator in f32, masked
 // logits set to -1e30, the denominator floored at 1e-20. Softclamp

@@ -1,16 +1,21 @@
-"""Host-side video IO: frame decode and the CLIP-stream interpolation index.
+"""Host-side video IO: frame and keyboard-strip decode, and the
+interpolation plans of the CLIP and piano streams.
 
-A copy of the parts of ``v2ap_tpu/data/video_io.py`` the V2A slice uses.
-OpenCV is imported only when a file is decoded; callers that already hold
-decoded frames (``frames_cache``) need none.
+A copy of the parts of ``v2ap_tpu/data/video_io.py`` the serving slices
+use. OpenCV is imported only when a file is decoded or frames are turned
+into strips; callers that already hold decoded frames and strips
+(``frames_cache``, ``strips_cache``) need none.
 
-Interpolation (exact): one conditioning row per ``frame_size`` samples; row
-i maps to source frame ``round(t_i / frame_dt)`` clamped, the "nearest frame
-at the hop midpoint" rule.
+Interpolation: one conditioning row per ``frame_size`` samples; at frame
+stride 1 row i maps to source frame ``round(t_i / frame_dt)`` clamped (the
+"nearest frame at the hop midpoint" rule), at a larger stride it blends the
+two nearest encoded frames. Piano rows sit at ``video_multi * frame_size``
+samples, start-aligned, and a strided strip array is blended the same way.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Optional, Tuple
 
 import numpy as np
@@ -105,6 +110,94 @@ def read_video_frames(path: str, max_frames: Optional[int] = None,
         return None, None
 
 
+def read_video_frames_and_strips(
+    path: str, step: int = 1, width: int = 900, height: int = 100,
+    strip_step: int = 1,
+) -> Tuple[Optional[np.ndarray], Optional[np.ndarray], Optional[float],
+           Optional[int]]:
+    """One decode pass -> (RGB frames at every ``step``-th frame, grayscale
+    ``height x width`` keyboard strips at every ``strip_step``-th frame,
+    duration, total source-frame count). Frames neither consumer needs are
+    only grabbed. At ``strip_step=1`` the strips equal
+    ``piano_preprocess(read_video_frames(path)[0])``. Returns (None, None,
+    None, None) on decode failure."""
+    try:
+        import cv2
+        cap = cv2.VideoCapture(path)
+        if not cap.isOpened():
+            return None, None, None, None
+        fps = cap.get(cv2.CAP_PROP_FPS) or 0.0
+        h = int(cap.get(cv2.CAP_PROP_FRAME_HEIGHT) or 0)
+        w = int(cap.get(cv2.CAP_PROP_FRAME_WIDTH) or 0)
+        n_est = int(cap.get(cv2.CAP_PROP_FRAME_COUNT) or 0)
+        if h <= 0 or w <= 0:                 # no geometry metadata: decode
+            cap.release()                    # everything, strip separately
+            frames, duration = read_video_frames(path)
+            if frames is None:
+                return None, None, None, None
+            strips = piano_preprocess(frames[::strip_step], width, height)
+            return frames[::step], strips, duration, len(frames)
+        rgb = np.empty((max((n_est + step - 1) // step, 8), h, w, 3), np.uint8)
+        strips = np.empty((max((n_est + strip_step - 1) // strip_step, 8),
+                           height, width), np.uint8)
+        gray = np.empty((h, w), np.uint8)    # reused per-frame scratch
+        k_rgb = k_strip = i = 0
+        while True:
+            want_rgb = i % step == 0
+            want_strip = i % strip_step == 0
+            if not (want_rgb or want_strip):
+                if not cap.grab():
+                    break
+                i += 1
+                continue
+            ok, frame = cap.read()
+            if not ok or frame.shape[:2] != (h, w):
+                break
+            if want_strip:
+                if k_strip == len(strips):   # metadata undercounted
+                    strips = np.concatenate([strips, np.empty_like(strips)])
+                cv2.cvtColor(frame, cv2.COLOR_BGR2GRAY, dst=gray)
+                cv2.resize(gray, (width, height),
+                           interpolation=cv2.INTER_LINEAR, dst=strips[k_strip])
+                k_strip += 1
+            if want_rgb:
+                if k_rgb == len(rgb):
+                    rgb = np.concatenate([rgb, np.empty_like(rgb)])
+                cv2.cvtColor(frame, cv2.COLOR_BGR2RGB, dst=rgb[k_rgb])
+                k_rgb += 1
+            i += 1
+        cap.release()
+        if i == 0:
+            return None, None, None, None
+        duration = i / fps if fps > 0 else i / 25.0
+        return rgb[:k_rgb], strips[:k_strip], float(duration), i
+    except Exception:
+        return None, None, None, None
+
+
+def piano_preprocess(frames: np.ndarray, width: int = 900, height: int = 100
+                     ) -> np.ndarray:
+    """RGB frames (t, H, W, 3) -> grayscale keyboard strips (t, height,
+    width) as uint8 (the division by 255 happens on the device)."""
+    import cv2
+    out = np.empty((len(frames), height, width), np.uint8)
+
+    def work(i):
+        g = cv2.cvtColor(frames[i], cv2.COLOR_RGB2GRAY)
+        out[i] = cv2.resize(g, (width, height),
+                            interpolation=cv2.INTER_LINEAR)
+
+    workers = min(8, os.cpu_count() or 1)
+    if workers > 1:
+        from concurrent.futures import ThreadPoolExecutor
+        with ThreadPoolExecutor(max_workers=workers) as pool:  # cv2 drops GIL
+            list(pool.map(work, range(len(frames))))
+    else:
+        for i in range(len(frames)):
+            work(i)
+    return out
+
+
 def probe_duration(path: str) -> Optional[float]:
     """Container-metadata duration (no frame decode); None when unknown."""
     try:
@@ -132,3 +225,70 @@ def interp_indices_clip(num_source: int, duration: float, length: int,
     denom = duration / max(num_source - 1, 1)
     idx = np.round((samples + frame_size // 2) / sample_rate / denom)
     return np.clip(idx.astype(np.int64), 0, num_source - 1)
+
+
+def interp_weights_clip(num_source: int, duration: float, length: int,
+                        start_sample: int = 0,
+                        max_sample: Optional[int] = None,
+                        sample_rate: int = SAMPLE_RATE,
+                        frame_size: int = FRAME_SIZE
+                        ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Linear-interpolation plan for frame-strided conditioning
+    (``ConditioningConfig.frame_stride`` > 1): per-hop positions over the
+    encoded anchor frames as (idx0, idx1, w), blended on the device as
+    feats[idx0]*(1-w) + feats[idx1]*w. The anchors are taken to span
+    ``duration`` uniformly."""
+    if max_sample is None:
+        max_sample = int(duration * sample_rate)
+    samples = np.arange(start_sample, max_sample, frame_size)[:length]
+    denom = duration / max(num_source - 1, 1)
+    pos = (samples + frame_size // 2) / sample_rate / denom
+    idx0 = np.clip(np.floor(pos).astype(np.int64), 0, num_source - 1)
+    idx1 = np.minimum(idx0 + 1, num_source - 1)
+    w = np.clip(pos - idx0, 0.0, 1.0).astype(np.float32)
+    return idx0, idx1, w
+
+
+def interp_indices_piano(num_source: int, duration: float, length: int,
+                         video_multi: float = 3.0, start_sample: int = 0,
+                         max_sample: Optional[int] = None,
+                         sample_rate: int = SAMPLE_RATE,
+                         frame_size: int = FRAME_SIZE) -> np.ndarray:
+    """Frame indices for the piano stream at the video_multi-decimated rate:
+    floor(length/video_multi)+1 rows, start-aligned rounding."""
+    if max_sample is None:
+        max_sample = int(duration * sample_rate)
+    step = int(video_multi * frame_size)
+    n_rows = int(np.floor(length / video_multi)) + 1
+    samples = np.arange(start_sample, max_sample + step, step)[:n_rows]
+    denom = duration / max(num_source, 1)
+    idx = np.round(samples / sample_rate / denom)
+    return np.clip(idx.astype(np.int64), 0, num_source - 1)
+
+
+def interp_weights_piano(num_source: int, duration: float, length: int,
+                         strip_step: int, video_multi: float = 3.0,
+                         start_sample: int = 0,
+                         max_sample: Optional[int] = None,
+                         sample_rate: int = SAMPLE_RATE,
+                         frame_size: int = FRAME_SIZE
+                         ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Lerp plan for roll-rate strips out of a ``strip_step``-strided strip
+    array: (i0, i1, w) with ``strided[i0]*(1-w) + strided[i1]*w`` standing
+    for the full-rate ``strips[interp_indices_piano(...)]``. Each row first
+    resolves to the same full-rate index as ``interp_indices_piano``; rows
+    on a decoded anchor, and rows whose two anchors coincide, get w = 0.
+    ``num_source`` is the FULL-rate frame count, not the strided one."""
+    idx = interp_indices_piano(num_source, duration, length,
+                               video_multi=video_multi,
+                               start_sample=start_sample,
+                               max_sample=max_sample,
+                               sample_rate=sample_rate,
+                               frame_size=frame_size)
+    n_strided = (num_source + strip_step - 1) // strip_step
+    f = idx.astype(np.float64) / strip_step
+    i0 = np.clip(np.floor(f).astype(np.int64), 0, n_strided - 1)
+    i1 = np.minimum(i0 + 1, n_strided - 1)
+    w = (f - i0).astype(np.float32)
+    w[i1 == i0] = 0.0
+    return i0.astype(np.int32), i1.astype(np.int32), w

@@ -14,9 +14,10 @@ Inference is Euler integration over a sway schedule with classifier-free
 guidance folded into one batch-doubled forward per step. Training is the
 span-masked flow-matching MSE with per-sample condition dropout; its seven
 random draws come from one helper, ``draw_loss_randoms``, so that a caller
-can hand in values drawn elsewhere. This port builds no Video2Roll net (V2A
-feeds a zero roll): ``encode_frames``, the V2P MIDI loss and
-``sample_multipass`` are not ported yet.
+can hand in values drawn elsewhere. ``with_video2roll=True`` builds the
+Video2Roll net that ``encode_frames`` runs (V2P serving; V2A feeds a zero
+roll). It defaults to False here, unlike JAX's True, because the V2P MIDI
+loss that would train it and ``sample_multipass`` are not ported yet.
 """
 
 from __future__ import annotations
@@ -24,10 +25,12 @@ from __future__ import annotations
 from typing import Any, NamedTuple, Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from v2ap_torch.config import ConditioningConfig, ModelConfig, SamplerConfig
 from v2ap_torch.models.transformer import TriStreamTransformer
+from v2ap_torch.models.video2roll import Video2RollNet
 from v2ap_torch.ops.layers import Dropout, Linear
 from v2ap_torch.ops.sampling import (
     euler_integrate, lens_to_mask, mask_from_frac_lengths, project_parallel,
@@ -92,7 +95,7 @@ def draw_loss_randoms(b: int, n: int, c: int,
 class CFM(nn.Module):
     def __init__(self, cfg: ModelConfig,
                  cond_cfg: ConditioningConfig | None = None, *, device=None,
-                 dropout_seed: int = 0):
+                 with_video2roll: bool = False, dropout_seed: int = 0):
         super().__init__()
         device = resolve_device(device)
         self.cfg = cfg
@@ -112,6 +115,11 @@ class CFM(nn.Module):
         self.proj_frames = Linear(cfg.notes, cfg.dim_frames, **kw)
         self.proj_text = (Linear(cfg.dim_text_raw, cfg.dim_text, **kw)
                           if cfg.dim_text_raw else None)
+        # the piano-perception net, built last so that the other parameters
+        # draw the same initial values with or without it
+        self.video2roll = (Video2RollNet(num_classes=cfg.notes, dtype=dtype,
+                                         device=device)
+                           if with_video2roll else None)
         # every dropout draws from one generator on the model's device
         self.dropout_generator = torch.Generator(device=device)
         self.dropout_generator.manual_seed(dropout_seed)
@@ -148,6 +156,44 @@ class CFM(nn.Module):
             frames_embed=self.proj_frames(frames_embed), context=context,
             context_mask=context_mask, deterministic=deterministic)
         return self.to_pred(out).float()
+
+    # ------------------------------------------------------------- perception
+    def encode_frames(self, frames: torch.Tensor, length: int) -> torch.Tensor:
+        """Keyboard frames (b, t, H, W) in [0, 1] -> roll probabilities
+        (b, length, notes), float32.
+
+        Edge-clamped ``piano_window``-frame windows through Video2RollNet, a
+        sigmoid in float32, the repeat to the 75 Hz latent rate (x3 for 51
+        keys; x2.5 for 88: x5, then the mean of adjacent pairs), then a trim
+        or zero pad to ``length``."""
+        if self.video2roll is None:
+            raise ValueError("this CFM was built without Video2Roll "
+                             "(with_video2roll=False)")
+        b, t, hh, ww = frames.shape
+        w = self.cond_cfg.piano_window
+        half = w // 2
+        # windows[:, i] = frames[:, clamp(i - half .. i + half)]
+        idx = (torch.arange(t, device=frames.device)[:, None]
+               + torch.arange(-half, w - half, device=frames.device)[None, :]
+               ).clamp(0, t - 1)
+        stacked = frames[:, idx].reshape(b * t, w, hh, ww)
+        probs = torch.sigmoid(self.video2roll(stacked).float())
+        probs = probs.reshape(b, t, self.cfg.notes)
+        vm = self.cfg.video_multi
+        if float(vm).is_integer():
+            probs = probs.repeat_interleave(int(vm), dim=1)
+        else:
+            num, den = float(vm).as_integer_ratio()           # 5, 2
+            rep = probs.repeat_interleave(num, dim=1)
+            t5 = (rep.shape[1] // den) * den
+            probs = rep[:, :t5].reshape(b, t5 // den, den,
+                                        self.cfg.notes).mean(dim=2)
+        cur = probs.shape[1]
+        if cur > length:
+            probs = probs[:, :length]
+        elif cur < length:
+            probs = F.pad(probs, (0, 0, 0, length - cur))
+        return probs
 
     def sample(
         self,
@@ -247,8 +293,7 @@ class CFM(nn.Module):
         ``val``. The random values come from ``draws`` if given, else from
         ``draw_loss_randoms`` on ``generator``."""
         if frames is not None:
-            raise NotImplementedError("the V2P MIDI loss and encode_frames "
-                                      "are not ported")
+            raise NotImplementedError("the V2P MIDI loss is not ported")
         cc = self.cond_cfg
         b, n, c = x1.shape
         dev = x1.device

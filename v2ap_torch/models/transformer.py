@@ -25,6 +25,7 @@ from v2ap_torch.ops.fourier import TimeCondMLP
 from v2ap_torch.ops.layers import Embed, Linear
 from v2ap_torch.ops.norms import AdaLNZero, AdaptiveRMSNorm, RMSNorm
 from v2ap_torch.ops.rope import rope_table
+from v2ap_torch.utils.device import resolve_device
 
 
 class CrossCondition(nn.Module):
@@ -161,6 +162,7 @@ class TriStreamTransformer(nn.Module):
             raise NotImplementedError("remat (per-layer activation "
                                       "recomputation) is not ported")
         self.cfg = cfg
+        device = resolve_device(device)
         dtype = getattr(torch, cfg.dtype)
         r = cfg.num_registers
         self.registers = nn.Parameter(

@@ -47,10 +47,11 @@ import torch
 NEG_INF = -1e30
 
 # K1 flash_attention_packed, K2 flash_attention, K3 flash_attention_lse,
-# K4 flash_attention_bwd_dq, K5 flash_attention_bwd_dkv
+# K4 flash_attention_bwd_dq, K5 flash_attention_bwd_dkv, P1 flash_bnhd (the
+# packed-layout probe, v2ap_torch/scripts/probe_flash_bnhd.py)
 launch_counts = {"flash_attention": 0, "flash_attention_packed": 0,
                  "flash_attention_lse": 0, "flash_attention_bwd_dq": 0,
-                 "flash_attention_bwd_dkv": 0}
+                 "flash_attention_bwd_dkv": 0, "flash_bnhd": 0}
 
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 _SOURCES = (_CSRC / "flash_fwd.cu", _CSRC / "flash_bwd.cu")

@@ -4,7 +4,9 @@ dtype that inputs and parameters are cast to before the op (so
 ``Linear(dtype=torch.bfloat16)`` behaves as
 ``nnx.Linear(dtype=bf16, param_dtype=f32)``). Initialisers follow nnx's
 defaults; weights loaded from the JAX package replace them
-(``v2ap_torch.utils.convert``). ``Dropout`` is ``nnx.Dropout``."""
+(``v2ap_torch.utils.convert``). ``Dropout`` is ``nnx.Dropout``;
+``Conv2d`` and ``BatchNorm2d`` are ``nnx.Conv`` and ``nnx.BatchNorm`` in
+PyTorch's NCHW layout."""
 
 from __future__ import annotations
 
@@ -73,6 +75,52 @@ class LayerNorm(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.layer_norm(x.float(), (x.shape[-1],), self.weight.float(),
                             self.bias.float(), self.eps)
+
+
+class Conv2d(nn.Module):
+    """nnx.Conv over 2D inputs with explicit (symmetric) padding, in NCHW:
+    input and weight cast to ``dtype``, output in ``dtype``; weight stored
+    (out, in, kh, kw) in float32."""
+
+    def __init__(self, in_features: int, out_features: int, kernel: int, *,
+                 stride: int = 1, padding: int = 0, bias: bool = True,
+                 dtype: torch.dtype = torch.float32, device=None):
+        super().__init__()
+        self.dtype = dtype
+        self.stride, self.padding = stride, padding
+        self.weight = nn.Parameter(torch.empty(out_features, in_features,
+                                               kernel, kernel, device=device))
+        lecun_normal_(self.weight, in_features * kernel * kernel)
+        self.bias = (nn.Parameter(torch.zeros(out_features, device=device))
+                     if bias else None)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype
+        bias = self.bias.to(dt) if self.bias is not None else None
+        return F.conv2d(x.to(dt), self.weight.to(dt), bias, stride=self.stride,
+                        padding=self.padding)
+
+
+class BatchNorm2d(nn.Module):
+    """nnx.BatchNorm(use_running_average=True, dtype=f32) over the channels
+    of NCHW inputs: (x - mean) / sqrt(var + eps) * scale + bias from the
+    running statistics, computed and returned in float32. Inference only:
+    the port trains no BatchNorm."""
+
+    def __init__(self, num_features: int, eps: float = 1e-5, device=None):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(num_features, device=device))
+        self.bias = nn.Parameter(torch.zeros(num_features, device=device))
+        self.register_buffer("running_mean",
+                             torch.zeros(num_features, device=device))
+        self.register_buffer("running_var",
+                             torch.ones(num_features, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.batch_norm(x.float(), self.running_mean.float(),
+                            self.running_var.float(), self.weight.float(),
+                            self.bias.float(), training=False, eps=self.eps)
 
 
 class Dropout(nn.Module):

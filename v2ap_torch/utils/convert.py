@@ -3,19 +3,22 @@
 ``load_jax_params(module, flat)`` takes a JAX model's state flattened to
 dotted paths and numpy arrays — its ``nnx.Param`` leaves plus the time
 embedding's fixed Fourier projection (a plain ``nnx.Variable``) — and fills
-the port's ``CFM``, ``EncodecModel`` or ``CLIPVisionModel`` in place. The
-port mirrors the JAX module tree, so a path maps to the module of the same
-path; only the leaf layout changes:
+the port's ``CFM`` (Video2Roll included), ``EncodecModel``, ``CLIPVisionModel``
+or ``T5Encoder`` in place. The port mirrors the JAX module tree, so a path
+maps to the module of the same path; only the leaf layout changes:
 
   * ``Linear`` kernel (in, out)                 -> weight (out, in)
   * ``nnx.Conv`` kernel (kh, kw, in, out)       -> weight (out, in, kh, kw)
+    (``PatchEmbed``, ``Conv2d``)
   * ``CausalConv1d`` / depthwise kernel (k, in, out) -> weight (out, in, k)
   * ``CausalConvTranspose1d`` kernel (k, cout, cin)  -> weight (cin, cout, k)
   * ``LayerNorm`` scale -> weight, ``Embed`` embedding -> weight
+  * ``nnx.BatchNorm`` scale / bias / mean / var
+    -> weight / bias / running_mean / running_var
   * ``ResidualLSTM`` w_ih.i / w_hh.i / b_ih.i / b_hh.i -> lstm.*_l{i}
 
-Keys of modules the port does not build yet (Video2Roll, the EnCodec
-encoder and quantizer) are skipped and named in a warning. Any other key
+Keys of modules the port does not build yet (the EnCodec encoder and
+quantizer) are skipped and named in a warning. Any other key
 the port has no place for, any shape mismatch, and any port tensor left
 unfilled raise.
 """
@@ -28,10 +31,12 @@ import numpy as np
 import torch
 from torch import nn
 
-from v2ap_torch.ops.layers import Embed, LayerNorm, Linear
+from v2ap_torch.ops.layers import BatchNorm2d, Conv2d, Embed, LayerNorm, Linear
 
 # prefixes of JAX modules that later slices of the port will build
-_NOT_PORTED = ("video2roll.", "encoder.", "quantizer.")
+_NOT_PORTED = ("encoder.", "quantizer.")
+_BN_LEAVES = {"scale": "weight", "bias": "bias", "mean": "running_mean",
+              "var": "running_var"}
 _LSTM_LEAVES = {"w_ih": "weight_ih_l", "w_hh": "weight_hh_l",
                 "b_ih": "bias_ih_l", "b_hh": "bias_hh_l"}
 
@@ -54,8 +59,10 @@ def _target(module: nn.Module, key: str):
     prefix = f"{owner}." if owner else ""
     if isinstance(mod, Linear) and leaf == "kernel":
         return prefix + "weight", lambda a: a.T
-    if isinstance(mod, PatchEmbed) and leaf == "kernel":
+    if isinstance(mod, (PatchEmbed, Conv2d)) and leaf == "kernel":
         return prefix + "weight", lambda a: a.transpose(3, 2, 0, 1)
+    if isinstance(mod, BatchNorm2d) and leaf in _BN_LEAVES:
+        return prefix + _BN_LEAVES[leaf], lambda a: a
     if isinstance(mod, (CausalConv1d, CausalConvTranspose1d,
                         DepthwiseConv1d)) and leaf == "kernel":
         return prefix + "weight", lambda a: a.transpose(2, 1, 0)
