@@ -5,20 +5,34 @@
 
 Phases, each of which fails the run (exit 1, no result line) if it fails:
 
-  1. build   — print the card, compile ``v2ap_torch/csrc/flash_fwd.cu`` and
-               ``flash_bwd.cu`` with nvcc for sm_90a (one nvcc each, started
-               together), print the build seconds;
+  1. build   — print the card, compile ``v2ap_torch/csrc/flash_fwd_sm90.cu``
+               (the bf16 forward on the tensor cores), ``flash_fwd.cu`` (the
+               f32 forward) and ``flash_bwd.cu`` with nvcc for sm_90a (one
+               nvcc each, started together), print the build seconds;
   2. kernels — each kernel on the card at its main path's shapes against its
-               plain PyTorch version on the same inputs, computed in f32:
+               plain PyTorch version on the same inputs, computed in f32,
+               its time printed beside the CUDA-core kernel's
+               (``CUDA_CORE_MS``, from PERF.md):
                K1 (packed) and K2 (4D) forwards, K1 also with logits in
                softclamp's range; K3 (forward with lse), K4 (dq) and K5
                (dk, dv) at the training shapes, with logits of std 40, with
                a fully masked batch element (exactly zero gradient) and in
-               f32; kernel / plain times (CUDA events), library times
-               (device time from the profiler: compiled flex_attention with
-               the softclamp and mask, its backward for K4 + K5, SDPA for
-               K2 and for K1 at nk = 1) and the card's least time for the
-               same work (bound);
+               f32; kernel times three ways: replays of a CUDA graph of 20
+               calls between CUDA events (the card's time without the host
+               path; the kernels line reports it), the profiler's kernel
+               durations, and CUDA events over 20 calls launched back to
+               back (how the CUDA-core kernel's times were taken; the host
+               path bounds it from below for the small K1 calls); plain
+               times (CUDA events), library
+               times (compiled flex_attention with the softclamp and mask,
+               SDPA for K2 and for K1 at nk = 1: graph replays, and the
+               profiler's device time beside them; flex's backward for
+               K4 + K5, which autograd cannot capture: the profiler's
+               device time only) and the card's least time for the
+               same work (bound); the host microseconds of one
+               ``flash_attention_packed`` call at (2, 800, 16x64) in bf16
+               (tensor maps encoded per call) and in f32 (the CUDA-core
+               kernel's host path);
   3. probe   — the P1 probe (``v2ap_torch.scripts.probe_flash_bnhd``) at its
                defaults, b 24, n 768, 16x64 heads, bf16 from
                numpy.random.default_rng(0): the old path (transposes to
@@ -46,7 +60,9 @@ Phases, each of which fails the run (exit 1, no result line) if it fails:
                times and K2 48 x (tower chunks) times in each, no other
                kernel;
   6. profile — CUDA time by kernel group and by kernel over one more
-               generate, and its share of that run's wall;
+               generate, and its share of that run's wall; it fails unless
+               the tensor-core forward ran (d 104 and d 64) and no bf16
+               instance of the CUDA-core forward did;
   7. V2P generate — v2a_default() as shipped (frame stride 3, strip stride
                2) with FLAN-T5-large and Video2Roll: the same frames, 250
                seeded 100x900 uint8 keyboard strips through
@@ -73,7 +89,8 @@ Phases, each of which fails the run (exit 1, no result line) if it fails:
                not at all; loss and gradient norm finite; parameters and
                EMA moved. Median step time, audio-seconds per second, peak
                memory;
-  11. train profile — CUDA time by kernel group over one more train step.
+  11. train profile — CUDA time by kernel group over one more train step,
+               failing as phase 6 does (the tensor-core forward at d 64).
 
 The line before the last is a JSON object with one entry per kernel (K1-K5
 and P1; the launches of K1/K2 from one V2A generate, of K3-K5 from one
@@ -128,6 +145,21 @@ PROBE_REPS = 20
 # ten words: with the end token, PROMPT_TOKENS of the tokenizer's 64 tokens
 PROMPT = "a gentle piano melody over soft rain on a window"
 PROMPT_TOKENS = 11
+HOST_CALLS = 200                   # calls per host-time sample
+# bf16 times of the CUDA-core forward that the tensor-core kernel replaced
+# (CUDA events, NVIDIA H100 80GB HBM3, 700.00 W; PERF.md §6), beside which
+# this run's are printed
+CUDA_CORE_MS = {"K1 self-attn (2, 800, 16x64)": 0.4405,
+          "K1 roll self-attn (2, 800, 8x64)": 0.2378,
+          "K1 cross-attn nk=1 (2, 800x1, 16x64)": 0.0733,
+          f"K1 cross-attn nk=64, {PROMPT_TOKENS} valid (2, 800x64, 16x64)":
+              0.0597,
+          "K2 ViT-bigG (64, 16, 257, 104)": 2.1703,
+          "K2 ViT-bigG stride-3 tail chunk (20, 16, 257, 104)": 0.7428,
+          "self-attn (8, 782, 16x64)": 1.4995,
+          "roll self-attn (8, 782, 8x64)": 0.7726,
+          "cross-attn (8, 782x16, 16x64), context 4-16 valid": 0.1051,
+          "P1 probe (24, 768, 16x64)": 3.7544}
 
 
 def log(*args) -> None:
@@ -156,6 +188,57 @@ def time_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(torch, fn, iters: int = 20, replays: int = 5) -> float:
+    """Time on the card of one ``fn()`` without its host path: ``iters``
+    calls captured in a CUDA graph, the graph replayed ``replays`` times
+    between CUDA events, over the calls. The kernels' wrappers launch on
+    the current stream, so capture records their kernels as they are."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (replays * iters)
+
+
+def vs_cuda_core(label: str, ms: float) -> str:
+    """This run's time beside the CUDA-core kernel's for the same row."""
+    old = CUDA_CORE_MS.get(label)
+    return ("CUDA cores n/a" if old is None
+            else f"CUDA cores {old:.4f} ms, {old / ms:.1f}x as fast")
+
+
+def host_us(torch, fn, calls: int = HOST_CALLS, reps: int = 5) -> float:
+    """Median host microseconds of one ``fn()``: the wall time of ``calls``
+    enqueued calls, no synchronise inside, over ``calls``."""
+    import statistics
+
+    fn()
+    torch.cuda.synchronize()
+    samples = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        samples.append((time.perf_counter() - t0) / calls * 1e6)
+        torch.cuda.synchronize()
+    return statistics.median(samples)
+
+
 def kernel_rows(prof) -> list:
     """The profiler's rows for CUDA kernels, without the user annotations
     (e.g. ``Optimizer.step#AdamW.step``) that it also puts on the device
@@ -176,15 +259,16 @@ def device_ms(torch, fn, iters: int = 10, warmup: int = 3) -> float:
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    total = sum(e.device_time_total for e in kernel_rows(prof))
-    if not total:
-        raise RuntimeError("the profiler recorded no device time")
-    return total / 1e3 / iters
+    for _ in range(3):          # a profiler run may come back empty
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(e.device_time_total for e in kernel_rows(prof))
+        if total:
+            return total / 1e3 / iters
+    raise RuntimeError("the profiler recorded no device time")
 
 
 def rel_rms(a, b) -> float:
@@ -347,17 +431,22 @@ def phase_kernels(torch) -> dict:
             if lib_err > tol:
                 raise RuntimeError(f"{label}: library yardstick disagrees "
                                    f"with the plain version ({lib_err:.3e})")
-        ms = time_ms(torch, run)
+        events_ms = time_ms(torch, run)
+        ms = graph_ms(torch, run)
+        prof_ms = device_ms(torch, run)
         plain_ms = time_ms(torch, plain, iters=5)
-        lib_ms = device_ms(torch, library) if library is not None else None
+        lib_ms = graph_ms(torch, library) if library is not None else None
+        lib_prof = device_ms(torch, library) if library is not None else None
         bound_ms, bound_by, flops = bound(
             shape, 2, mask.numel() if mask is not None else 0)
         log(f"  {label}: max|ref| {ref_max:.3f}, max_abs_err {err:.3e} (tol "
-            f"{tol:.3e}) {status}; kernel {ms:.4f} ms "
-            f"({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms, "
+            f"{tol:.3e}) {status}; kernel {ms:.4f} ms graph, {prof_ms:.4f} ms "
+            f"profiler, {events_ms:.4f} ms events ({flops / ms / 1e9:.1f} "
+            f"TFLOP/s; {vs_cuda_core(label, events_ms)}), plain {plain_ms:.4f} ms, "
             f"library "
             + ("n/a" if lib_ms is None else
-               f"{lib_ms:.4f} ms (max_abs_err {lib_err:.3e})")
+               f"{lib_ms:.4f} ms graph, {lib_prof:.4f} ms profiler "
+               f"(max_abs_err {lib_err:.3e})")
             + f", bound {bound_ms:.4f} ms by {bound_by} "
             f"({bound_ms / ms:.1%} of bound)")
         if status != "ok":
@@ -367,7 +456,30 @@ def phase_kernels(torch) -> dict:
                                      library_ms=lib_ms, bound_ms=bound_ms,
                                      bound_by=bound_by)
         entry["max_abs_err"] = max(entry["max_abs_err"], err)
+    log_host_cost(torch)
     return results
+
+
+def log_host_cost(torch) -> None:
+    """Host microseconds per ``flash_attention_packed`` call at the serving
+    self-attention's (2, 800, 16x64): bf16 (the tensor-core kernel, three
+    tensor maps encoded per call) against f32 (the CUDA-core kernel without
+    tensor maps: the host path bf16 took before)."""
+    from v2ap_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    mask = (torch.arange(800, device="cuda") < 782)[None].expand(
+        2, 800).contiguous()
+    us = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = torch.randn(2, 800, 3072, generator=gen, device="cuda").to(
+            dtype).chunk(3, dim=-1)
+        us[dtype] = host_us(torch, lambda: fa.flash_attention_packed(
+            q, k, v, mask, heads=16, dim_head=64, softclamp=50.0))
+    log(f"  host per flash_attention_packed call (2, 800, 16x64), median of "
+        f"5 x {HOST_CALLS}: bf16 {us[torch.bfloat16]:.1f} us (tensor maps), "
+        f"f32 {us[torch.float32]:.1f} us (the CUDA-core kernel's host "
+        f"path)")
 
 
 # --------------------------------------------------------------- phase 3
@@ -451,12 +563,18 @@ def phase_probe(torch) -> dict:
         if lib_err > tol:
             raise RuntimeError(f"{label}: library yardstick disagrees with "
                                f"the plain version ({lib_err:.3e})")
-        ms = time_ms(torch, run)
+        events_ms = time_ms(torch, run)
+        ms = graph_ms(torch, run)
+        prof_ms = device_ms(torch, run)
         plain_ms = time_ms(torch, plain, iters=5)
-        lib_ms = device_ms(torch, library)
+        lib_ms = graph_ms(torch, library)
+        lib_prof = device_ms(torch, library)
         bound_ms, bound_by, flops = bound((b, h, n, n, d), 2, m.numel())
-        log(f"    kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain "
-            f"{plain_ms:.4f} ms, library {lib_ms:.4f} ms (compiled "
+        log(f"    kernel {ms:.4f} ms graph, {prof_ms:.4f} ms profiler, "
+            f"{events_ms:.4f} ms events ({flops / ms / 1e9:.1f} TFLOP/s; "
+            f"{vs_cuda_core(label, events_ms)}), plain "
+            f"{plain_ms:.4f} ms, library {lib_ms:.4f} ms graph, "
+            f"{lib_prof:.4f} ms profiler (compiled "
             f"flex_attention, max_abs_err {lib_err:.3e}), bound "
             f"{bound_ms:.4f} ms by {bound_by} ({bound_ms / ms:.1%} of bound)")
         result["cases"][label] = dict(ms=ms, plain_ms=plain_ms,
@@ -663,8 +781,9 @@ def check_roll(pipe) -> None:
 
 
 # kernel-name fragments -> the group a kernel's time is reported under
-PROFILE_GROUPS = (("K2 flash_fwd d104", "flash_fwd_kernel<__nv_bfloat16, 104>"),
-                  ("K1/K3 flash_fwd d64", "flash_fwd_kernel<__nv_bfloat16, 64>"),
+PROFILE_GROUPS = (("K2 flash_fwd_sm90 d104", "flash_fwd_sm90_kernel<104>"),
+                  ("K1/K3 flash_fwd_sm90 d64", "flash_fwd_sm90_kernel<64>"),
+                  ("flash_fwd f32 (CUDA cores)", "flash_fwd_kernel<float"),
                   ("K4 flash_bwd_dq", "flash_bwd_dq_kernel"),
                   ("K5 flash_bwd_dkv", "flash_bwd_dkv_kernel"),
                   # before matmul: cuDNN's implicit-GEMM kernels say "gemm"
@@ -675,11 +794,19 @@ PROFILE_GROUPS = (("K2 flash_fwd d104", "flash_fwd_kernel<__nv_bfloat16, 104>"),
                   ("LSTM", "lstm", "LSTM", "RNN"))
 
 
-def phase_profile(torch, label: str, run) -> None:
+# the bf16 instances of the CUDA-core forward, which the tensor-core kernel
+# replaced: a profile that shows one fails
+CUDA_CORE_BF16 = "flash_fwd_kernel<__nv_bfloat16"
+SM90_FWD = ("flash_fwd_sm90_kernel<104>", "flash_fwd_sm90_kernel<64>")
+
+
+def phase_profile(torch, label: str, run, expect: tuple = ()) -> None:
     """CUDA kernel time over one ``run()`` (which raises on a bad result),
     by group and by kernel, and its share of the profiled run's wall time.
-    A failed run or profiler fails the run; a profiler that records no
-    device time is reported as not measured."""
+    A failed run or profiler fails the run, and so does a profile in which
+    a kernel named in ``expect`` did not run or a bf16 instance of the
+    CUDA-core forward did; a profiler that records no device time is
+    reported as not measured."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -708,6 +835,14 @@ def phase_profile(torch, label: str, run) -> None:
     for e in sorted(rows, key=lambda e: -e.device_time_total)[:12]:
         log(f"    {e.device_time_total / 1e3:9.2f} ms {e.count:6d}x "
             f"{e.device_time_total / total:6.1%}  {e.key[:90]}")
+    missing = [k for k in expect if not any(k in e.key for e in rows)]
+    stale = [e.key for e in rows if CUDA_CORE_BF16 in e.key]
+    if missing or stale:
+        raise RuntimeError(f"{label} profile: tensor-core forward not run "
+                           f"({missing}) or the CUDA-core one in bf16 "
+                           f"({stale})")
+    log(f"    the tensor-core forward ran ({', '.join(expect)}); no "
+        f"{CUDA_CORE_BF16}, ...> kernel")
 
 
 # --------------------------------------------------------------- phase 2b
@@ -861,10 +996,12 @@ def phase_train_kernels(torch) -> dict:
             entry["max_abs_err"] = max(entry["max_abs_err"], err)
         if not timed:
             continue
-        k3_ms = time_ms(torch, lambda: fa.attention_fwd_lse(
-            qh, kh, vh, mask, **kw))
-        k4_ms = time_ms(torch, lambda: fa.attention_bwd_dq(*args, **kw))
-        k5_ms = time_ms(torch, lambda: fa.attention_bwd_dkv(*args, **kw))
+        calls = {"K3": lambda: fa.attention_fwd_lse(qh, kh, vh, mask, **kw),
+                 "K4": lambda: fa.attention_bwd_dq(*args, **kw),
+                 "K5": lambda: fa.attention_bwd_dkv(*args, **kw)}
+        events = {kid: time_ms(torch, fn) for kid, fn in calls.items()}
+        prof = {kid: device_ms(torch, fn) for kid, fn in calls.items()}
+        k3_ms, k4_ms, k5_ms = (graph_ms(torch, fn) for fn in calls.values())
         plain_fwd = time_ms(torch, lambda: fa.attention_fwd_lse_reference(
             qh, kh, vh, mask, **kw), iters=5)
         plain_bwd = time_ms(torch, lambda: fa.attention_bwd_reference(
@@ -884,8 +1021,12 @@ def phase_train_kernels(torch) -> dict:
                     or lib_lse_err > 1e-2:
                 raise RuntimeError(f"{label}: library yardstick disagrees "
                                    f"with the plain version")
-            lib_fwd = device_ms(torch, lib[0])
+            # the forward as a graph; autograd's backward cannot be
+            # captured, so its time is the profiler's
+            lib_fwd = graph_ms(torch, lib[0])
             lib_bwd = device_ms(torch, lib[1])
+            log(f"    library forward: {device_ms(torch, lib[0]):.4f} ms "
+                f"profiler")
         bounds = grad_bounds(bb, h, n, nk, 64, mask.numel())
         times = {"K3": (k3_ms, plain_fwd, lib_fwd),
                  "K4": (k4_ms, plain_bwd, lib_bwd),
@@ -895,9 +1036,13 @@ def phase_train_kernels(torch) -> dict:
             results[kid]["cases"][label] = dict(
                 ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                 bound_ms=bound_ms, bound_by=bound_by)
-            log(f"    {kid}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
+            log(f"    {kid}: kernel {ms:.4f} ms graph, {prof[kid]:.4f} ms "
+                f"profiler, {events[kid]:.4f} ms events"
+                + (f" ({vs_cuda_core(label, events[kid])})" if kid == "K3" else "")
+                + f", plain {plain_ms:.4f} ms "
                 f"(K4/K5: the whole plain backward), library "
-                + ("n/a" if lib_ms is None else f"{lib_ms:.4f} ms device"
+                + ("n/a" if lib_ms is None else f"{lib_ms:.4f} ms "
+                   + ("graph" if kid == "K3" else "profiler")
                    + (" (flex backward: dq, dk, dv together)"
                       if kid != "K3" else ""))
                 + f", bound {bound_ms:.4f} ms by {bound_by} "
@@ -1136,8 +1281,9 @@ def main() -> int:
     t0 = time.perf_counter()
     lib = fa.build_library()
     fa._library()
-    log(f"  built {os.path.relpath(lib, ROOT)} from flash_fwd.cu and "
-        f"flash_bwd.cu in {time.perf_counter() - t0:.2f} s")
+    log(f"  built {os.path.relpath(lib, ROOT)} from "
+        f"{', '.join(src.name for src in fa._SOURCES)} in "
+        f"{time.perf_counter() - t0:.2f} s")
 
     log("[2/11] kernels vs plain versions (bf16 in, f32 reference)")
     kern = phase_kernels(torch)
@@ -1169,7 +1315,7 @@ def main() -> int:
                 check(pipe)
         return run
 
-    phase_profile(torch, "generate", profiled(generate_v2a))
+    phase_profile(torch, "generate", profiled(generate_v2a), SM90_FWD)
     del pipe
     torch.cuda.empty_cache()
     log("[7/11] full-width V2P generate with a prompt (v2a_default(): frame "
@@ -1193,7 +1339,8 @@ def main() -> int:
     log(f"  roll {tuple(roll.shape)}: min {roll.min().item():.4f}, max "
         f"{roll.max().item():.4f}, mean {roll.mean().item():.4f}")
     log("[8/11] V2P generate profile")
-    phase_profile(torch, "V2P generate", profiled(generate_v2p, check_roll))
+    phase_profile(torch, "V2P generate", profiled(generate_v2p, check_roll),
+                  SM90_FWD)
     del pipe, roll
     torch.cuda.empty_cache()
     log("[9/11] small train: tiny_test() card vs CPU, then "
@@ -1209,7 +1356,7 @@ def main() -> int:
         if not torch.isfinite(loss):
             raise RuntimeError("train profile: non-finite loss")
 
-    phase_profile(torch, "train step", train_once)
+    phase_profile(torch, "train step", train_once, SM90_FWD[1:])
 
     main_case = {"K1": "K1 self-attn (2, 800, 16x64)",
                  "K2": "K2 ViT-bigG (64, 16, 257, 104)",
@@ -1218,12 +1365,13 @@ def main() -> int:
                  "K5": "self-attn (8, 782, 16x64)",
                  "P1": "P1 probe (24, 768, 16x64)"}
     src = "v2ap_tpu/ops/flash_attention.py"
-    meta = {"K1": ("flash_attention_packed", "flash_fwd.cu", f"{src}:503"),
-            "K2": ("flash_attention", "flash_fwd.cu", f"{src}:103"),
-            "K3": ("flash_attention_lse", "flash_fwd.cu", f"{src}:116"),
+    meta = {"K1": ("flash_attention_packed", "flash_fwd_sm90.cu",
+                   f"{src}:503"),
+            "K2": ("flash_attention", "flash_fwd_sm90.cu", f"{src}:103"),
+            "K3": ("flash_attention_lse", "flash_fwd_sm90.cu", f"{src}:116"),
             "K4": ("flash_attention_bwd_dq", "flash_bwd.cu", f"{src}:151"),
             "K5": ("flash_attention_bwd_dkv", "flash_bwd.cu", f"{src}:184"),
-            "P1": ("flash_bnhd", "flash_fwd.cu",
+            "P1": ("flash_bnhd", "flash_fwd_sm90.cu",
                    "scripts/probe_flash_bnhd.py:44")}
     counts = {**{k: gen_counts[k] for k in ("flash_attention_packed",
                                             "flash_attention")},

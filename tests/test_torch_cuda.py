@@ -1,6 +1,8 @@
-"""The port's CUDA flash-attention kernels (``v2ap_torch/csrc/flash_fwd.cu``:
-K1, K2, K3 and the probe's P1; ``flash_bwd.cu``: K4 and K5) on the card,
-against their plain PyTorch versions on the same inputs.
+"""The port's CUDA flash-attention kernels (the forward for K1, K2, K3 and
+the probe's P1: ``v2ap_torch/csrc/flash_fwd_sm90.cu`` on the tensor cores
+for bf16, ``flash_fwd.cu`` on the CUDA cores for f32; ``flash_bwd.cu``: K4
+and K5) on the card, against their plain PyTorch versions on the same
+inputs.
 
 Every test here needs an NVIDIA card and nvcc and skips without them. The
 file imports no JAX, so it runs on a machine that has only PyTorch:
@@ -16,7 +18,9 @@ inputs: float32 1e-5 max abs (summation order only); bfloat16 1e-2 max abs
 the same lse, D and dO as their plain version, so only the gradients'
 rounding and the summation order differ: float32 1e-4, bfloat16 2^-7, each
 times max(1, max|ref|); lse rtol 1e-5. P1 is held as ``chip_smoke.py``
-holds it: float32 1e-4, bfloat16 2^-7, each times max(1, max|ref|).
+holds it: float32 1e-4, bfloat16 2^-7, each times max(1, max|ref|). The
+tensor-core cases of the forward are held as ``chip_smoke.py`` holds them:
+2^-7 times max(1, max|ref|), lse 1e-3.
 """
 
 import numpy as np
@@ -303,3 +307,90 @@ def test_trainer_steps_pick_their_kernels(cuda):
         assert torch.isfinite(loss)
         assert fa.launch_counts == {**dict.fromkeys(fa.launch_counts, 0),
                                     **expect}
+
+
+def _kernel_names(fn) -> list:
+    """Names of the CUDA kernels one ``fn()`` launches (profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.key for e in prof.key_averages()
+            if getattr(e, "device_time_total", 0) > 0]
+
+
+@pytest.mark.parametrize("dtype,kernel", [
+    (torch.bfloat16, "flash_fwd_sm90_kernel<64>"),
+    (torch.float32, "flash_fwd_kernel<float, 64>")], ids=["bf16", "f32"])
+def test_forward_dispatch_by_dtype(cuda, dtype, kernel):
+    """bf16 runs the tensor-core kernel, f32 the CUDA-core one; no bf16
+    instance of the CUDA-core kernel is left."""
+    q, k, v, mask = _inputs(np.random.default_rng(6), 2, 4, 100, 100, 64,
+                            "ragged", dtype, cuda)
+    names = _kernel_names(lambda: fa.flash_attention_packed(
+        q, k, v, mask, heads=4, dim_head=64, softclamp=50.0))
+    assert any(kernel in n for n in names), names
+    assert not any("flash_fwd_kernel<__nv_bfloat16" in n for n in names)
+
+
+TC_CASES = [
+    # (label, b, n, h, nk, valid keys, softclamp, logit gain)
+    pytest.param(("fused_qkv", 2, 800, 16, 800, 782, 50.0, 1.0),
+                 id="fused_qkv_chunks_800"),
+    pytest.param(("fused_qkv", 2, 782, 16, 782, 782, 50.0, 40.0),
+                 id="fused_qkv_logits_std40"),
+    pytest.param(("prompt", 2, 800, 16, 64, 11, 50.0, 1.0),
+                 id="prompt_nk64_11_valid"),
+    pytest.param(("prompt", 2, 800, 16, 1, 1, 50.0, 1.0), id="prompt_nk1"),
+]
+
+
+@pytest.mark.parametrize("case", TC_CASES)
+def test_tensor_core_forward_with_lse(cuda, case):
+    """K3 in bf16 through the tensor-core kernel on the views the
+    transformer passes (the chunks of a fused qkv, or q with to_k / to_v
+    chunks of a prompt context whose first ``valid`` keys attend): output
+    within 2^-7 max(1, max|ref|) of the plain version, lse within 1e-3;
+    then K1 on the packed entry point, the same output."""
+    kind, b, n, h, nk, valid, softclamp, gain = case
+    g = torch.Generator(device=cuda).manual_seed(7)
+    hd = h * 64
+    if kind == "fused_qkv":
+        qkv = torch.randn(b, n, 3 * hd, generator=g, device=cuda)
+        qkv[..., :hd] *= gain
+        q, k, v = qkv.to(torch.bfloat16).chunk(3, dim=-1)
+    else:
+        q = torch.randn(b, n, hd, generator=g, device=cuda).to(torch.bfloat16)
+        k, v = torch.randn(b, nk, 2 * hd, generator=g, device=cuda).to(
+            torch.bfloat16).chunk(2, dim=-1)
+    mask = (torch.arange(nk, device=cuda) < valid)[None].repeat(b, 1)
+    qh, kh, vh = (fa._heads_view(t, h, 64) for t in (q, k, v))
+    assert fa.launch_plan(qh, kh, vh, fa._new_like_heads(qh, None)).route \
+        == "wgmma"
+    out, lse = fa.attention_fwd_lse(qh, kh, vh, mask, softclamp=softclamp)
+    ref, ref_lse = fa.attention_fwd_lse_reference(
+        qh.float(), kh.float(), vh.float(), mask, softclamp=softclamp)
+    _check(out, ref, 2.0 ** -7)
+    assert (lse - ref_lse).abs().max().item() <= 1e-3
+    packed = fa.flash_attention_packed(q, k, v, mask, heads=h, dim_head=64,
+                                       softclamp=softclamp)
+    _check(packed, ref.transpose(1, 2).flatten(2), 2.0 ** -7)
+
+
+def test_misaligned_bf16_view_raises_on_the_card(cuda):
+    """A bf16 view whose base is not 16-byte aligned raises ValueError
+    before any launch; the f32 view at the same offset runs on the CUDA
+    cores."""
+    buf = torch.zeros(2, 100, 4 * 64 + 1, device=cuda)
+    before = dict(fa.launch_counts)
+    for dtype in (torch.bfloat16, torch.float32):
+        t = buf.to(dtype)[..., 1:]
+        if dtype == torch.bfloat16:
+            with pytest.raises(ValueError, match="16-byte aligned base"):
+                fa.flash_attention_packed(t, t, t, heads=4, dim_head=64)
+            assert fa.launch_counts == before
+        else:
+            out = fa.flash_attention_packed(t, t, t, heads=4, dim_head=64)
+            torch.cuda.synchronize()
+            assert torch.isfinite(out).all()

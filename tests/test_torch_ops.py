@@ -41,6 +41,30 @@ torch.set_num_threads(2)
 TOL = dict(atol=1e-5, rtol=1e-5)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _no_shared_compile_cache():
+    """Compile this module's JAX references in this process only.
+
+    ``tests/conftest.py`` points every pytest-xdist worker at one persistent
+    compilation cache directory, and JAX writes an entry there in place (an
+    existence check, then ``write_bytes``, with no lock while eviction is
+    off): under load a worker can read an executable that another worker is
+    still writing. That cache is the one state this module shares with the
+    other workers, and its first JAX compile,
+    ``test_attention_reference_matches_jax[ragged_800_like]``, failed in a
+    full parallel run while passing alone and in a run of the port's tests.
+    The cache is turned off for this module and back on after it; nothing
+    else changes."""
+    from jax.experimental.compilation_cache import compilation_cache as cc
+
+    was = jax.config.jax_enable_compilation_cache
+    jax.config.update("jax_enable_compilation_cache", False)
+    cc.reset_cache()
+    yield
+    jax.config.update("jax_enable_compilation_cache", was)
+    cc.reset_cache()
+
+
 def T(a) -> torch.Tensor:
     """numpy / jax array -> torch tensor (float32 unless integer / bool)."""
     a = np.asarray(a)

@@ -1,7 +1,9 @@
-// Flash-attention forward for Hopper (sm_90a): one strided kernel serves the
-// head-packed (b, n, h*d) layout and the (b, h, n, d) layout.
+// Flash-attention forward in f32 on the CUDA cores (sm_90a): one strided
+// kernel serves the head-packed (b, n, h*d) layout and the (b, h, n, d)
+// layout.
 //
-// Replaces three Pallas TPU kernels of v2ap_tpu/ops/flash_attention.py:
+// Replaces, for f32 inputs, the Pallas TPU kernels of
+// v2ap_tpu/ops/flash_attention.py:
 //   K1  _packed_fwd_kernel (+ _packed_online_softmax), entry
 //       flash_attention_packed: every attention of the CFM transformer;
 //   K2  _flash_kernel (+ _online_softmax), entry flash_attention: the 48
@@ -11,39 +13,30 @@
 //       lse = m + log(max(l, 1e-30)) as f32 (b, h, nq) for the backward
 //       kernels of flash_bwd.cu. One kernel with an optional second output,
 //       not a copy: a null lse pointer skips the store.
-// It also serves P1, _bnhd_fwd_kernel of scripts/probe_flash_bnhd.py (entry
-// flash_bnhd of v2ap_torch/scripts/probe_flash_bnhd.py): K1's function on
-// the packed layout, no lse; its head_group unroll and block-size search
-// are TPU tiling, so here P1 is one more caller of the same launch.
-// Both compute  out = softmax(mask(softclamp(q k^T * scale))) v  with an
-// online softmax over key tiles: running max and denominator in f32, masked
-// logits set to -1e30, the denominator floored at 1e-20. Softclamp
-// c*tanh(s/c) comes before the mask. A row whose in-range keys are all
-// masked therefore averages v over those keys, as the plain version does.
+// and P1, _bnhd_fwd_kernel of scripts/probe_flash_bnhd.py (K1's function on
+// the packed layout). bf16 inputs, the serving and training paths, run the
+// tensor-core kernel of flash_fwd_sm90.cu instead: its wgmma products would
+// round f32 inputs, and the f32 checks (card against CPU, the f32 kernel
+// tests) need full f32.
+// Both kernels compute  out = softmax(mask(softclamp(q k^T * scale))) v
+// with an online softmax over key tiles: running max and denominator in
+// f32, masked logits set to -1e30, the denominator floored at 1e-20.
+// Softclamp c*tanh(s/c) comes before the mask. A row whose in-range keys
+// are all masked therefore averages v over those keys, as the plain version
+// does.
 //
-// Bound on an H100 SXM (989 TFLOP/s dense bf16, 3.35 TB/s): the work is
-// 4*b*h*nq*nk*d FLOP against (q + k + v + o) bytes. The card's ridge is
-// ~295 FLOP per byte. K1 at the main path's shapes (nq = nk = 800, d = 64)
-// does ~400 FLOP per byte, so the tensor cores set its bound; K2 on CLIP
-// (n = 257, d = 104) does ~130, so its bound is the bytes.
-//
-// What this design does about it: each block owns one (b, h, 64-row q tile),
-// keeps its q tile, one 64-key K/V tile and the 64x64 probability tile in
-// shared memory, and never writes the (nq, nk) scores to HBM, so HBM
-// traffic stays at the bound's bytes (K/V re-reads per q tile hit L2). The
-// products run as f32 FMAs on the CUDA cores, each thread holding a 4x4
-// score tile and a 4 x ceil(d/16) output tile in registers. That is the
-// simple and exact first version; it leaves the tensor cores idle, so it
-// sits far above the operation bound (PERF.md has the measured gap).
-// wgmma with TMA-fed tiles is the next step.
+// Bound on an H100 SXM: the operations as f32 FMAs at 67 TFLOP/s. This
+// kernel serves the small f32 checks, not a hot path: each block owns one
+// (b, h, 64-row q tile), keeps its q tile, one 64-key K/V tile and the
+// 64x64 probability tile in shared memory and never writes the (nq, nk)
+// scores to HBM; each thread holds a 4x4 score tile and a 4 x ceil(d/16)
+// output tile in registers.
 //
 // Lengths are ragged: q rows past nq are neither computed into HBM nor
 // written, and keys past nk get probability exactly 0. Strides are explicit
 // (elements; the last dim must be contiguous), so the packed layout and the
-// 4D layout are just different stride choices. Inputs are bf16 or f32, the
-// output has the input's type.
+// 4D layout are just different stride choices.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -72,13 +65,7 @@ struct Params {
 };
 
 __device__ __forceinline__ float load_f32(const float* p) { return *p; }
-__device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
 __device__ __forceinline__ void store_f32(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store_f32(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
 
 template <int D>
 constexpr size_t smem_bytes() {
@@ -258,13 +245,12 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
 
 // Head dims built: 64 (the CFM), 104 (ViT-bigG), 16 and 32 (the tiny test
 // configuration, so that it trains on the card through the same kernels).
-template <typename T>
 int dispatch_head_dim(int head_dim, const Params& p, cudaStream_t s) {
   switch (head_dim) {
-    case 16: return launch<T, 16>(p, s);
-    case 32: return launch<T, 32>(p, s);
-    case 64: return launch<T, 64>(p, s);
-    case 104: return launch<T, 104>(p, s);
+    case 16: return launch<float, 16>(p, s);
+    case 32: return launch<float, 32>(p, s);
+    case 64: return launch<float, 64>(p, s);
+    case 104: return launch<float, 104>(p, s);
     default: return -1;
   }
 }
@@ -273,10 +259,9 @@ int dispatch_head_dim(int head_dim, const Params& p, cudaStream_t s) {
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16. lse may be null. Returns 0 on success,
-// a cudaError_t value when the launch failed, -1 for an unsupported dtype /
-// head dim.
-int v2ap_flash_fwd(int dtype, int head_dim, const void* q, const void* k,
+// f32 forward. lse may be null. Returns 0 on success, a cudaError_t value
+// when the launch failed, -1 for an unsupported head dim.
+int v2ap_flash_fwd(int head_dim, const void* q, const void* k,
                    const void* v, const void* mask, void* o, void* lse,
                    int batch,
                    int heads, int nq, int nk, long long q_sb, long long q_sh,
@@ -312,9 +297,7 @@ int v2ap_flash_fwd(int dtype, int head_dim, const void* q, const void* k,
   p.scale = scale;
   p.softclamp = softclamp;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return dispatch_head_dim<float>(head_dim, p, s);
-  if (dtype == 1) return dispatch_head_dim<__nv_bfloat16>(head_dim, p, s);
-  return -1;
+  return dispatch_head_dim(head_dim, p, s);
 }
 
 const char* v2ap_cuda_error_string(int err) {

@@ -1,6 +1,7 @@
 """Flash attention: the plain PyTorch versions and the wrappers over the
-hand-written CUDA kernels in ``v2ap_torch/csrc/`` (forward ``flash_fwd.cu``,
-backward ``flash_bwd.cu``).
+hand-written CUDA kernels in ``v2ap_torch/csrc/``: the forward on the tensor
+cores for bf16 (``flash_fwd_sm90.cu``: wgmma on TMA-fed tiles) and on the
+CUDA cores for f32 (``flash_fwd.cu``), the backward (``flash_bwd.cu``).
 
 Counterpart of ``v2ap_tpu/ops/flash_attention.py``. Two entry points keep
 the JAX signatures:
@@ -10,13 +11,17 @@ the JAX signatures:
   * ``flash_attention`` on (b, h, n, d) — the CLIP ViT-bigG tower.
 
 Without autograd (serving) each launches the forward kernel: K1 for the
-packed layout, K2 for the 4D one. Under autograd (an input requires grad)
-each goes through ``_FlashAttentionFn``, the counterpart of ``_packed_ad`` /
-``_flash_ad``: the forward launches K3 (the same kernel, also storing the
-per-row log-sum-exp) and saves (q, k, v, mask, out, lse); the backward
-computes D = rowsum(dO * O) in plain PyTorch, as JAX does outside its
-kernels, then launches K4 (dq) and K5 (dk, dv), which recompute the
-probabilities from lse and give masked keys exactly zero probability.
+packed layout, K2 for the 4D one. ``launch_plan`` picks the forward kernel
+by dtype (bf16: the tensor-core kernel, f32: the CUDA-core one) and checks
+what the tensor-core kernel's TMA loads need (16-byte aligned bases and
+strides); a view that fails raises ValueError, it is not copied. Under
+autograd (an input requires grad) each goes through ``_FlashAttentionFn``,
+the counterpart of ``_packed_ad`` / ``_flash_ad``: the forward launches K3
+(the same kernel, also storing the per-row log-sum-exp) and saves (q, k,
+v, mask, out, lse); the backward computes D = rowsum(dO * O) in plain
+PyTorch, as JAX does outside its kernels, then launches K4 (dq) and K5
+(dk, dv), which recompute the probabilities from lse and give masked keys
+exactly zero probability.
 
 On a CPU tensor every path takes the plain version (``attention_reference``,
 ``attention_fwd_lse_reference``, ``attention_bwd_reference``). On a CUDA
@@ -41,6 +46,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
@@ -54,12 +60,15 @@ launch_counts = {"flash_attention": 0, "flash_attention_packed": 0,
                  "flash_attention_bwd_dkv": 0, "flash_bnhd": 0}
 
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
-_SOURCES = (_CSRC / "flash_fwd.cu", _CSRC / "flash_bwd.cu")
+_SOURCES = (_CSRC / "flash_fwd_sm90.cu", _CSRC / "flash_fwd.cu",
+            _CSRC / "flash_bwd.cu")
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "v2ap_torch"
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
                "-std=c++17", "-Xcompiler", "-fPIC")
 _HEAD_DIMS = (16, 32, 64, 104)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_BOX_COLS = 64      # bf16 columns of one TMA box: 128 bytes, the swizzle span
+_TMA_BYTES = 16     # TMA's granule for base addresses and strides
 
 
 def reset_launch_counts() -> None:
@@ -214,14 +223,16 @@ def _library() -> ctypes.CDLL:
                           ctypes.c_float)
     strides = ctypes.POINTER(i64)
     lib.v2ap_flash_fwd.argtypes = (
-        [i32, i32, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32]
+        [i32, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32]
         + [i64] * 13 + [f32, f32, ptr])
+    lib.v2ap_flash_fwd_sm90.argtypes = (
+        [i32] * 3 + [ptr] * 6 + [i32] * 4 + [i64] * 13 + [f32, f32, ptr])
     lib.v2ap_flash_bwd_dq.argtypes = (
         [i32, i32] + [ptr] * 8 + [i32] * 4 + [strides, f32, f32, ptr])
     lib.v2ap_flash_bwd_dkv.argtypes = (
         [i32, i32] + [ptr] * 9 + [i32] * 4 + [strides, f32, f32, ptr])
-    lib.v2ap_flash_fwd.restype = lib.v2ap_flash_bwd_dq.restype = \
-        lib.v2ap_flash_bwd_dkv.restype = i32
+    lib.v2ap_flash_fwd.restype = lib.v2ap_flash_fwd_sm90.restype = \
+        lib.v2ap_flash_bwd_dq.restype = lib.v2ap_flash_bwd_dkv.restype = i32
     lib.v2ap_cuda_error_string.argtypes = [i32]
     lib.v2ap_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -262,6 +273,11 @@ def _check(q, k, v, kv_mask, others) -> torch.Tensor | None:
 def _raise_on(err: int, lib, what: str, q) -> None:
     if err == -1:
         raise ValueError(f"{what} has no build for {q.dtype}, d={q.shape[-1]}")
+    if err == -999:
+        raise RuntimeError(f"{what}: libcuda offers no cuTensorMapEncodeTiled")
+    if err <= -1000:
+        raise RuntimeError(f"{what}: cuTensorMapEncodeTiled failed (CUresult "
+                           f"{-1000 - err})")
     if err != 0:
         raise RuntimeError(f"{what} launch failed: "
                            f"{lib.v2ap_cuda_error_string(err).decode()} "
@@ -270,6 +286,67 @@ def _raise_on(err: int, lib, what: str, q) -> None:
 
 def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+class FwdPlan(NamedTuple):
+    """How ``_launch`` runs one forward call."""
+    route: str          # "wgmma" (bf16, flash_fwd_sm90.cu), "cuda_core" (f32)
+    head_dim: int
+    padded_dim: int     # the head dim the wgmma tiles span, zero past head_dim
+    box_cols: int       # columns of one TMA box (0: no TMA)
+    strides: tuple      # (b, h, n) element strides of q, k, v and out
+
+
+def _tma_strides(t: torch.Tensor, name: str) -> tuple:
+    """(b, h, n) strides of a bf16 (b, h, n, d) view for its TMA tensor map.
+    TMA takes a 16-byte aligned base and strides that are multiples of 16
+    bytes; a dim of size 1 is never stepped, so a stride TMA would refuse
+    there becomes one granule."""
+    sb, sh, sn = t.stride()[:3]
+    ptr = t.data_ptr()
+    if sb > 0 and sh > 0 and sn > 0 and \
+            not (ptr | 2 * (sb | sh | sn)) % _TMA_BYTES:
+        return sb, sh, sn                             # the common case
+    if ptr % _TMA_BYTES:
+        raise ValueError(f"{name}: the tensor-core kernel loads with TMA, which "
+                         f"needs a 16-byte aligned base; this view starts "
+                         f"{ptr % _TMA_BYTES} bytes past one")
+    out = []
+    for n, st in zip(t.shape[:3], (sb, sh, sn)):
+        if n == 1 and (st <= 0 or st * 2 % _TMA_BYTES):
+            out.append(_TMA_BYTES // 2)
+        elif st <= 0 or st * 2 % _TMA_BYTES:
+            raise ValueError(f"{name}: the tensor-core kernel loads with TMA, "
+                             f"which needs strides of 16-byte multiples; got "
+                             f"{tuple(t.stride())} elements of 2 bytes")
+        else:
+            out.append(st)
+    return tuple(out)
+
+
+# head dim -> the head dim the wgmma tiles span: whole 64-column boxes
+_PADDED = {d: -(-d // _BOX_COLS) * _BOX_COLS for d in _HEAD_DIMS}
+
+
+def launch_plan(q, k, v, out) -> FwdPlan:
+    """The forward kernel for (b, h, n, d) views that ``_check`` accepted:
+    bf16 runs on the tensor cores, with the head dim padded to whole 64-column
+    TMA boxes (d = 104 spans 128, its last 24 columns zero-filled; 16, 32 and
+    64 span 64); f32 runs on the CUDA cores in full f32. Raises ValueError
+    for a bf16 view that TMA cannot load or an output that bf16 pair stores
+    cannot write."""
+    d = q.shape[-1]
+    o_strides = out.stride()[:3]
+    if q.dtype == torch.float32:
+        return FwdPlan("cuda_core", d, d, 0, q.stride()[:3] + k.stride()[:3]
+                       + v.stride()[:3] + o_strides)
+    if out.data_ptr() % 4 or (o_strides[0] | o_strides[1] | o_strides[2]) & 1:
+        raise ValueError(f"out: the tensor-core kernel stores bf16 pairs, "
+                         f"which needs 4-byte alignment; strides "
+                         f"{tuple(out.stride())}")
+    return FwdPlan("wgmma", d, _PADDED[d], _BOX_COLS,
+                   _tma_strides(q, "q") + _tma_strides(k, "k")
+                   + _tma_strides(v, "v") + o_strides)
 
 
 def _launch(q, k, v, kv_mask, out, lse=None, *, scale: float,
@@ -285,20 +362,22 @@ def _launch(q, k, v, kv_mask, out, lse=None, *, scale: float,
     if lse is not None and (lse.shape != (b, h, nq) or lse.dtype != torch.float32
                             or not lse.is_contiguous()):
         raise ValueError("lse must be a contiguous f32 (b, h, nq) tensor")
+    plan = launch_plan(q, k, v, out)
     lib = _library()
-    with torch.cuda.device(q.device):
-        err = lib.v2ap_flash_fwd(
-            _DTYPE_CODES[q.dtype], d, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(),
             kv_mask.data_ptr() if kv_mask is not None else None,
-            out.data_ptr(), lse.data_ptr() if lse is not None else None,
-            b, h, nq, nk,
-            q.stride(0), q.stride(1), q.stride(2),
-            k.stride(0), k.stride(1), k.stride(2),
-            v.stride(0), v.stride(1), v.stride(2),
-            out.stride(0), out.stride(1), out.stride(2),
-            kv_mask.stride(0) if kv_mask is not None else 0,
-            float(scale), float(softclamp) if softclamp is not None else 0.0,
-            _stream(q))
+            out.data_ptr(), lse.data_ptr() if lse is not None else None)
+    m_sb = kv_mask.stride(0) if kv_mask is not None else 0
+    clamp = float(softclamp) if softclamp is not None else 0.0
+    with torch.cuda.device(q.device):
+        if plan.route == "wgmma":
+            err = lib.v2ap_flash_fwd_sm90(
+                plan.head_dim, plan.padded_dim, plan.box_cols, *ptrs,
+                b, h, nq, nk, *plan.strides, m_sb, float(scale), clamp,
+                _stream(q))
+        else:
+            err = lib.v2ap_flash_fwd(d, *ptrs, b, h, nq, nk, *plan.strides,
+                                     m_sb, float(scale), clamp, _stream(q))
     _raise_on(err, lib, "flash kernel", q)
 
 

@@ -16,8 +16,9 @@ q k^T * scale))) v`` with the softclamp before the key mask, an online
 softmax with the denominator floored at 1e-20, no lse, output in q's dtype,
 and a fully masked row averaging v. Its Pallas ``head_group`` unroll and
 block-size search are TPU tiling, not semantics. On a CUDA tensor it
-launches the forward kernel of ``v2ap_torch/csrc/flash_fwd.cu`` on the
-packed strides with no lse pointer, counted under
+launches the forward kernel (bf16: ``v2ap_torch/csrc/flash_fwd_sm90.cu``
+on the tensor cores; f32: ``flash_fwd.cu``) on the packed strides with no
+lse pointer, counted under
 ``launch_counts["flash_bnhd"]``; on a CPU tensor it takes the plain
 ``attention_reference``.
 
