@@ -17,22 +17,20 @@ Phases, each of which fails the run (exit 1, no result line) if it fails:
                softclamp's range; K3 (forward with lse), K4 (dq) and K5
                (dk, dv) at the training shapes, with logits of std 40, with
                a fully masked batch element (exactly zero gradient) and in
-               f32; kernel times three ways: replays of a CUDA graph of 20
-               calls between CUDA events (the card's time without the host
-               path; the kernels line reports it), the profiler's kernel
-               durations, and CUDA events over 20 calls launched back to
-               back (how the CUDA-core kernel's times were taken; the host
-               path bounds it from below for the small K1 calls); plain
-               times (CUDA events), library
-               times (compiled flex_attention with the softclamp and mask,
-               SDPA for K2 and for K1 at nk = 1: graph replays, and the
-               profiler's device time beside them; flex's backward for
-               K4 + K5, which autograd cannot capture: the profiler's
-               device time only) and the card's least time for the
+               f32; kernel times two ways: CUDA events over 20 calls
+               launched back to back (``ms`` in the kernels line, as in
+               every earlier run; the host path bounds it from below for
+               the small K1 calls) and replays of a CUDA graph of the same
+               20 calls (``graph_ms``: the card's time without the host
+               path); plain times (CUDA events), library times (the
+               profiler's device time: compiled flex_attention with the
+               softclamp and mask, its backward for K4 + K5, SDPA for K2
+               and for K1 at nk = 1) and the card's least time for the
                same work (bound); the host microseconds of one
                ``flash_attention_packed`` call at (2, 800, 16x64) in bf16
-               (tensor maps encoded per call) and in f32 (the CUDA-core
-               kernel's host path);
+               (three tensor maps a call, from the kernel's map cache) and
+               in f32 (the CUDA-core kernel's host path), every sample
+               printed;
   3. probe   — the P1 probe (``v2ap_torch.scripts.probe_flash_bnhd``) at its
                defaults, b 24, n 768, 16x64 heads, bf16 from
                numpy.random.default_rng(0): the old path (transposes to
@@ -146,6 +144,7 @@ PROBE_REPS = 20
 PROMPT = "a gentle piano melody over soft rain on a window"
 PROMPT_TOKENS = 11
 HOST_CALLS = 200                   # calls per host-time sample
+HOST_ROUNDS = 6                    # host-time samples per dtype
 # bf16 times of the CUDA-core forward that the tensor-core kernel replaced
 # (CUDA events, NVIDIA H100 80GB HBM3, 700.00 W; PERF.md §6), beside which
 # this run's are printed
@@ -220,23 +219,6 @@ def vs_cuda_core(label: str, ms: float) -> str:
     old = CUDA_CORE_MS.get(label)
     return ("CUDA cores n/a" if old is None
             else f"CUDA cores {old:.4f} ms, {old / ms:.1f}x as fast")
-
-
-def host_us(torch, fn, calls: int = HOST_CALLS, reps: int = 5) -> float:
-    """Median host microseconds of one ``fn()``: the wall time of ``calls``
-    enqueued calls, no synchronise inside, over ``calls``."""
-    import statistics
-
-    fn()
-    torch.cuda.synchronize()
-    samples = []
-    for _ in range(reps):
-        t0 = time.perf_counter()
-        for _ in range(calls):
-            fn()
-        samples.append((time.perf_counter() - t0) / calls * 1e6)
-        torch.cuda.synchronize()
-    return statistics.median(samples)
 
 
 def kernel_rows(prof) -> list:
@@ -431,28 +413,25 @@ def phase_kernels(torch) -> dict:
             if lib_err > tol:
                 raise RuntimeError(f"{label}: library yardstick disagrees "
                                    f"with the plain version ({lib_err:.3e})")
-        events_ms = time_ms(torch, run)
-        ms = graph_ms(torch, run)
-        prof_ms = device_ms(torch, run)
+        ms = time_ms(torch, run)
+        g_ms = graph_ms(torch, run)
         plain_ms = time_ms(torch, plain, iters=5)
-        lib_ms = graph_ms(torch, library) if library is not None else None
-        lib_prof = device_ms(torch, library) if library is not None else None
+        lib_ms = device_ms(torch, library) if library is not None else None
         bound_ms, bound_by, flops = bound(
             shape, 2, mask.numel() if mask is not None else 0)
         log(f"  {label}: max|ref| {ref_max:.3f}, max_abs_err {err:.3e} (tol "
-            f"{tol:.3e}) {status}; kernel {ms:.4f} ms graph, {prof_ms:.4f} ms "
-            f"profiler, {events_ms:.4f} ms events ({flops / ms / 1e9:.1f} "
-            f"TFLOP/s; {vs_cuda_core(label, events_ms)}), plain {plain_ms:.4f} ms, "
+            f"{tol:.3e}) {status}; kernel {ms:.4f} ms events "
+            f"({vs_cuda_core(label, ms)}), {g_ms:.4f} ms graph "
+            f"({flops / g_ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms, "
             f"library "
             + ("n/a" if lib_ms is None else
-               f"{lib_ms:.4f} ms graph, {lib_prof:.4f} ms profiler "
-               f"(max_abs_err {lib_err:.3e})")
+               f"{lib_ms:.4f} ms profiler (max_abs_err {lib_err:.3e})")
             + f", bound {bound_ms:.4f} ms by {bound_by} "
-            f"({bound_ms / ms:.1%} of bound)")
+            f"({bound_ms / g_ms:.1%} of bound by graph)")
         if status != "ok":
             raise RuntimeError(f"{label}: kernel disagrees with plain version")
         entry = results.setdefault(kid, dict(cases={}, max_abs_err=0.0))
-        entry["cases"][label] = dict(ms=ms, plain_ms=plain_ms,
+        entry["cases"][label] = dict(ms=ms, graph_ms=g_ms, plain_ms=plain_ms,
                                      library_ms=lib_ms, bound_ms=bound_ms,
                                      bound_by=bound_by)
         entry["max_abs_err"] = max(entry["max_abs_err"], err)
@@ -463,23 +442,27 @@ def phase_kernels(torch) -> dict:
 def log_host_cost(torch) -> None:
     """Host microseconds per ``flash_attention_packed`` call at the serving
     self-attention's (2, 800, 16x64): bf16 (the tensor-core kernel, three
-    tensor maps encoded per call) against f32 (the CUDA-core kernel without
-    tensor maps: the host path bf16 took before)."""
-    from v2ap_torch.ops import flash_attention as fa
+    tensor maps a call) and f32 (the CUDA-core kernel, no tensor
+    maps), samples of HOST_CALLS calls taken in turn, every one printed.
+    ``v2ap_torch.scripts.host_cost`` sets one checkout against another."""
+    import statistics
 
-    gen = torch.Generator(device="cuda").manual_seed(3)
-    mask = (torch.arange(800, device="cuda") < 782)[None].expand(
-        2, 800).contiguous()
-    us = {}
-    for dtype in (torch.float32, torch.bfloat16):
-        q, k, v = torch.randn(2, 800, 3072, generator=gen, device="cuda").to(
-            dtype).chunk(3, dim=-1)
-        us[dtype] = host_us(torch, lambda: fa.flash_attention_packed(
-            q, k, v, mask, heads=16, dim_head=64, softclamp=50.0))
-    log(f"  host per flash_attention_packed call (2, 800, 16x64), median of "
-        f"5 x {HOST_CALLS}: bf16 {us[torch.bfloat16]:.1f} us (tensor maps), "
-        f"f32 {us[torch.float32]:.1f} us (the CUDA-core kernel's host "
-        f"path)")
+    from v2ap_torch.ops import flash_attention as fa
+    from v2ap_torch.scripts import host_cost
+
+    calls = {dt: host_cost.packed_call(fa, host_cost.DTYPES[dt])
+             for dt in ("bf16", "f32")}
+    for fn in calls.values():
+        fn()
+    samples = {dt: [] for dt in calls}
+    for r in range(HOST_ROUNDS):
+        for dt in (calls if r % 2 == 0 else reversed(list(calls))):
+            samples[dt].append(host_cost.sample_us(calls[dt], HOST_CALLS))
+    log(f"  host us per flash_attention_packed call (2, 800, 16x64), "
+        f"{HOST_ROUNDS} samples of {HOST_CALLS} calls each: " + "; ".join(
+            f"{dt} median {statistics.median(xs):.1f} "
+            f"({', '.join(f'{x:.1f}' for x in xs)})"
+            for dt, xs in samples.items()))
 
 
 # --------------------------------------------------------------- phase 3
@@ -563,21 +546,18 @@ def phase_probe(torch) -> dict:
         if lib_err > tol:
             raise RuntimeError(f"{label}: library yardstick disagrees with "
                                f"the plain version ({lib_err:.3e})")
-        events_ms = time_ms(torch, run)
-        ms = graph_ms(torch, run)
-        prof_ms = device_ms(torch, run)
+        ms = time_ms(torch, run)
+        g_ms = graph_ms(torch, run)
         plain_ms = time_ms(torch, plain, iters=5)
-        lib_ms = graph_ms(torch, library)
-        lib_prof = device_ms(torch, library)
+        lib_ms = device_ms(torch, library)
         bound_ms, bound_by, flops = bound((b, h, n, n, d), 2, m.numel())
-        log(f"    kernel {ms:.4f} ms graph, {prof_ms:.4f} ms profiler, "
-            f"{events_ms:.4f} ms events ({flops / ms / 1e9:.1f} TFLOP/s; "
-            f"{vs_cuda_core(label, events_ms)}), plain "
-            f"{plain_ms:.4f} ms, library {lib_ms:.4f} ms graph, "
-            f"{lib_prof:.4f} ms profiler (compiled "
+        log(f"    kernel {ms:.4f} ms events ({vs_cuda_core(label, ms)}), "
+            f"{g_ms:.4f} ms graph ({flops / g_ms / 1e9:.1f} TFLOP/s), plain "
+            f"{plain_ms:.4f} ms, library {lib_ms:.4f} ms profiler (compiled "
             f"flex_attention, max_abs_err {lib_err:.3e}), bound "
-            f"{bound_ms:.4f} ms by {bound_by} ({bound_ms / ms:.1%} of bound)")
-        result["cases"][label] = dict(ms=ms, plain_ms=plain_ms,
+            f"{bound_ms:.4f} ms by {bound_by} ({bound_ms / g_ms:.1%} of "
+            f"bound by graph)")
+        result["cases"][label] = dict(ms=ms, graph_ms=g_ms, plain_ms=plain_ms,
                                       library_ms=lib_ms, bound_ms=bound_ms,
                                       bound_by=bound_by)
     return result
@@ -783,7 +763,7 @@ def check_roll(pipe) -> None:
 # kernel-name fragments -> the group a kernel's time is reported under
 PROFILE_GROUPS = (("K2 flash_fwd_sm90 d104", "flash_fwd_sm90_kernel<104>"),
                   ("K1/K3 flash_fwd_sm90 d64", "flash_fwd_sm90_kernel<64>"),
-                  ("flash_fwd f32 (CUDA cores)", "flash_fwd_kernel<float"),
+                  ("flash_fwd f32 (CUDA cores)", "flash_fwd_kernel<"),
                   ("K4 flash_bwd_dq", "flash_bwd_dq_kernel"),
                   ("K5 flash_bwd_dkv", "flash_bwd_dkv_kernel"),
                   # before matmul: cuDNN's implicit-GEMM kernels say "gemm"
@@ -794,9 +774,9 @@ PROFILE_GROUPS = (("K2 flash_fwd_sm90 d104", "flash_fwd_sm90_kernel<104>"),
                   ("LSTM", "lstm", "LSTM", "RNN"))
 
 
-# the bf16 instances of the CUDA-core forward, which the tensor-core kernel
-# replaced: a profile that shows one fails
-CUDA_CORE_BF16 = "flash_fwd_kernel<__nv_bfloat16"
+# the CUDA-core forward, which runs f32 only: a profile of a bf16 run that
+# shows it fails
+CUDA_CORE_FWD = "flash_fwd_kernel<"
 SM90_FWD = ("flash_fwd_sm90_kernel<104>", "flash_fwd_sm90_kernel<64>")
 
 
@@ -804,8 +784,8 @@ def phase_profile(torch, label: str, run, expect: tuple = ()) -> None:
     """CUDA kernel time over one ``run()`` (which raises on a bad result),
     by group and by kernel, and its share of the profiled run's wall time.
     A failed run or profiler fails the run, and so does a profile in which
-    a kernel named in ``expect`` did not run or a bf16 instance of the
-    CUDA-core forward did; a profiler that records no device time is
+    a kernel named in ``expect`` did not run or the CUDA-core forward did
+    (every profiled run is bf16); a profiler that records no device time is
     reported as not measured."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -836,13 +816,12 @@ def phase_profile(torch, label: str, run, expect: tuple = ()) -> None:
         log(f"    {e.device_time_total / 1e3:9.2f} ms {e.count:6d}x "
             f"{e.device_time_total / total:6.1%}  {e.key[:90]}")
     missing = [k for k in expect if not any(k in e.key for e in rows)]
-    stale = [e.key for e in rows if CUDA_CORE_BF16 in e.key]
+    stale = [e.key for e in rows if CUDA_CORE_FWD in e.key]
     if missing or stale:
         raise RuntimeError(f"{label} profile: tensor-core forward not run "
-                           f"({missing}) or the CUDA-core one in bf16 "
-                           f"({stale})")
+                           f"({missing}) or the CUDA-core one ({stale})")
     log(f"    the tensor-core forward ran ({', '.join(expect)}); no "
-        f"{CUDA_CORE_BF16}, ...> kernel")
+        f"{CUDA_CORE_FWD}...> kernel")
 
 
 # --------------------------------------------------------------- phase 2b
@@ -1000,8 +979,7 @@ def phase_train_kernels(torch) -> dict:
                  "K4": lambda: fa.attention_bwd_dq(*args, **kw),
                  "K5": lambda: fa.attention_bwd_dkv(*args, **kw)}
         events = {kid: time_ms(torch, fn) for kid, fn in calls.items()}
-        prof = {kid: device_ms(torch, fn) for kid, fn in calls.items()}
-        k3_ms, k4_ms, k5_ms = (graph_ms(torch, fn) for fn in calls.values())
+        graphs = {kid: graph_ms(torch, fn) for kid, fn in calls.items()}
         plain_fwd = time_ms(torch, lambda: fa.attention_fwd_lse_reference(
             qh, kh, vh, mask, **kw), iters=5)
         plain_bwd = time_ms(torch, lambda: fa.attention_bwd_reference(
@@ -1021,32 +999,26 @@ def phase_train_kernels(torch) -> dict:
                     or lib_lse_err > 1e-2:
                 raise RuntimeError(f"{label}: library yardstick disagrees "
                                    f"with the plain version")
-            # the forward as a graph; autograd's backward cannot be
-            # captured, so its time is the profiler's
-            lib_fwd = graph_ms(torch, lib[0])
+            lib_fwd = device_ms(torch, lib[0])
             lib_bwd = device_ms(torch, lib[1])
-            log(f"    library forward: {device_ms(torch, lib[0]):.4f} ms "
-                f"profiler")
         bounds = grad_bounds(bb, h, n, nk, 64, mask.numel())
-        times = {"K3": (k3_ms, plain_fwd, lib_fwd),
-                 "K4": (k4_ms, plain_bwd, lib_bwd),
-                 "K5": (k5_ms, plain_bwd, lib_bwd)}
-        for kid, (ms, plain_ms, lib_ms) in times.items():
+        times = {"K3": (plain_fwd, lib_fwd), "K4": (plain_bwd, lib_bwd),
+                 "K5": (plain_bwd, lib_bwd)}
+        for kid, (plain_ms, lib_ms) in times.items():
             bound_ms, bound_by = bounds[kid]
+            ms, g_ms = events[kid], graphs[kid]
             results[kid]["cases"][label] = dict(
-                ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                ms=ms, graph_ms=g_ms, plain_ms=plain_ms, library_ms=lib_ms,
                 bound_ms=bound_ms, bound_by=bound_by)
-            log(f"    {kid}: kernel {ms:.4f} ms graph, {prof[kid]:.4f} ms "
-                f"profiler, {events[kid]:.4f} ms events"
-                + (f" ({vs_cuda_core(label, events[kid])})" if kid == "K3" else "")
-                + f", plain {plain_ms:.4f} ms "
+            log(f"    {kid}: kernel {ms:.4f} ms events"
+                + (f" ({vs_cuda_core(label, ms)})" if kid == "K3" else "")
+                + f", {g_ms:.4f} ms graph, plain {plain_ms:.4f} ms "
                 f"(K4/K5: the whole plain backward), library "
-                + ("n/a" if lib_ms is None else f"{lib_ms:.4f} ms "
-                   + ("graph" if kid == "K3" else "profiler")
+                + ("n/a" if lib_ms is None else f"{lib_ms:.4f} ms profiler"
                    + (" (flex backward: dq, dk, dv together)"
                       if kid != "K3" else ""))
                 + f", bound {bound_ms:.4f} ms by {bound_by} "
-                f"({bound_ms / ms:.1%} of bound)")
+                f"({bound_ms / g_ms:.1%} of bound by graph)")
     return results
 
 
@@ -1386,7 +1358,7 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": f"v2ap_torch/csrc/{source}", "replaces": replaces,
             "launches": counts[name], "max_abs_err": kern[kid]["max_abs_err"],
-            "ms": c["ms"], "plain_ms": c["plain_ms"],
+            "ms": c["ms"], "graph_ms": c["graph_ms"], "plain_ms": c["plain_ms"],
             "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
             "library_ms": c["library_ms"]})
     log(f"  chip_smoke total {time.perf_counter() - t_start:.1f} s")

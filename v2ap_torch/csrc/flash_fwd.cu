@@ -48,11 +48,11 @@ constexpr int kThreads = 256;  // a 16 x 16 grid: 4 q rows x 4 keys each
 constexpr float kNegInf = -1e30f;
 
 struct Params {
-  const void* q;
-  const void* k;
-  const void* v;
+  const float* q;
+  const float* k;
+  const float* v;
   const uint8_t* mask;  // (b, nk), nonzero == attend; nullptr == all attend
-  void* o;
+  float* o;
   float* lse;           // (b, h, nq) contiguous; nullptr == not stored
   int batch, heads, nq, nk;
   long long q_sb, q_sh, q_sn;
@@ -64,9 +64,6 @@ struct Params {
   float softclamp;  // <= 0: no softclamp
 };
 
-__device__ __forceinline__ float load_f32(const float* p) { return *p; }
-__device__ __forceinline__ void store_f32(float* p, float x) { *p = x; }
-
 template <int D>
 constexpr size_t smem_bytes() {
   // Qs and Ks rows padded to D + 1 floats so that column reads by 16
@@ -76,7 +73,7 @@ constexpr size_t smem_bytes() {
          sizeof(int) * kBlockK;
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads, 2) flash_fwd_kernel(Params p) {
   constexpr int DS = D + 1;
   constexpr int PS = kBlockK + 1;
@@ -95,16 +92,16 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd_kernel(Params p) {
   const int h = blockIdx.y;
   const int b = blockIdx.z;
 
-  const T* q = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const T* k = static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh;
-  const T* v = static_cast<const T*>(p.v) + b * p.v_sb + h * p.v_sh;
-  T* o = static_cast<T*>(p.o) + b * p.o_sb + h * p.o_sh;
+  const float* q = p.q + b * p.q_sb + h * p.q_sh;
+  const float* k = p.k + b * p.k_sb + h * p.k_sh;
+  const float* v = p.v + b * p.v_sb + h * p.v_sh;
+  float* o = p.o + b * p.o_sb + h * p.o_sh;
 
   for (int i = tid; i < kBlockQ * D; i += kThreads) {
     const int r = i / D;
     const int c = i - r * D;
     float x = 0.f;
-    if (q0 + r < p.nq) x = load_f32(q + (q0 + r) * p.q_sn + c) * p.scale;
+    if (q0 + r < p.nq) x = q[(q0 + r) * p.q_sn + c] * p.scale;
     Qs[r * DS + c] = x;
   }
 
@@ -125,8 +122,8 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd_kernel(Params p) {
       const int c = i - r * D;
       float kx = 0.f, vx = 0.f;
       if (k0 + r < p.nk) {
-        kx = load_f32(k + (k0 + r) * p.k_sn + c);
-        vx = load_f32(v + (k0 + r) * p.v_sn + c);
+        kx = k[(k0 + r) * p.k_sn + c];
+        vx = v[(k0 + r) * p.v_sn + c];
       }
       Ks[r * DS + c] = kx;
       Vs[r * D + c] = vx;
@@ -222,7 +219,7 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd_kernel(Params p) {
 #pragma unroll
       for (int cc = 0; cc < DC; ++cc) {
         const int d = tx + 16 * cc;
-        if (d < D) store_f32(o + r * p.o_sn + d, acc[i][cc] / denom);
+        if (d < D) o[r * p.o_sn + d] = acc[i][cc] / denom;
       }
       if (p.lse != nullptr && tx == 0)
         p.lse[(static_cast<long long>(b) * p.heads + h) * p.nq + r] =
@@ -231,15 +228,15 @@ __global__ void __launch_bounds__(kThreads, 2) flash_fwd_kernel(Params p) {
   }
 }
 
-template <typename T, int D>
+template <int D>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
   const size_t smem = smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid((p.nq + kBlockQ - 1) / kBlockQ, p.heads, p.batch);
-  flash_fwd_kernel<T, D><<<grid, kThreads, smem, stream>>>(p);
+  flash_fwd_kernel<D><<<grid, kThreads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -247,10 +244,10 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
 // configuration, so that it trains on the card through the same kernels).
 int dispatch_head_dim(int head_dim, const Params& p, cudaStream_t s) {
   switch (head_dim) {
-    case 16: return launch<float, 16>(p, s);
-    case 32: return launch<float, 32>(p, s);
-    case 64: return launch<float, 64>(p, s);
-    case 104: return launch<float, 104>(p, s);
+    case 16: return launch<16>(p, s);
+    case 32: return launch<32>(p, s);
+    case 64: return launch<64>(p, s);
+    case 104: return launch<104>(p, s);
     default: return -1;
   }
 }
@@ -271,11 +268,11 @@ int v2ap_flash_fwd(int head_dim, const void* q, const void* k,
                    long long o_sn, long long m_sb, float scale,
                    float softclamp, void* stream) {
   Params p;
-  p.q = q;
-  p.k = k;
-  p.v = v;
+  p.q = static_cast<const float*>(q);
+  p.k = static_cast<const float*>(k);
+  p.v = static_cast<const float*>(v);
   p.mask = static_cast<const uint8_t*>(mask);
-  p.o = o;
+  p.o = static_cast<float*>(o);
   p.lse = static_cast<float*>(lse);
   p.batch = batch;
   p.heads = heads;

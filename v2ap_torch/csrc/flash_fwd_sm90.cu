@@ -41,10 +41,14 @@
 //   runs its softmax.
 // - Loads. TMA fills Q once and the K/V ring, completing on mbarriers; the
 //   producer waits for a stage to be released before it refills it. The
-//   tensor maps are 4D (d, n, h, b) maps encoded per call from the strides
-//   the wrapper passes, so the packed (b, n, h*d) layout and the (b, h, n,
-//   d) layout are only different strides. cuTensorMapEncodeTiled is fetched
-//   with cudaGetDriverEntryPoint: the library needs no -lcuda. The producer
+//   tensor maps are 4D (d, n, h, b) maps of the strides the wrapper passes,
+//   so the packed (b, n, h*d) layout and the (b, h, n, d) layout are only
+//   different strides. cuTensorMapEncodeTiled is fetched with
+//   cudaGetDriverEntryPoint: the library needs no -lcuda. Host cost: the
+//   sampler launches K1 1152 times a generate and the host sets its pace,
+//   so encoded maps are kept by what they encode (address, extents,
+//   strides), and a call whose views sit where an earlier call's did, as
+//   the caching allocator's blocks recur, copies its maps. The producer
 //   warp also turns each tile's 64 keys into two bit words (attends, in
 //   range) with one ballot each, stored beside the K tile; a tile whose keys
 //   all attend, the common case, then skips the masking entirely.
@@ -85,6 +89,7 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+#include <string.h>
 
 namespace {
 
@@ -106,10 +111,9 @@ struct Tile {
   static constexpr int kBytes = kBoxes * kBoxBytes;  // Q, K or V tile
   // Blocks per SM and K/V ring stages: d <= 64 fits 4 blocks of 2 stages
   // (41 KB; ptxas then caps a thread at 96 registers and spills 144
-  // bytes), d = 104 fits 2 of 3 (115 KB); the
-  // settings v2ap_torch/scripts/sweep_flash_fwd.py times, fastest for K1,
-  // K3 and P1 and for K2 (PERF.md). At (2, 800, 16x64) K1's 416 blocks fit
-  // one wave at 4 blocks an SM and take two at 3.
+  // bytes), d = 104 fits 2 of 3 (115 KB): of the settings timed on the
+  // card, the fastest for K1, K3 and P1 and for K2 (PERF.md). At (2, 800,
+  // 16x64) K1's 416 blocks fit one wave at 4 blocks an SM and take two at 3.
   static constexpr int kMinBlocks = kBoxes == 1 ? 4 : 2;
   static constexpr int kStages = kBoxes == 1 ? 2 : 3;
   // Q, the K and V rings, 128 bytes of mbarriers, the key words
@@ -584,6 +588,40 @@ CUresult encode_map(EncodeTiledFn fn, CUtensorMap* map, const void* ptr,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
+// The last kMapCache maps this thread encoded, by what they encode. A map
+// holds an address, extents and strides and no reference to the memory, so
+// an entry stays right whatever is freed or allocated there later.
+struct MapKey {
+  const void* ptr;
+  long long d, n, h, b, sb, sh, sn;
+};
+constexpr int kMapCache = 32;
+
+CUresult cached_map(EncodeTiledFn fn, CUtensorMap* map, const void* ptr,
+                    int d, int n, int h, int b, const long long* st) {
+  struct Cache {
+    MapKey key[kMapCache];
+    CUtensorMap map[kMapCache];
+    int size = 0, next = 0;
+  };
+  thread_local Cache cache;
+  const MapKey key{ptr, d, n, h, b, st[0], st[1], st[2]};
+  for (int i = 0; i < cache.size; ++i) {
+    if (memcmp(&cache.key[i], &key, sizeof key) == 0) {
+      *map = cache.map[i];
+      return CUDA_SUCCESS;
+    }
+  }
+  const CUresult res = encode_map(fn, map, ptr, d, n, h, b, st);
+  if (res == CUDA_SUCCESS) {
+    cache.key[cache.next] = key;
+    cache.map[cache.next] = *map;
+    cache.next = (cache.next + 1) % kMapCache;
+    if (cache.size < kMapCache) ++cache.size;
+  }
+  return res;
+}
+
 template <int D>
 int launch(Params& p, int batch, int padded_dim, const void* q,
            const void* k, const void* v, const long long* st,
@@ -591,11 +629,11 @@ int launch(Params& p, int batch, int padded_dim, const void* q,
   if (padded_dim != Tile<D>::kDP) return -1;
   EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return -999;
-  CUresult res = encode_map(fn, &p.q_map, q, D, p.nq, p.heads, batch, st);
+  CUresult res = cached_map(fn, &p.q_map, q, D, p.nq, p.heads, batch, st);
   if (res == CUDA_SUCCESS)
-    res = encode_map(fn, &p.k_map, k, D, p.nk, p.heads, batch, st + 3);
+    res = cached_map(fn, &p.k_map, k, D, p.nk, p.heads, batch, st + 3);
   if (res == CUDA_SUCCESS)
-    res = encode_map(fn, &p.v_map, v, D, p.nk, p.heads, batch, st + 6);
+    res = cached_map(fn, &p.v_map, v, D, p.nk, p.heads, batch, st + 6);
   if (res != CUDA_SUCCESS) return -1000 - static_cast<int>(res);
   constexpr int smem = Tile<D>::kSmem;
   static bool smem_set[64] = {};  // per device: the attribute is set once
