@@ -6,18 +6,22 @@
 Phases, each of which fails the run (exit 1, no result line) if it fails:
 
   1. build   — print the card, compile ``v2ap_torch/csrc/flash_fwd_sm90.cu``
-               (the bf16 forward on the tensor cores), ``flash_fwd.cu`` (the
-               f32 forward) and ``flash_bwd.cu`` with nvcc for sm_90a (one
-               nvcc each, started together), print the build seconds;
+               and ``flash_bwd_sm90.cu`` (the bf16 forward and backward on
+               the tensor cores), ``flash_fwd.cu`` and ``flash_bwd.cu`` (the
+               f32 forward and backward) with nvcc for sm_90a (one nvcc
+               each, started together), print the build seconds;
   2. kernels — each kernel on the card at its main path's shapes against its
                plain PyTorch version on the same inputs, computed in f32,
                its time printed beside the CUDA-core kernel's
-               (``CUDA_CORE_MS``, from PERF.md):
+               (``CUDA_CORE_MS``, from PERF.md, by CUDA events as ``ms``):
                K1 (packed) and K2 (4D) forwards, K1 also with logits in
                softclamp's range; K3 (forward with lse), K4 (dq) and K5
                (dk, dv) at the training shapes, with logits of std 40, with
                a fully masked batch element (exactly zero gradient) and in
-               f32; kernel times two ways: CUDA events over 20 calls
+               f32; K4 and K5 also at d = 104, ViT-bigG's (64, 257,
+               16x104), checked and timed (graph) with softclamp 50 and
+               without, and at (8, 782, 16x64) without softclamp (timed);
+               kernel times two ways: CUDA events over 20 calls
                launched back to back (``ms`` in the kernels line, as in
                every earlier run; the host path bounds it from below for
                the small K1 calls) and replays of a CUDA graph of the same
@@ -88,7 +92,8 @@ Phases, each of which fails the run (exit 1, no result line) if it fails:
                EMA moved. Median step time, audio-seconds per second, peak
                memory;
   11. train profile — CUDA time by kernel group over one more train step,
-               failing as phase 6 does (the tensor-core forward at d 64).
+               failing as phase 6 does, and unless the tensor-core backward
+               (K4, K5 at d 64) ran and no CUDA-core backward kernel did.
 
 The line before the last is a JSON object with one entry per kernel (K1-K5
 and P1; the launches of K1/K2 from one V2A generate, of K3-K5 from one
@@ -145,9 +150,9 @@ PROMPT = "a gentle piano melody over soft rain on a window"
 PROMPT_TOKENS = 11
 HOST_CALLS = 200                   # calls per host-time sample
 HOST_ROUNDS = 6                    # host-time samples per dtype
-# bf16 times of the CUDA-core forward that the tensor-core kernel replaced
-# (CUDA events, NVIDIA H100 80GB HBM3, 700.00 W; PERF.md §6), beside which
-# this run's are printed
+# bf16 times of the CUDA-core kernels that the tensor-core ones replaced
+# (CUDA events, NVIDIA H100 80GB HBM3, 700.00 W; PERF.md §6, the bracketed
+# times of its kernel table), beside which this run's are printed
 CUDA_CORE_MS = {"K1 self-attn (2, 800, 16x64)": 0.4405,
           "K1 roll self-attn (2, 800, 8x64)": 0.2378,
           "K1 cross-attn nk=1 (2, 800x1, 16x64)": 0.0733,
@@ -155,9 +160,15 @@ CUDA_CORE_MS = {"K1 self-attn (2, 800, 16x64)": 0.4405,
               0.0597,
           "K2 ViT-bigG (64, 16, 257, 104)": 2.1703,
           "K2 ViT-bigG stride-3 tail chunk (20, 16, 257, 104)": 0.7428,
-          "self-attn (8, 782, 16x64)": 1.4995,
-          "roll self-attn (8, 782, 8x64)": 0.7726,
-          "cross-attn (8, 782x16, 16x64), context 4-16 valid": 0.1051,
+          "K3 self-attn (8, 782, 16x64)": 1.4995,
+          "K3 roll self-attn (8, 782, 8x64)": 0.7726,
+          "K3 cross-attn (8, 782x16, 16x64), context 4-16 valid": 0.1051,
+          "K4 self-attn (8, 782, 16x64)": 2.2247,
+          "K4 roll self-attn (8, 782, 8x64)": 1.1250,
+          "K4 cross-attn (8, 782x16, 16x64), context 4-16 valid": 0.1655,
+          "K5 self-attn (8, 782, 16x64)": 2.5115,
+          "K5 roll self-attn (8, 782, 8x64)": 1.3833,
+          "K5 cross-attn (8, 782x16, 16x64), context 4-16 valid": 0.3000,
           "P1 probe (24, 768, 16x64)": 3.7544}
 
 
@@ -764,8 +775,10 @@ def check_roll(pipe) -> None:
 PROFILE_GROUPS = (("K2 flash_fwd_sm90 d104", "flash_fwd_sm90_kernel<104>"),
                   ("K1/K3 flash_fwd_sm90 d64", "flash_fwd_sm90_kernel<64>"),
                   ("flash_fwd f32 (CUDA cores)", "flash_fwd_kernel<"),
-                  ("K4 flash_bwd_dq", "flash_bwd_dq_kernel"),
-                  ("K5 flash_bwd_dkv", "flash_bwd_dkv_kernel"),
+                  ("K4 flash_bwd_dq_sm90", "flash_bwd_dq_sm90_kernel<"),
+                  ("K5 flash_bwd_dkv_sm90", "flash_bwd_dkv_sm90_kernel<"),
+                  ("flash_bwd f32 (CUDA cores)", "flash_bwd_dq_kernel<",
+                   "flash_bwd_dkv_kernel<"),
                   # before matmul: cuDNN's implicit-GEMM kernels say "gemm"
                   ("convolution", "conv", "fprop", "dgrad", "wgrad", "cudnn"),
                   ("matmul (cuBLAS)", "nvjet", "gemm", "xmma", "cutlass"),
@@ -774,17 +787,19 @@ PROFILE_GROUPS = (("K2 flash_fwd_sm90 d104", "flash_fwd_sm90_kernel<104>"),
                   ("LSTM", "lstm", "LSTM", "RNN"))
 
 
-# the CUDA-core forward, which runs f32 only: a profile of a bf16 run that
-# shows it fails
-CUDA_CORE_FWD = "flash_fwd_kernel<"
+# the CUDA-core kernels, which run f32 only: a profile of a bf16 run that
+# shows one fails
+CUDA_CORE = ("flash_fwd_kernel<", "flash_bwd_dq_kernel<",
+             "flash_bwd_dkv_kernel<")
 SM90_FWD = ("flash_fwd_sm90_kernel<104>", "flash_fwd_sm90_kernel<64>")
+SM90_BWD = ("flash_bwd_dq_sm90_kernel<64>", "flash_bwd_dkv_sm90_kernel<64>")
 
 
 def phase_profile(torch, label: str, run, expect: tuple = ()) -> None:
     """CUDA kernel time over one ``run()`` (which raises on a bad result),
     by group and by kernel, and its share of the profiled run's wall time.
     A failed run or profiler fails the run, and so does a profile in which
-    a kernel named in ``expect`` did not run or the CUDA-core forward did
+    a kernel named in ``expect`` did not run or a CUDA-core kernel did
     (every profiled run is bf16); a profiler that records no device time is
     reported as not measured."""
     from torch.profiler import ProfilerActivity, profile
@@ -816,12 +831,12 @@ def phase_profile(torch, label: str, run, expect: tuple = ()) -> None:
         log(f"    {e.device_time_total / 1e3:9.2f} ms {e.count:6d}x "
             f"{e.device_time_total / total:6.1%}  {e.key[:90]}")
     missing = [k for k in expect if not any(k in e.key for e in rows)]
-    stale = [e.key for e in rows if CUDA_CORE_FWD in e.key]
+    stale = [e.key for e in rows if any(c in e.key for c in CUDA_CORE)]
     if missing or stale:
-        raise RuntimeError(f"{label} profile: tensor-core forward not run "
-                           f"({missing}) or the CUDA-core one ({stale})")
-    log(f"    the tensor-core forward ran ({', '.join(expect)}); no "
-        f"{CUDA_CORE_FWD}...> kernel")
+        raise RuntimeError(f"{label} profile: tensor-core kernels not run "
+                           f"({missing}) or CUDA-core ones ran ({stale})")
+    log(f"    the tensor-core kernels ran ({', '.join(expect)}); no "
+        f"CUDA-core kernel ({', '.join(c + '...>' for c in CUDA_CORE)})")
 
 
 # --------------------------------------------------------------- phase 2b
@@ -884,7 +899,8 @@ def grad_bounds(b, h, nq, nk, d, mask_bytes):
 def phase_train_kernels(torch) -> dict:
     """K3, K4 and K5 at the training shapes, each against its plain version
     on the same inputs (the backward's lse and D from K3's output, as the
-    train step computes them)."""
+    train step computes them); K4 and K5 also against a second call of
+    themselves, which must be bit-equal."""
     from v2ap_torch.ops import flash_attention as fa
 
     dev = "cuda"
@@ -932,6 +948,9 @@ def phase_train_kernels(torch) -> dict:
         args = (qh, kh, vh, mask, lse, delta, doh)
         dq = fa.attention_bwd_dq(*args, **kw)
         dk, dv = fa.attention_bwd_dkv(*args, **kw)
+        # no atomics, sums in a fixed order: a second call is bit-equal
+        again = (fa.attention_bwd_dq(*args, **kw),
+                 *fa.attention_bwd_dkv(*args, **kw))
         ref_out, ref_lse = fa.attention_fwd_lse_reference(
             qh.float(), kh.float(), vh.float(), mask, **kw)
         ref = fa.attention_bwd_reference(
@@ -957,12 +976,14 @@ def phase_train_kernels(torch) -> dict:
             raise RuntimeError(f"K3 {label}: lse disagrees ({lse_err:.3e})")
         dead = ~mask.any(dim=1)             # batch elements attending nothing
         zero_ok = not any(t[dead].any().item() for t in (dq, dk, dv))
+        same = all(torch.equal(a, b) for a, b in zip((dq, dk, dv), again))
         log(f"  {label}: " + "; ".join(
             f"{kid} max|ref| {top:.3f} max_abs_err {err:.3e} (tol {tol:.3e})"
             for kid, (err, tol, top) in errs.items())
             + f"; lse max_abs_err {lse_err:.3e}"
             + (f"; fully masked element's grads exactly 0: {zero_ok}"
-               if dead.any() else ""))
+               if dead.any() else "")
+            + f"; K4/K5 bit-equal on a second call: {same}")
         for kid, (err, tol, _) in errs.items():
             if err > tol:
                 raise RuntimeError(f"{kid} {label}: kernel disagrees with "
@@ -970,6 +991,8 @@ def phase_train_kernels(torch) -> dict:
         if not zero_ok:
             raise RuntimeError(f"{label}: a fully masked element got a "
                                f"nonzero gradient")
+        if not same:
+            raise RuntimeError(f"{label}: K4/K5 differ between two calls")
         for kid, (err, _, _) in errs.items():
             entry = results.setdefault(kid, dict(cases={}, max_abs_err=0.0))
             entry["max_abs_err"] = max(entry["max_abs_err"], err)
@@ -1010,9 +1033,9 @@ def phase_train_kernels(torch) -> dict:
             results[kid]["cases"][label] = dict(
                 ms=ms, graph_ms=g_ms, plain_ms=plain_ms, library_ms=lib_ms,
                 bound_ms=bound_ms, bound_by=bound_by)
-            log(f"    {kid}: kernel {ms:.4f} ms events"
-                + (f" ({vs_cuda_core(label, ms)})" if kid == "K3" else "")
-                + f", {g_ms:.4f} ms graph, plain {plain_ms:.4f} ms "
+            log(f"    {kid}: kernel {ms:.4f} ms events "
+                f"({vs_cuda_core(f'{kid} {label}', ms)}), {g_ms:.4f} ms "
+                f"graph, plain {plain_ms:.4f} ms "
                 f"(K4/K5: the whole plain backward), library "
                 + ("n/a" if lib_ms is None else f"{lib_ms:.4f} ms profiler"
                    + (" (flex backward: dq, dk, dv together)"
@@ -1020,6 +1043,50 @@ def phase_train_kernels(torch) -> dict:
                 + f", bound {bound_ms:.4f} ms by {bound_by} "
                 f"({bound_ms / g_ms:.1%} of bound by graph)")
     return results
+
+
+def log_bwd_more(torch) -> None:
+    """K4 and K5 where no path trains today: d = 104 at ViT-bigG's (64, 257,
+    16x104), against the plain backward, and by graph replay with softclamp
+    50 and without; and the training shape without softclamp (graph only),
+    which shows what the softclamp's multi-function-unit work costs."""
+    from v2ap_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+
+    def heads(b, n, h, d):                  # (b, h, n, d) views of (b, n, h, d)
+        return torch.randn(b, n, h, d, generator=gen, device="cuda").to(
+            torch.bfloat16).transpose(1, 2)
+
+    for (b, n, h, d), clamps, check in (((64, 257, 16, 104), (50.0, None), True),
+                                        ((TRAIN_BATCH, TRAIN_LATENTS + 32, 16,
+                                          64), (None,), False)):
+        q, k, v, do = (heads(b, n, h, d) for _ in range(4))
+        for clamp in clamps:
+            kw = dict(softclamp=clamp)
+            out, lse = fa.attention_fwd_lse(q, k, v, None, **kw)
+            delta = (do.float() * out.float()).sum(-1)
+            args = (q, k, v, None, lse, delta, do)
+            note = ""
+            if check:
+                got = (fa.attention_bwd_dq(*args, **kw),
+                       *fa.attention_bwd_dkv(*args, **kw))
+                ref = fa.attention_bwd_reference(
+                    q.float(), k.float(), v.float(), None, lse, delta,
+                    do.float(), **kw)
+                for kid, g, w in zip(("K4 dq", "K5 dk", "K5 dv"), got, ref):
+                    tol = KERNEL_RTOL * max(1.0, w.abs().max().item())
+                    err = (g.float() - w).abs().max().item()
+                    if not err <= tol:
+                        raise RuntimeError(f"{kid} ({b}, {n}, {h}x{d}) "
+                                           f"softclamp {clamp}: {err:.3e} > "
+                                           f"tol {tol:.3e}")
+                    note += f"; {kid} max_abs_err {err:.3e} (tol {tol:.3e})"
+                del got, ref
+            dq_ms = graph_ms(torch, lambda: fa.attention_bwd_dq(*args, **kw))
+            dkv_ms = graph_ms(torch, lambda: fa.attention_bwd_dkv(*args, **kw))
+            log(f"  K4/K5 ({b}, {n}, {h}x{d}) softclamp {clamp}: "
+                f"{dq_ms:.4f} / {dkv_ms:.4f} ms graph{note}")
 
 
 # --------------------------------------------------------------- phase 6
@@ -1260,6 +1327,7 @@ def main() -> int:
     log("[2/11] kernels vs plain versions (bf16 in, f32 reference)")
     kern = phase_kernels(torch)
     kern.update(phase_train_kernels(torch))
+    log_bwd_more(torch)
     log("[3/11] P1 probe: packed (b, n, h*d) vs (b, h, n, d) + transposes")
     kern["P1"] = phase_probe(torch)
     log("[4/11] small f32 config: card vs CPU")
@@ -1328,7 +1396,7 @@ def main() -> int:
         if not torch.isfinite(loss):
             raise RuntimeError("train profile: non-finite loss")
 
-    phase_profile(torch, "train step", train_once, SM90_FWD[1:])
+    phase_profile(torch, "train step", train_once, SM90_FWD[1:] + SM90_BWD)
 
     main_case = {"K1": "K1 self-attn (2, 800, 16x64)",
                  "K2": "K2 ViT-bigG (64, 16, 257, 104)",
@@ -1341,8 +1409,10 @@ def main() -> int:
                    f"{src}:503"),
             "K2": ("flash_attention", "flash_fwd_sm90.cu", f"{src}:103"),
             "K3": ("flash_attention_lse", "flash_fwd_sm90.cu", f"{src}:116"),
-            "K4": ("flash_attention_bwd_dq", "flash_bwd.cu", f"{src}:151"),
-            "K5": ("flash_attention_bwd_dkv", "flash_bwd.cu", f"{src}:184"),
+            "K4": ("flash_attention_bwd_dq", "flash_bwd_sm90.cu",
+                   f"{src}:151"),
+            "K5": ("flash_attention_bwd_dkv", "flash_bwd_sm90.cu",
+                   f"{src}:184"),
             "P1": ("flash_bnhd", "flash_fwd_sm90.cu",
                    "scripts/probe_flash_bnhd.py:44")}
     counts = {**{k: gen_counts[k] for k in ("flash_attention_packed",

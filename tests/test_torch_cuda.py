@@ -1,8 +1,8 @@
 """The port's CUDA flash-attention kernels (the forward for K1, K2, K3 and
 the probe's P1: ``v2ap_torch/csrc/flash_fwd_sm90.cu`` on the tensor cores
-for bf16, ``flash_fwd.cu`` on the CUDA cores for f32; ``flash_bwd.cu``: K4
-and K5) on the card, against their plain PyTorch versions on the same
-inputs.
+for bf16, ``flash_fwd.cu`` on the CUDA cores for f32; the backward K4 and
+K5: ``flash_bwd_sm90.cu`` for bf16, ``flash_bwd.cu`` for f32) on the card,
+against their plain PyTorch versions on the same inputs.
 
 Every test here needs an NVIDIA card and nvcc and skips without them. The
 file imports no JAX, so it runs on a machine that has only PyTorch:
@@ -20,7 +20,8 @@ rounding and the summation order differ: float32 1e-4, bfloat16 2^-7, each
 times max(1, max|ref|); lse rtol 1e-5. P1 is held as ``chip_smoke.py``
 holds it: float32 1e-4, bfloat16 2^-7, each times max(1, max|ref|). The
 tensor-core cases of the forward are held as ``chip_smoke.py`` holds them:
-2^-7 times max(1, max|ref|), lse 1e-3.
+2^-7 times max(1, max|ref|), lse 1e-3; those of the backward at the training
+shapes likewise, 2^-7 times max(1, max|ref|).
 """
 
 import numpy as np
@@ -395,3 +396,104 @@ def test_misaligned_bf16_view_raises_on_the_card(cuda):
             out = fa.flash_attention_packed(t, t, t, heads=4, dim_head=64)
             torch.cuda.synchronize()
             assert torch.isfinite(out).all()
+
+
+def _bwd_args(q, k, v, mask, dout, softclamp=50.0):
+    """(q, k, v, mask, lse, delta, dout) for K4 / K5 from K3's forward on
+    the same views, as the train step computes them."""
+    out, lse = fa.attention_fwd_lse(q, k, v, mask, softclamp=softclamp)
+    delta = (dout.float() * out.float()).sum(-1)
+    return q, k, v, mask, lse, delta, dout
+
+
+@pytest.mark.parametrize("dtype,kernels,others", [
+    (torch.bfloat16, ("flash_bwd_dq_sm90_kernel<64>",
+                      "flash_bwd_dkv_sm90_kernel<64>"),
+     ("flash_bwd_dq_kernel<", "flash_bwd_dkv_kernel<")),
+    (torch.float32, ("flash_bwd_dq_kernel<64>", "flash_bwd_dkv_kernel<64>"),
+     ("flash_bwd_dq_sm90_kernel<", "flash_bwd_dkv_sm90_kernel<"))],
+    ids=["bf16", "f32"])
+def test_backward_dispatch_by_dtype(cuda, dtype, kernels, others):
+    """K4 and K5 in bf16 run only the tensor-core backward kernels, in f32
+    only the CUDA-core ones."""
+    rng = np.random.default_rng(8)
+    q, k, v, mask = _inputs(rng, 2, 4, 100, 100, 64, "ragged", dtype, cuda)
+    q, k, v = (fa._heads_view(t, 4, 64) for t in (q, k, v))
+    dout = fa._heads_view(torch.from_numpy(rng.normal(size=(2, 100, 256))
+                                           .astype(np.float32)).to(cuda, dtype),
+                          4, 64)
+    args = _bwd_args(q, k, v, mask, dout)
+    names = _kernel_names(lambda: (fa.attention_bwd_dq(*args, softclamp=50.0),
+                                   fa.attention_bwd_dkv(*args, softclamp=50.0)))
+    for kernel in kernels:
+        assert any(kernel in n for n in names), names
+    assert not any(o in n for o in others for n in names), names
+
+
+TC_BWD_CASES = [
+    # (label, b, n, h, nk, logit gain)
+    pytest.param(("fused_qkv", 8, 782, 16, 782, 1.0), id="train_self_16x64"),
+    pytest.param(("fused_qkv", 8, 782, 16, 782, 40.0),
+                 id="train_self_logits_std40"),
+    pytest.param(("fused_qkv", 8, 782, 8, 782, 1.0), id="train_roll_8x64"),
+    pytest.param(("context", 8, 782, 16, 16, 1.0), id="train_cross_nk16"),
+]
+
+
+def _train_views(cuda, kind, b, n, h, nk, gain, seed=9):
+    """The training step's bf16 views at d = 64: the chunks of a fused qkv
+    (q scaled by ``gain``), or q with the k/v chunks of a prompt context of
+    ``nk`` tokens (4 to nk valid); the output gradient's head views; the
+    mask."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    hd = h * 64
+    if kind == "fused_qkv":
+        qkv = torch.randn(b, n, 3 * hd, generator=g, device=cuda)
+        qkv[..., :hd] *= gain
+        q, k, v = qkv.to(torch.bfloat16).chunk(3, dim=-1)
+        mask = torch.ones(b, n, dtype=torch.bool, device=cuda)
+    else:
+        q = torch.randn(b, n, hd, generator=g, device=cuda).to(torch.bfloat16)
+        k, v = torch.randn(b, nk, 2 * hd, generator=g, device=cuda).to(
+            torch.bfloat16).chunk(2, dim=-1)
+        lens = torch.randint(4, nk + 1, (b, 1), generator=g, device=cuda)
+        mask = torch.arange(nk, device=cuda)[None] < lens
+    dout = torch.randn(b, n, hd, generator=g, device=cuda).to(torch.bfloat16)
+    return [fa._heads_view(t, h, 64) for t in (q, k, v)] + [
+        mask, fa._heads_view(dout, h, 64)]
+
+
+@pytest.mark.parametrize("case", TC_BWD_CASES)
+def test_tensor_core_backward_at_training_shapes(cuda, case):
+    """K4 and K5 in bf16 through the tensor-core kernels on the views the
+    train step passes (fused-qkv chunks, the roll stream's 8 heads, the
+    cross-attention's context chunks), also with logits of std 40: each
+    gradient within 2^-7 max(1, max|ref|) of the plain version on the same
+    lse, D and dO."""
+    kind, b, n, h, nk, gain = case
+    q, k, v, mask, dout = _train_views(cuda, kind, b, n, h, nk, gain)
+    args = _bwd_args(q, k, v, mask, dout)
+    grads = {"dq": fa._new_like_heads(q, None)}
+    assert fa.bwd_launch_plan(q, k, v, dout, grads).route == "wgmma"
+    dq = fa.attention_bwd_dq(*args, softclamp=50.0)
+    dk, dv = fa.attention_bwd_dkv(*args, softclamp=50.0)
+    ref = fa.attention_bwd_reference(
+        *(t.float() for t in (q, k, v)), mask, args[4], args[5],
+        dout.float(), softclamp=50.0)
+    for got, r in zip((dq, dk, dv), ref):
+        assert got.dtype == torch.bfloat16 and got.shape == r.shape
+        _check(got, r, 2.0 ** -7)
+
+
+def test_tensor_core_backward_is_deterministic(cuda):
+    """Two bf16 calls of K4 and K5 on the same inputs give bit-equal dq, dk
+    and dv: no atomics, every sum in a fixed order."""
+    q, k, v, mask, dout = _train_views(cuda, "fused_qkv", 4, 782, 16, 782,
+                                       1.0)
+    mask[1, 700:] = False
+    args = _bwd_args(q, k, v, mask, dout)
+    runs = [(fa.attention_bwd_dq(*args, softclamp=50.0),
+             *fa.attention_bwd_dkv(*args, softclamp=50.0)) for _ in range(2)]
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)

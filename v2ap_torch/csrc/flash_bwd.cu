@@ -1,8 +1,11 @@
-// Flash-attention backward for Hopper (sm_90a): two strided kernels, the
-// gradient of flash_fwd.cu's forward, for the head-packed (b, n, h*d) and the
-// (b, h, n, d) layouts alike.
+// Flash-attention backward in f32 on the CUDA cores: two strided kernels,
+// the gradient of flash_fwd.cu's forward, for the head-packed (b, n, h*d)
+// and the (b, h, n, d) layouts alike. bf16 runs on the tensor cores
+// (flash_bwd_sm90.cu); these kernels keep f32 in full f32 for the f32
+// checks.
 //
-// Replaces the Pallas TPU backward kernels of v2ap_tpu/ops/flash_attention.py:
+// Replaces, for f32 inputs, the Pallas TPU backward kernels of
+// v2ap_tpu/ops/flash_attention.py:
 //   K4  _flash_bwd_dq_kernel / _packed_bwd_dq_kernel:   dq = scale * sum_k ds k
 //   K5  _flash_bwd_dkv_kernel / _packed_bwd_dkv_kernel: dv = sum_q p^T dO,
 //                                                       dk = sum_q ds^T q_scaled
@@ -21,23 +24,18 @@
 // in a fixed order: K4 owns one (b, h, 64-row q tile) and loops over key
 // tiles; K5 owns one (b, h, 64-key tile) and loops over q tiles.
 //
-// Bound on an H100 SXM (989 TFLOP/s dense bf16, 3.35 TB/s): K4 does
-// 6*b*h*nq*nk*d FLOP (s, dp, ds k) and K5 8*b*h*nq*nk*d (s, dp, p^T dO,
-// ds^T q), against the bytes of q, k, v, dO, lse, D and the mask plus the
-// gradients. At the training shapes (nq = nk = 782, d = 64) that is several
-// hundred FLOP per byte, above the card's ridge of ~295, so the tensor
-// cores set the bound. What this design does about it: the (nq, nk) scores
-// never reach HBM; each block keeps its own tiles in shared memory and its
-// accumulators in registers. The products run as f32 FMAs on the CUDA cores
-// (each thread a 4x4 score tile and a 4 x ceil(d/16) accumulator tile), the
-// simple and exact first version; wgmma with TMA-fed tiles comes later.
+// Bound on an H100 SXM (67 TFLOP/s f32 outside the tensor cores, 3.35
+// TB/s): the function is five products, 10*b*h*nq*nk*d FLOP, split as K4 6
+// (s, dp, ds k) and K5 4 (p^T dO, ds^T q); K5 also recomputes s and dp (4
+// more). What this design does: the (nq, nk) scores never reach HBM; each
+// block keeps its own tiles in shared memory and its accumulators in
+// registers; the products run as f32 FMAs (each thread a 4x4 score tile and
+// a 4 x ceil(d/16) accumulator tile), exact to f32 summation order.
 //
-// Inputs are bf16 or f32 and are read as f32; lse and D are f32 (b, h, nq)
-// contiguous; gradients are written in the input type. Strides are explicit
-// (elements; the last dim must be contiguous). Linked into one library with
-// flash_fwd.cu, whose v2ap_cuda_error_string serves both.
+// Inputs, lse and D are f32; lse and D (b, h, nq) contiguous. Strides are
+// explicit (elements; the last dim must be contiguous). Linked into one
+// library with flash_fwd.cu, whose v2ap_cuda_error_string serves both.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -49,52 +47,42 @@ constexpr int kThreads = 256;  // a 16 x 16 grid of threads
 constexpr int kPS = kBlockK + 1;  // padded row of a 64-wide score tile
 
 struct BwdParams {
-  const void* q;
-  const void* k;
-  const void* v;
-  const void* dout;
+  const float* q;
+  const float* k;
+  const float* v;
+  const float* dout;
   const uint8_t* mask;  // (b, nk), nonzero == attend; nullptr == all attend
   const float* lse;     // (b, h, nq)
   const float* delta;   // (b, h, nq), rowsum(dO * O)
-  void* dq;
-  void* dk;
-  void* dv;
+  float* g0;            // dq (K4) or dk (K5)
+  float* g1;            // dv (K5)
   int batch, heads, nq, nk;
-  // (batch, head, row) strides of q, k, v, dO, dq, dk, dv, then the mask's
+  // (batch, head, row) strides of q, k, v, dO, g0, g1, then the mask's
   // batch stride
-  long long s[22];
+  long long s[19];
   float scale;
   float softclamp;  // <= 0: no softclamp
 };
 
-enum { kQ = 0, kK = 3, kV = 6, kDO = 9, kDQ = 12, kDK = 15, kDV = 18, kM = 21 };
+enum { kQ = 0, kK = 3, kV = 6, kDO = 9, kG0 = 12, kG1 = 15, kM = 18 };
 
-__device__ __forceinline__ float load_f32(const float* p) { return *p; }
-__device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
-__device__ __forceinline__ void store_f32(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store_f32(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
-
-template <typename T>
-__device__ __forceinline__ const T* head_ptr(const void* base,
-                                             const long long* s, int b, int h) {
-  return static_cast<const T*>(base) + b * s[0] + h * s[1];
+__device__ __forceinline__ const float* head_ptr(const float* base,
+                                                 const long long* s, int b,
+                                                 int h) {
+  return base + b * s[0] + h * s[1];
 }
 
 // rows x D tile of a (n, D) head into shared memory (row stride D + 1),
 // times `mul`; rows past n are zero
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(float* dst, const T* src,
+template <int D>
+__device__ __forceinline__ void load_tile(float* dst, const float* src,
                                           long long row_stride, int r0, int n,
                                           int rows, float mul) {
   for (int i = threadIdx.x; i < rows * D; i += kThreads) {
     const int r = i / D;
     const int c = i - r * D;
     float x = 0.f;
-    if (r0 + r < n) x = load_f32(src + (r0 + r) * row_stride + c) * mul;
+    if (r0 + r < n) x = src[(r0 + r) * row_stride + c] * mul;
     dst[r * (D + 1) + c] = x;
   }
 }
@@ -121,7 +109,7 @@ constexpr size_t dq_smem_bytes() {
 // K4: one block per (b, h, 64-row q tile). Thread (tx, ty) holds rows
 // 4ty..4ty+3 against keys tx + 16j of each key tile, and dq columns
 // tx + 16c of its four rows.
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(BwdParams p) {
   constexpr int DS = D + 1;
   constexpr int DC = (D + 15) / 16;
@@ -141,14 +129,14 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(BwdParams p) {
   const int b = blockIdx.z;
   const long long row0 = (static_cast<long long>(b) * p.heads + h) * p.nq;
 
-  const T* q = head_ptr<T>(p.q, p.s + kQ, b, h);
-  const T* k = head_ptr<T>(p.k, p.s + kK, b, h);
-  const T* v = head_ptr<T>(p.v, p.s + kV, b, h);
-  const T* dout = head_ptr<T>(p.dout, p.s + kDO, b, h);
-  T* dq = const_cast<T*>(head_ptr<T>(p.dq, p.s + kDQ, b, h));
+  const float* q = head_ptr(p.q, p.s + kQ, b, h);
+  const float* k = head_ptr(p.k, p.s + kK, b, h);
+  const float* v = head_ptr(p.v, p.s + kV, b, h);
+  const float* dout = head_ptr(p.dout, p.s + kDO, b, h);
+  float* dq = p.g0 + b * p.s[kG0] + h * p.s[kG0 + 1];
 
-  load_tile<T, D>(Qs, q, p.s[kQ + 2], q0, p.nq, kBlockQ, p.scale);
-  load_tile<T, D>(dOs, dout, p.s[kDO + 2], q0, p.nq, kBlockQ, 1.f);
+  load_tile<D>(Qs, q, p.s[kQ + 2], q0, p.nq, kBlockQ, p.scale);
+  load_tile<D>(dOs, dout, p.s[kDO + 2], q0, p.nq, kBlockQ, 1.f);
 
   float lse_r[4], dl_r[4], acc[4][DC];
   bool row_ok[4];
@@ -164,8 +152,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(BwdParams p) {
 
   for (int k0 = 0; k0 < p.nk; k0 += kBlockK) {
     __syncthreads();  // the previous tile's Ks/Vs/dSs reads are done
-    load_tile<T, D>(Ks, k, p.s[kK + 2], k0, p.nk, kBlockK, 1.f);
-    load_tile<T, D>(Vs, v, p.s[kV + 2], k0, p.nk, kBlockK, 1.f);
+    load_tile<D>(Ks, k, p.s[kK + 2], k0, p.nk, kBlockK, 1.f);
+    load_tile<D>(Vs, v, p.s[kV + 2], k0, p.nk, kBlockK, 1.f);
     if (tid < kBlockK) {
       const int j = k0 + tid;
       valid[tid] = j >= p.nk ? -1
@@ -238,7 +226,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(BwdParams p) {
 #pragma unroll
       for (int cc = 0; cc < DC; ++cc) {
         const int d = tx + 16 * cc;
-        if (d < D) store_f32(dq + r * p.s[kDQ + 2] + d, acc[i][cc] * p.scale);
+        if (d < D) dq[r * p.s[kG0 + 2] + d] = acc[i][cc] * p.scale;
       }
     }
   }
@@ -253,7 +241,7 @@ constexpr size_t dkv_smem_bytes() {
 // K5: one block per (b, h, 64-key tile). Thread (tx, ty) holds keys
 // 4ty..4ty+3 against q rows tx + 16i of each q tile, and dk/dv columns
 // tx + 16c of its four keys.
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(BwdParams p) {
   constexpr int DS = D + 1;
   constexpr int DC = (D + 15) / 16;
@@ -275,15 +263,15 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(BwdParams p) {
   const int b = blockIdx.z;
   const long long row0 = (static_cast<long long>(b) * p.heads + h) * p.nq;
 
-  const T* q = head_ptr<T>(p.q, p.s + kQ, b, h);
-  const T* k = head_ptr<T>(p.k, p.s + kK, b, h);
-  const T* v = head_ptr<T>(p.v, p.s + kV, b, h);
-  const T* dout = head_ptr<T>(p.dout, p.s + kDO, b, h);
-  T* dk = const_cast<T*>(head_ptr<T>(p.dk, p.s + kDK, b, h));
-  T* dv = const_cast<T*>(head_ptr<T>(p.dv, p.s + kDV, b, h));
+  const float* q = head_ptr(p.q, p.s + kQ, b, h);
+  const float* k = head_ptr(p.k, p.s + kK, b, h);
+  const float* v = head_ptr(p.v, p.s + kV, b, h);
+  const float* dout = head_ptr(p.dout, p.s + kDO, b, h);
+  float* dk = p.g0 + b * p.s[kG0] + h * p.s[kG0 + 1];
+  float* dv = p.g1 + b * p.s[kG1] + h * p.s[kG1 + 1];
 
-  load_tile<T, D>(Ks, k, p.s[kK + 2], k0, p.nk, kBlockK, 1.f);
-  load_tile<T, D>(Vs, v, p.s[kV + 2], k0, p.nk, kBlockK, 1.f);
+  load_tile<D>(Ks, k, p.s[kK + 2], k0, p.nk, kBlockK, 1.f);
+  load_tile<D>(Vs, v, p.s[kV + 2], k0, p.nk, kBlockK, 1.f);
 
   bool key_ok[4];
   float dk_acc[4][DC], dv_acc[4][DC];
@@ -298,8 +286,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(BwdParams p) {
 
   for (int q0 = 0; q0 < p.nq; q0 += kBlockQ) {
     __syncthreads();  // the previous tile's Qs/dOs/Ps/dSs reads are done
-    load_tile<T, D>(Qs, q, p.s[kQ + 2], q0, p.nq, kBlockQ, p.scale);
-    load_tile<T, D>(dOs, dout, p.s[kDO + 2], q0, p.nq, kBlockQ, 1.f);
+    load_tile<D>(Qs, q, p.s[kQ + 2], q0, p.nq, kBlockQ, p.scale);
+    load_tile<D>(dOs, dout, p.s[kDO + 2], q0, p.nq, kBlockQ, 1.f);
     if (tid < kBlockQ) {
       const int r = q0 + tid;
       lse_s[tid] = r < p.nq ? p.lse[row0 + r] : 0.f;
@@ -381,18 +369,18 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_kernel(BwdParams p) {
       for (int cc = 0; cc < DC; ++cc) {
         const int d = tx + 16 * cc;
         if (d < D) {
-          store_f32(dk + key * p.s[kDK + 2] + d, dk_acc[j][cc]);
-          store_f32(dv + key * p.s[kDV + 2] + d, dv_acc[j][cc]);
+          dk[key * p.s[kG0 + 2] + d] = dk_acc[j][cc];
+          dv[key * p.s[kG1 + 2] + d] = dv_acc[j][cc];
         }
       }
     }
   }
 }
 
-template <typename T, int D, bool kDq>
+template <int D, bool kDq>
 cudaError_t launch(const BwdParams& p, cudaStream_t stream) {
   const size_t smem = kDq ? dq_smem_bytes<D>() : dkv_smem_bytes<D>();
-  auto kernel = kDq ? flash_bwd_dq_kernel<T, D> : flash_bwd_dkv_kernel<T, D>;
+  auto kernel = kDq ? flash_bwd_dq_kernel<D> : flash_bwd_dkv_kernel<D>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -404,75 +392,52 @@ cudaError_t launch(const BwdParams& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <typename T, bool kDq>
+template <bool kDq>
 int dispatch_head_dim(int head_dim, const BwdParams& p, cudaStream_t s) {
   switch (head_dim) {
-    case 16: return launch<T, 16, kDq>(p, s);
-    case 32: return launch<T, 32, kDq>(p, s);
-    case 64: return launch<T, 64, kDq>(p, s);
-    case 104: return launch<T, 104, kDq>(p, s);
+    case 16: return launch<16, kDq>(p, s);
+    case 32: return launch<32, kDq>(p, s);
+    case 64: return launch<64, kDq>(p, s);
+    case 104: return launch<104, kDq>(p, s);
     default: return -1;
   }
-}
-
-template <bool kDq>
-int run(int dtype, int head_dim, const void* q, const void* k, const void* v,
-        const void* dout, const void* mask, const void* lse, const void* delta,
-        void* dq, void* dk, void* dv, int batch, int heads, int nq, int nk,
-        const long long* strides, float scale, float softclamp, void* stream) {
-  BwdParams p;
-  p.q = q;
-  p.k = k;
-  p.v = v;
-  p.dout = dout;
-  p.mask = static_cast<const uint8_t*>(mask);
-  p.lse = static_cast<const float*>(lse);
-  p.delta = static_cast<const float*>(delta);
-  p.dq = dq;
-  p.dk = dk;
-  p.dv = dv;
-  p.batch = batch;
-  p.heads = heads;
-  p.nq = nq;
-  p.nk = nk;
-  for (int i = 0; i < 22; ++i) p.s[i] = strides[i];
-  p.scale = scale;
-  p.softclamp = softclamp;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return dispatch_head_dim<float, kDq>(head_dim, p, s);
-  if (dtype == 1) return dispatch_head_dim<__nv_bfloat16, kDq>(head_dim, p, s);
-  return -1;
 }
 
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16. strides: 22 values, the (batch, head,
-// row) strides of q, k, v, dO, dq, dk, dv and the mask's batch stride. The
-// dq entry point writes dq only (dk, dv may be null); the dkv entry point
-// writes dk and dv only (dq may be null). Returns 0 on success, a
-// cudaError_t value when the launch failed, -1 for an unsupported dtype /
-// head dim.
-int v2ap_flash_bwd_dq(int dtype, int head_dim, const void* q, const void* k,
-                      const void* v, const void* dout, const void* mask,
-                      const void* lse, const void* delta, void* dq, int batch,
-                      int heads, int nq, int nk, const long long* strides,
-                      float scale, float softclamp, void* stream) {
-  return run<true>(dtype, head_dim, q, k, v, dout, mask, lse, delta, dq,
-                   nullptr, nullptr, batch, heads, nq, nk, strides, scale,
-                   softclamp, stream);
-}
-
-int v2ap_flash_bwd_dkv(int dtype, int head_dim, const void* q, const void* k,
-                       const void* v, const void* dout, const void* mask,
-                       const void* lse, const void* delta, void* dk, void* dv,
-                       int batch, int heads, int nq, int nk,
-                       const long long* strides, float scale, float softclamp,
-                       void* stream) {
-  return run<false>(dtype, head_dim, q, k, v, dout, mask, lse, delta, nullptr,
-                    dk, dv, batch, heads, nq, nk, strides, scale, softclamp,
-                    stream);
+// f32 backward: K4 (dkv == 0: writes g0 = dq) or K5 (dkv != 0: writes g0 =
+// dk, g1 = dv). strides: 19 values, the (batch, head, row) strides of q, k,
+// v, dO, g0 and g1 (g1's unused by K4), then the mask's batch stride.
+// Returns 0 on success, a cudaError_t value when the launch failed, -1 for
+// an unsupported head dim.
+int v2ap_flash_bwd(int dkv, int head_dim, const void* q, const void* k,
+                   const void* v, const void* dout, const void* mask,
+                   const void* lse, const void* delta, void* g0, void* g1,
+                   int batch, int heads, int nq, int nk,
+                   const long long* strides, float scale, float softclamp,
+                   void* stream) {
+  BwdParams p;
+  p.q = static_cast<const float*>(q);
+  p.k = static_cast<const float*>(k);
+  p.v = static_cast<const float*>(v);
+  p.dout = static_cast<const float*>(dout);
+  p.mask = static_cast<const uint8_t*>(mask);
+  p.lse = static_cast<const float*>(lse);
+  p.delta = static_cast<const float*>(delta);
+  p.g0 = static_cast<float*>(g0);
+  p.g1 = static_cast<float*>(g1);
+  p.batch = batch;
+  p.heads = heads;
+  p.nq = nq;
+  p.nk = nk;
+  for (int i = 0; i < 19; ++i) p.s[i] = strides[i];
+  p.scale = scale;
+  p.softclamp = softclamp;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dkv) return dispatch_head_dim<false>(head_dim, p, s);
+  return dispatch_head_dim<true>(head_dim, p, s);
 }
 
 }  // extern "C"

@@ -1,7 +1,8 @@
 """Flash attention: the plain PyTorch versions and the wrappers over the
-hand-written CUDA kernels in ``v2ap_torch/csrc/``: the forward on the tensor
-cores for bf16 (``flash_fwd_sm90.cu``: wgmma on TMA-fed tiles) and on the
-CUDA cores for f32 (``flash_fwd.cu``), the backward (``flash_bwd.cu``).
+hand-written CUDA kernels in ``v2ap_torch/csrc/``: on the tensor cores for
+bf16 (wgmma on TMA-fed tiles: the forward ``flash_fwd_sm90.cu``, the
+backward ``flash_bwd_sm90.cu``) and on the CUDA cores for f32
+(``flash_fwd.cu``, ``flash_bwd.cu``).
 
 Counterpart of ``v2ap_tpu/ops/flash_attention.py``. Two entry points keep
 the JAX signatures:
@@ -11,10 +12,11 @@ the JAX signatures:
   * ``flash_attention`` on (b, h, n, d) — the CLIP ViT-bigG tower.
 
 Without autograd (serving) each launches the forward kernel: K1 for the
-packed layout, K2 for the 4D one. ``launch_plan`` picks the forward kernel
-by dtype (bf16: the tensor-core kernel, f32: the CUDA-core one) and checks
-what the tensor-core kernel's TMA loads need (16-byte aligned bases and
-strides); a view that fails raises ValueError, it is not copied. Under
+packed layout, K2 for the 4D one. ``launch_plan`` (forward) and
+``bwd_launch_plan`` (backward) pick the kernel by dtype (bf16: the
+tensor-core kernel, f32: the CUDA-core one) and check what the tensor-core
+kernels' TMA loads need (16-byte aligned bases and strides); a view that
+fails raises ValueError, it is not copied. Under
 autograd (an input requires grad) each goes through ``_FlashAttentionFn``,
 the counterpart of ``_packed_ad`` / ``_flash_ad``: the forward launches K3
 (the same kernel, also storing the per-row log-sum-exp) and saves (q, k,
@@ -60,13 +62,15 @@ launch_counts = {"flash_attention": 0, "flash_attention_packed": 0,
                  "flash_attention_bwd_dkv": 0, "flash_bnhd": 0}
 
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
-_SOURCES = (_CSRC / "flash_fwd_sm90.cu", _CSRC / "flash_fwd.cu",
-            _CSRC / "flash_bwd.cu")
+_SOURCES = (_CSRC / "flash_fwd_sm90.cu", _CSRC / "flash_bwd_sm90.cu",
+            _CSRC / "flash_fwd.cu", _CSRC / "flash_bwd.cu")
+# included by the tensor-core sources: part of the library's hash
+_HEADERS = (_CSRC / "sm90_common.cuh",)
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "v2ap_torch"
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
                "-std=c++17", "-Xcompiler", "-fPIC")
 _HEAD_DIMS = (16, 32, 64, 104)
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = (torch.float32, torch.bfloat16)
 _BOX_COLS = 64      # bf16 columns of one TMA box: 128 bytes, the swizzle span
 _TMA_BYTES = 16     # TMA's granule for base addresses and strides
 
@@ -193,12 +197,19 @@ def _run_all(cmds: list) -> None:
         raise RuntimeError("nvcc failed on\n" + "\n".join(failed))
 
 
+def _library_digest() -> str:
+    """The hash that names the library: every source and header it is built
+    from, and the flags."""
+    return hashlib.sha256(b"".join(path.read_bytes()
+                                   for path in _SOURCES + _HEADERS)
+                          + " ".join(_NVCC_FLAGS).encode()).hexdigest()
+
+
 def build_library() -> Path:
     """Compile the kernel sources into one library, unless a library of the
-    same sources and flags is built already: one nvcc per source, all
-    started together, then one link. Returns the library's path."""
-    digest = hashlib.sha256(b"".join(src.read_bytes() for src in _SOURCES)
-                            + " ".join(_NVCC_FLAGS).encode()).hexdigest()
+    same sources, headers and flags is built already: one nvcc per source,
+    all started together, then one link. Returns the library's path."""
+    digest = _library_digest()
     lib = _BUILD_DIR / f"libflash_{digest[:16]}.so"
     if lib.exists():
         return lib
@@ -216,24 +227,26 @@ def build_library() -> Path:
     return lib
 
 
+def _c_argtypes() -> dict:
+    """The argument types of the library's kernel entry points, each of
+    which returns an int; the f32 and bf16 routes of a direction share one
+    parameter list."""
+    ptr, i32, i64, f32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                          ctypes.c_float)
+    fwd = [i32] + [ptr] * 6 + [i32] * 4 + [i64] * 13 + [f32, f32, ptr]
+    bwd = ([i32] * 2 + [ptr] * 9 + [i32] * 4
+           + [ctypes.POINTER(i64), f32, f32, ptr])
+    return {"v2ap_flash_fwd": fwd, "v2ap_flash_fwd_sm90": fwd,
+            "v2ap_flash_bwd": bwd, "v2ap_flash_bwd_sm90": bwd}
+
+
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build_library()))
-    ptr, i32, i64, f32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
-                          ctypes.c_float)
-    strides = ctypes.POINTER(i64)
-    lib.v2ap_flash_fwd.argtypes = (
-        [i32, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32]
-        + [i64] * 13 + [f32, f32, ptr])
-    lib.v2ap_flash_fwd_sm90.argtypes = (
-        [i32] * 3 + [ptr] * 6 + [i32] * 4 + [i64] * 13 + [f32, f32, ptr])
-    lib.v2ap_flash_bwd_dq.argtypes = (
-        [i32, i32] + [ptr] * 8 + [i32] * 4 + [strides, f32, f32, ptr])
-    lib.v2ap_flash_bwd_dkv.argtypes = (
-        [i32, i32] + [ptr] * 9 + [i32] * 4 + [strides, f32, f32, ptr])
-    lib.v2ap_flash_fwd.restype = lib.v2ap_flash_fwd_sm90.restype = \
-        lib.v2ap_flash_bwd_dq.restype = lib.v2ap_flash_bwd_dkv.restype = i32
-    lib.v2ap_cuda_error_string.argtypes = [i32]
+    for name, types in _c_argtypes().items():
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = types, ctypes.c_int
+    lib.v2ap_cuda_error_string.argtypes = [ctypes.c_int]
     lib.v2ap_cuda_error_string.restype = ctypes.c_char_p
     return lib
 
@@ -243,7 +256,7 @@ def _check(q, k, v, kv_mask, others) -> torch.Tensor | None:
     contiguous bool (b, nk) tensor on q's device, or None."""
     b, h, nq, d = q.shape
     nk = k.shape[2]
-    if q.dtype not in _DTYPE_CODES:
+    if q.dtype not in _DTYPES:
         raise TypeError(f"flash kernel takes float32 or bfloat16, got {q.dtype}")
     if not (q.dtype == k.dtype == v.dtype):
         raise TypeError(f"q/k/v dtypes differ: {q.dtype} {k.dtype} {v.dtype}")
@@ -288,13 +301,17 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-class FwdPlan(NamedTuple):
-    """How ``_launch`` runs one forward call."""
-    route: str          # "wgmma" (bf16, flash_fwd_sm90.cu), "cuda_core" (f32)
+class LaunchPlan(NamedTuple):
+    """How ``_launch`` runs one forward call, or ``_launch_bwd`` one
+    backward call."""
+    route: str          # "wgmma" (bf16: flash_fwd_sm90.cu, flash_bwd_sm90.cu)
+                        # or "cuda_core" (f32: flash_fwd.cu, flash_bwd.cu)
     head_dim: int
     padded_dim: int     # the head dim the wgmma tiles span, zero past head_dim
     box_cols: int       # columns of one TMA box (0: no TMA)
-    strides: tuple      # (b, h, n) element strides of q, k, v and out
+    strides: tuple      # (b, h, n) element strides: forward q, k, v, out;
+                        # backward q, k, v, dout, then two gradients (dq and
+                        # zeros, or dk and dv)
 
 
 def _tma_strides(t: torch.Tensor, name: str) -> tuple:
@@ -324,11 +341,32 @@ def _tma_strides(t: torch.Tensor, name: str) -> tuple:
     return tuple(out)
 
 
+def _tma_loadable(t: torch.Tensor) -> bool:
+    """Whether TMA can load the bf16 (b, h, n, d) view as it lies."""
+    try:
+        _tma_strides(t, "")
+    except ValueError:
+        return False
+    return True
+
+
+def _pair_strides(t: torch.Tensor, name: str) -> tuple:
+    """(b, h, n) strides of a bf16 (b, h, n, d) output that the tensor-core
+    kernels store as bf16 pairs from registers: 4-byte aligned base and
+    even strides, else ValueError."""
+    st = t.stride()[:3]
+    if t.data_ptr() % 4 or (st[0] | st[1] | st[2]) & 1:
+        raise ValueError(f"{name}: the tensor-core kernel stores bf16 pairs, "
+                         f"which needs 4-byte alignment; strides "
+                         f"{tuple(t.stride())}")
+    return st
+
+
 # head dim -> the head dim the wgmma tiles span: whole 64-column boxes
 _PADDED = {d: -(-d // _BOX_COLS) * _BOX_COLS for d in _HEAD_DIMS}
 
 
-def launch_plan(q, k, v, out) -> FwdPlan:
+def launch_plan(q, k, v, out) -> LaunchPlan:
     """The forward kernel for (b, h, n, d) views that ``_check`` accepted:
     bf16 runs on the tensor cores, with the head dim padded to whole 64-column
     TMA boxes (d = 104 spans 128, its last 24 columns zero-filled; 16, 32 and
@@ -336,17 +374,33 @@ def launch_plan(q, k, v, out) -> FwdPlan:
     for a bf16 view that TMA cannot load or an output that bf16 pair stores
     cannot write."""
     d = q.shape[-1]
-    o_strides = out.stride()[:3]
     if q.dtype == torch.float32:
-        return FwdPlan("cuda_core", d, d, 0, q.stride()[:3] + k.stride()[:3]
-                       + v.stride()[:3] + o_strides)
-    if out.data_ptr() % 4 or (o_strides[0] | o_strides[1] | o_strides[2]) & 1:
-        raise ValueError(f"out: the tensor-core kernel stores bf16 pairs, "
-                         f"which needs 4-byte alignment; strides "
-                         f"{tuple(out.stride())}")
-    return FwdPlan("wgmma", d, _PADDED[d], _BOX_COLS,
-                   _tma_strides(q, "q") + _tma_strides(k, "k")
-                   + _tma_strides(v, "v") + o_strides)
+        return LaunchPlan("cuda_core", d, d, 0, q.stride()[:3]
+                          + k.stride()[:3] + v.stride()[:3]
+                          + out.stride()[:3])
+    return LaunchPlan("wgmma", d, _PADDED[d], _BOX_COLS,
+                      _tma_strides(q, "q") + _tma_strides(k, "k")
+                      + _tma_strides(v, "v") + _pair_strides(out, "out"))
+
+
+def bwd_launch_plan(q, k, v, dout, grads: dict) -> LaunchPlan:
+    """The backward kernel (K4 for ``grads`` {"dq": dq}, K5 for {"dk": dk,
+    "dv": dv}) for (b, h, n, d) views that ``_check`` accepted: bf16 runs on
+    the tensor cores, the head dim padded to whole 64-column TMA boxes as in
+    ``launch_plan``; f32 on the CUDA cores in full f32. Raises ValueError for
+    a bf16 q, k, v or dout that TMA cannot load, or a gradient that bf16
+    pair stores cannot write."""
+    d = q.shape[-1]
+    if q.dtype == torch.float32:
+        g = tuple(st for t in grads.values() for st in t.stride()[:3])
+        return LaunchPlan("cuda_core", d, d, 0, q.stride()[:3]
+                          + k.stride()[:3] + v.stride()[:3]
+                          + dout.stride()[:3] + g + (0,) * (6 - len(g)))
+    g = tuple(st for name, t in grads.items() for st in _pair_strides(t, name))
+    return LaunchPlan("wgmma", d, _PADDED[d], _BOX_COLS,
+                      _tma_strides(q, "q") + _tma_strides(k, "k")
+                      + _tma_strides(v, "v") + _tma_strides(dout, "dout")
+                      + g + (0,) * (6 - len(g)))
 
 
 def _launch(q, k, v, kv_mask, out, lse=None, *, scale: float,
@@ -372,9 +426,8 @@ def _launch(q, k, v, kv_mask, out, lse=None, *, scale: float,
     with torch.cuda.device(q.device):
         if plan.route == "wgmma":
             err = lib.v2ap_flash_fwd_sm90(
-                plan.head_dim, plan.padded_dim, plan.box_cols, *ptrs,
-                b, h, nq, nk, *plan.strides, m_sb, float(scale), clamp,
-                _stream(q))
+                d, *ptrs, b, h, nq, nk, *plan.strides, m_sb, float(scale),
+                clamp, _stream(q))
         else:
             err = lib.v2ap_flash_fwd(d, *ptrs, b, h, nq, nk, *plan.strides,
                                      m_sb, float(scale), clamp, _stream(q))
@@ -402,22 +455,21 @@ def _launch_bwd(which: str, q, k, v, kv_mask, lse, delta, dout, grads, *,
         if t.shape != like.shape or t.dtype != like.dtype:
             raise ValueError(f"{name} {tuple(t.shape)} {t.dtype} does not "
                              f"match its input")
-    dq = grads[0] if which == "dq" else q
-    dk, dv = (k, v) if which == "dq" else grads
-    strides = [st for t in (q, k, v, dout, dq, dk, dv) for st in t.stride()[:3]]
-    strides.append(kv_mask.stride(0) if kv_mask is not None else 0)
-    arr = (ctypes.c_longlong * 22)(*strides)
+    plan = bwd_launch_plan(q, k, v, dout, dict(zip(names, grads)))
+    m_sb = kv_mask.stride(0) if kv_mask is not None else 0
+    arr = (ctypes.c_longlong * 19)(*plan.strides, m_sb)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+            kv_mask.data_ptr() if kv_mask is not None else None,
+            lse.data_ptr(), delta.data_ptr(), grads[0].data_ptr(),
+            grads[1].data_ptr() if len(grads) > 1 else None)
+    args = (b, h, nq, nk, arr, float(scale),
+            float(softclamp) if softclamp is not None else 0.0, _stream(q))
     lib = _library()
-    fn = lib.v2ap_flash_bwd_dq if which == "dq" else lib.v2ap_flash_bwd_dkv
     with torch.cuda.device(q.device):
-        err = fn(_DTYPE_CODES[q.dtype], d, q.data_ptr(), k.data_ptr(),
-                 v.data_ptr(), dout.data_ptr(),
-                 kv_mask.data_ptr() if kv_mask is not None else None,
-                 lse.data_ptr(), delta.data_ptr(),
-                 *(t.data_ptr() for t in grads), b, h, nq, nk, arr,
-                 float(scale),
-                 float(softclamp) if softclamp is not None else 0.0,
-                 _stream(q))
+        if plan.route == "wgmma":
+            err = lib.v2ap_flash_bwd_sm90(which == "dkv", d, *ptrs, *args)
+        else:
+            err = lib.v2ap_flash_bwd(which == "dkv", d, *ptrs, *args)
     _raise_on(err, lib, f"flash backward ({which}) kernel", q)
 
 
@@ -522,7 +574,11 @@ class _FlashAttentionFn(torch.autograd.Function):
         heads, kw = ctx.heads, ctx.kw
         views = _views(heads)
         g = g.to(out.dtype)
-        if g.stride(-1) != 1:
+        # the kernels take a contiguous last dim, the bf16 ones also what
+        # TMA can load: copy a gradient autograd hands in otherwise (e.g.
+        # expanded, with zero strides)
+        if g.stride(-1) != 1 or (g.dtype == torch.bfloat16
+                                 and not _tma_loadable(views(g))):
             g = g.contiguous()
         # D = rowsum(dO * O), outside the kernels as in JAX
         delta = (views(g).float() * views(out).float()).sum(-1).contiguous()
