@@ -52,20 +52,51 @@ Phases, each of which fails the run (exit 1, no result line) if it fails:
                waveform must agree;
   5. generate — the full-width V2A slice: v2a_default() at frame stride 1
                (12 layers, dim 1024, bf16), CLIP ViT-bigG, the full EnCodec,
-               random weights from seed 0 made on the device; a 10 s clip of
-               seeded 224x224 uint8 frames at 25 fps through
+               random weights from seed 0 made on the device, bf16 towers;
+               a 10 s clip of seeded 224x224 uint8 frames at 25 fps through
                ``V2APipeline.generate`` with an empty prompt, 25 steps and
-               cfg_strength 2.0, once to warm up and then GENERATE_RUNS
-               times timed (median wall and stage times, the realtime
-               factor). The launch counters are zeroed just before each
-               timed run and read just after; K1 must run (steps-1) x 48
-               times and K2 48 x (tower chunks) times in each, no other
-               kernel;
-  6. profile — CUDA time by kernel group and by kernel over one more
-               generate, and its share of that run's wall; it fails unless
-               the tensor-core forward ran (d 104 and d 64) and no bf16
-               instance of the CUDA-core forward did;
-  7. V2P generate — v2a_default() as shipped (frame stride 3, strip stride
+               cfg_strength 2.0, once to warm up (which captures the
+               sampler's CUDA graph; its cost is printed) and then
+               GENERATE_RUNS times timed (every wall, the median, stage
+               medians, the realtime factor). The launch counters are
+               zeroed just before each timed run and read just after: K2
+               must run 48 x (tower chunks) times in each and no other
+               kernel from the host (K1 runs in the replayed sampler
+               program, which calls no wrapper);
+  6. profile — one more generate under the profiler, the counters zeroed
+               just before it and read just after: CUDA time by kernel
+               group and by kernel, its share of that run's wall,
+               host-launched kernels against CUDA-graph launches; it fails
+               unless the tensor-core forward ran (d 104 and d 64), no bf16
+               instance of the CUDA-core forward did, K2 ran 48 x (tower
+               chunks) times by the counters and K1 (steps-1) x 48 = 1152
+               times by the trace;
+  7. captured — the full-width sampler as captured programs against the
+               same CFM run eagerly on the same x0 and conditioning: the
+               25-step CFG sampler, 4 few-step steps and two restart passes
+               must give bit-equal latents (capture and replay), walls
+               printed;
+  8. batch   — ``generate_batch`` over BATCH 10 s clips handed in decoded,
+               x0 from the seeds of each clip's own ``generate``: warm-up
+               (a new capture), BATCH_RUNS timed calls (walls, audio-s per
+               wall-s, host launch counts checked), each row within
+               BATCH_REL_RMS of its clip's ``generate``;
+  9. long    — ``pipelines.merge.generate_long`` over a LONG_S clip of
+               seeded frames: three chunks in one batched call, the
+               clip's length of finite audio, walls;
+  10. http   — the port's HTTP server on 127.0.0.1, port 0: BATCH
+               concurrent ``POST /v2a`` answered by ONE ``generate_batch``
+               call, each a 200 with 240 000 samples at 24 kHz; /healthz
+               and /metrics; per-request latency. The uploads do not decode
+               on this machine (no cv2), so it is the unconditioned route,
+               as JAX serves a clip it cannot decode. Then mixed traffic:
+               waves of MIXED_WAVES concurrent POSTs (one call each, batch
+               sizes padded to powers of two) and requests at
+               MIXED_DURATIONS handed to the server's batcher as a decoded
+               clip's duration would be; no key may be captured twice
+               (no recapture) and the programs must fit MAX_PROGRAMS;
+               each capture's cost and pool memory printed;
+  11. V2P generate — v2a_default() as shipped (frame stride 3, strip stride
                2) with FLAN-T5-large and Video2Roll: the same frames, 250
                seeded 100x900 uint8 keyboard strips through
                ``strips_cache``, a prompt of PROMPT_TOKENS tokens,
@@ -73,14 +104,14 @@ Phases, each of which fails the run (exit 1, no result line) if it fails:
                (prompt cross-attention at nk = 64) and K2 96 (84 frames at
                stride 3, two chunks), no other kernel; the roll must be
                finite, in [0, 1] and not all zero;
-  8. V2P profile — as phase 6, convolutions (Video2Roll, EnCodec) as a
+  12. V2P profile — as phase 6, convolutions (Video2Roll, EnCodec) as a
                group of their own;
-  9. small train — one train step of tiny_test() (f32, dropout 0, the
+  13. small train — one train step of tiny_test() (f32, dropout 0, the
                loss's draws made on the CPU) on the card and on the CPU from
                the same weights: loss, every gradient and the updated
                parameters must agree; then 20 steps on the card (lr 1e-3,
                warmup 2, one batch, fixed draws): the loss must fall;
-  10. train  — the full-width V2A training step: v2a_default() (12 layers,
+  14. train  — the full-width V2A training step: v2a_default() (12 layers,
                dim 1024, bf16 compute, f32 params, dropout 0.1), AdamW with
                TrainConfig() defaults and EMA, random weights from seed 0,
                a synthetic batch from seed 0 (TRAIN_BATCH x 750 latents,
@@ -91,13 +122,14 @@ Phases, each of which fails the run (exit 1, no result line) if it fails:
                not at all; loss and gradient norm finite; parameters and
                EMA moved. Median step time, audio-seconds per second, peak
                memory;
-  11. train profile — CUDA time by kernel group over one more train step,
+  15. train profile — CUDA time by kernel group over one more train step,
                failing as phase 6 does, and unless the tensor-core backward
                (K4, K5 at d 64) ran and no CUDA-core backward kernel did.
 
 The line before the last is a JSON object with one entry per kernel (K1-K5
-and P1; the launches of K1/K2 from one V2A generate, of K3-K5 from one
-train step, of P1 from one new-path probe call); the
+and P1; the launches of K1/K2 from the profiled V2A generate, K1's counted
+in its trace (the replayed sampler program), K2's by its wrapper, of K3-K5
+from one train step, of P1 from one new-path probe call); the
 last is {"ok": true, "device": {...}}. Without CUDA, or without the repo
 around it, the script exits non-zero and prints no result.
 """
@@ -143,6 +175,15 @@ TRAIN_LATENTS = 750                # DataConfig.target_length, 10 s at 75 Hz
 TRAIN_CONTEXT = 16                 # prompt tokens, as scripts/bench_train.py
 TRAIN_STEPS = 5                    # timed full-width train steps (median)
 TINY_STEPS = 20                    # tiny loss-falls check (scripts/train_smoke.py)
+BATCH = 4                          # clips of a generate_batch, HTTP requests
+BATCH_RUNS = 3                     # timed generate_batch calls (median)
+# a batch row vs its clip's single generate: read 7.470e-07 to 7.482e-07
+# (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md), about 130x below this
+BATCH_REL_RMS = 1e-4
+LONG_S = 25.0                      # generate_long clip: three 10 s chunks
+HTTP_WINDOW_MS = 2000.0            # the batcher's window for the HTTP phase
+MIXED_WAVES = (1, 3, 2, 4)         # concurrent POSTs a wave, mixed traffic
+MIXED_DURATIONS = (5.0, 20.0, 5.0)  # seconds, through the server's batcher
 PROBE_SHAPE = (24, 768, 16, 64)    # the P1 probe's defaults: b, n, h, d
 PROBE_REPS = 20
 # ten words: with the end token, PROMPT_TOKENS of the tokenizer's 64 tokens
@@ -601,9 +642,9 @@ def phase_small(torch) -> None:
     t5 = T5Config(vocab_size=1000, d_model=128, d_kv=64, d_ff=256,
                   num_layers=2, num_heads=2, dtype="float32")
     gpu = V2APipeline(cfg, seed=1, device="cuda", clip_config=clip,
-                      t5_config=t5)
+                      t5_config=t5, quantize_towers=False)
     cpu = V2APipeline(cfg, seed=1, device="cpu", clip_config=clip,
-                      t5_config=t5)
+                      t5_config=t5, quantize_towers=False)
     for a, b in ((gpu.cfm, cpu.cfm), (gpu.codec, cpu.codec),
                  (gpu.clip, cpu.clip), (gpu.t5, cpu.t5)):
         b.load_state_dict(a.state_dict())
@@ -665,7 +706,8 @@ def phase_small(torch) -> None:
 
 def full_pipeline(torch, label: str, **conditioning):
     """The shipped configuration, v2a_default(), with ``conditioning``
-    changed and no feature caches, from seed 0 on the card."""
+    changed and no feature caches, from seed 0 on the card, bf16 towers
+    (JAX's ``V2AP_INT8_TOWERS=0``)."""
     from v2ap_torch import config as C
     from v2ap_torch.pipelines.generate import V2APipeline
 
@@ -673,7 +715,7 @@ def full_pipeline(torch, label: str, **conditioning):
     cfg = base.replace(conditioning=dataclasses.replace(
         base.conditioning, feature_cache=False, **conditioning))
     t0 = time.perf_counter()
-    pipe = V2APipeline(cfg, seed=0, device="cuda")
+    pipe = V2APipeline(cfg, seed=0, device="cuda", quantize_towers=False)
     torch.cuda.synchronize()
 
     def m(module):
@@ -698,38 +740,59 @@ def clip_frames():
 
 
 def generate_expect(pipe, n_frames: int) -> dict:
-    """Kernel launches of one 25-step CFG generate: K1 for every attention
-    of the (steps - 1) batch-doubled transformer evals, K2 for the 48
-    tower layers per chunk of 64 encoded frames, nothing else."""
+    """Kernel launches of one 25-step CFG generate by the wrappers on the
+    host: K2 for the 48 tower layers per chunk of 64 encoded frames, nothing
+    else (K1 runs inside the replayed sampler program: ``k1_expect``)."""
     from v2ap_torch.ops.flash_attention import launch_counts
 
-    m = pipe.cfg.model
-    evals = 25 - 1
-    per_eval = (m.depth + (m.depth if m.if_cross_attn else 0)
-                + 2 * m.text_depth)
     encoded = len(range(0, n_frames, pipe.frame_stride))
     expect = dict.fromkeys(launch_counts, 0)
-    expect.update(flash_attention_packed=evals * per_eval,
-                  flash_attention=pipe.clip_cfg.num_layers
-                  * math.ceil(encoded / 64))
+    expect["flash_attention"] = (pipe.clip_cfg.num_layers
+                                 * math.ceil(encoded / 64))
     return expect
+
+
+def k1_expect(pipe) -> int:
+    """K1 launches in one 25-step CFG sampler run: every attention of the
+    (steps - 1) batch-doubled transformer evals."""
+    m = pipe.cfg.model
+    return (25 - 1) * (m.depth + (m.depth if m.if_cross_attn else 0)
+                       + 2 * m.text_depth)
+
+
+def log_captures(pipe, since: int) -> None:
+    """The capture cost and pool memory of every program captured after
+    the first ``since`` (warm-up included, once per key)."""
+    for key, seconds, warmup_s, pool in pipe.graphs.captures[since:]:
+        kind, sampler = key[0], key[1]
+        x0_shape = next(d[0] for d in key[2:] if isinstance(d, tuple))
+        extra = (f", passes {key[2]}, restart_t {key[3]}"
+                 if kind == "multipass" else "")
+        log(f"  captured the sampler ({kind}, x0 {x0_shape}, "
+            f"{sampler.steps} steps, cfg {sampler.cfg_strength}{extra}): "
+            f"{seconds:.3f} s (warm-up {warmup_s:.3f} s), pool "
+            f"{pool / 2**20:.1f} MiB")
 
 
 def phase_generate(torch, pipe, label: str, gen, expect: dict,
                    check=None) -> dict:
-    """One warm-up ``gen()``, then GENERATE_RUNS timed ones. The launch
-    counters are zeroed just before each timed run and read just after it;
-    every run must give finite audio of the clip's length, the expected
-    counts and pass ``check(pipe)``. Reports the median wall time and each
-    stage's median."""
+    """One warm-up ``gen()`` (it captures the sampler's program), then
+    GENERATE_RUNS timed ones. The launch counters are zeroed just before
+    each timed run and read just after it; every run must give finite
+    audio of the clip's length, the expected counts (the wrappers', K1 0:
+    the sampler replays) and pass ``check(pipe)``. Reports the median wall
+    time and each stage's median."""
     import numpy as np
 
-    from v2ap_torch.ops.flash_attention import launch_counts, reset_launch_counts
+    from v2ap_torch.ops.flash_attention import (launch_counts,
+                                                reset_launch_counts)
 
+    since = len(pipe.graphs.captures)
     t0 = time.perf_counter()
-    gen()                                         # warm: handles, plans
+    gen()                                         # warm: handles, capture
     torch.cuda.synchronize()
     log(f"  warm-up generate: {time.perf_counter() - t0:.3f} s")
+    log_captures(pipe, since)
     torch.cuda.reset_peak_memory_stats()
     walls, stages = [], []
     for _ in range(GENERATE_RUNS):
@@ -756,8 +819,8 @@ def phase_generate(torch, pipe, label: str, gen, expect: dict,
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; waveform "
         f"{wav.shape} finite, rms "
         f"{float(np.sqrt(np.mean(wav.astype(np.float64) ** 2))):.4f}")
-    log(f"  launches per run: {counts} (expected {expect})")
-    return counts
+    log(f"  launches by the wrappers per run: {counts} (expected {expect}; "
+        f"K1 runs in the replayed sampler program, counted in the profile)")
 
 
 def check_roll(pipe) -> None:
@@ -795,26 +858,41 @@ SM90_FWD = ("flash_fwd_sm90_kernel<104>", "flash_fwd_sm90_kernel<64>")
 SM90_BWD = ("flash_bwd_dq_sm90_kernel<64>", "flash_bwd_dkv_sm90_kernel<64>")
 
 
-def phase_profile(torch, label: str, run, expect: tuple = ()) -> None:
+def phase_profile(torch, label: str, run, expect: tuple = (),
+                  counts_expect=None, k1_launches=None):
     """CUDA kernel time over one ``run()`` (which raises on a bad result),
-    by group and by kernel, and its share of the profiled run's wall time.
-    A failed run or profiler fails the run, and so does a profile in which
-    a kernel named in ``expect`` did not run or a CUDA-core kernel did
-    (every profiled run is bf16); a profiler that records no device time is
-    reported as not measured."""
+    by group and by kernel, and its share of the profiled run's wall time;
+    kernels launched from the host (the profiler's cu*/cuda*LaunchKernel*
+    calls) against CUDA-graph launches. A failed run or profiler fails the
+    run, and so does a profile in which a kernel named in ``expect`` did
+    not run or a CUDA-core kernel did (every profiled run is bf16). With
+    ``counts_expect`` the launch counters are zeroed just before the run
+    and read just after, must equal it, and are returned, K1's replaced by
+    the count of ``flash_fwd_sm90_kernel<64>`` (the only d-64 forward of a
+    generate) in the trace, which must be ``k1_launches``. A profiler that
+    records no device time fails such a run (K1 uncounted), and is
+    reported as not measured otherwise."""
     from torch.profiler import ProfilerActivity, profile
+
+    from v2ap_torch.ops.flash_attention import (launch_counts,
+                                                reset_launch_counts)
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        reset_launch_counts()
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        counts = dict(launch_counts)
     rows = kernel_rows(prof)
     total = sum(e.device_time_total for e in rows)
     if not total:
+        if k1_launches is not None:
+            raise RuntimeError(f"{label} profile: no device time recorded, "
+                               f"K1 launches not counted")
         log("  profile: no device time recorded (not measured)")
-        return
+        return None
     log(f"  profile: {total / 1e3:.1f} ms CUDA kernel time in one {label} "
         f"of {wall * 1e3:.1f} ms wall under the profiler (kernels busy "
         f"{total / 1e6 / wall:.1%} of it)")
@@ -830,6 +908,23 @@ def phase_profile(torch, label: str, run, expect: tuple = ()) -> None:
     for e in sorted(rows, key=lambda e: -e.device_time_total)[:12]:
         log(f"    {e.device_time_total / 1e3:9.2f} ms {e.count:6d}x "
             f"{e.device_time_total / total:6.1%}  {e.key[:90]}")
+    api = {e.key: e.count for e in prof.key_averages()
+           if "LaunchKernel" in e.key or e.key == "cudaGraphLaunch"}
+    host_launches = sum(n for k, n in api.items() if "LaunchKernel" in k)
+    log(f"    host-launched kernels {host_launches} "
+        f"({', '.join(f'{k} {n}' for k, n in sorted(api.items()))}); "
+        f"kernels on the device {sum(e.count for e in rows)}")
+    if counts_expect is not None:
+        k1 = sum(e.count for e in rows if "flash_fwd_sm90_kernel<64>" in e.key)
+        log(f"    launches by the wrappers {counts} (expected "
+            f"{counts_expect}); K1 launches in the trace: {k1} (expected "
+            f"{k1_launches}, {api.get('cudaGraphLaunch', 0)} "
+            f"cudaGraphLaunch)")
+        if counts != counts_expect or k1 != k1_launches:
+            raise RuntimeError(f"{label} profile: launches {counts}, K1 {k1} "
+                               f"in the trace; expected {counts_expect}, "
+                               f"K1 {k1_launches}")
+        counts["flash_attention_packed"] = k1
     missing = [k for k in expect if not any(k in e.key for e in rows)]
     stale = [e.key for e in rows if any(c in e.key for c in CUDA_CORE)]
     if missing or stale:
@@ -837,6 +932,333 @@ def phase_profile(torch, label: str, run, expect: tuple = ()) -> None:
                            f"({missing}) or CUDA-core ones ran ({stale})")
     log(f"    the tensor-core kernels ran ({', '.join(expect)}); no "
         f"CUDA-core kernel ({', '.join(c + '...>' for c in CUDA_CORE)})")
+    return counts
+
+
+# --------------------------------------------------------------- phases 7-10
+
+def sampler_inputs(torch, pipe, frames):
+    """A 10 s clip's sampler inputs at the serving bucket: its CLIP
+    features (n 768, 750 valid), x0 from seed 7, a zero roll and an empty
+    prompt's zero context, as ``generate`` makes them."""
+    m = pipe.cfg.model
+    dev = pipe.device
+    n, n_valid = 768, 750
+    with torch.inference_mode():
+        feats, _ = pipe.encode_video_frames_clip(
+            None, n, frames_cache=[(frames, CLIP_S, 1)])
+    return (pipe._normal(7, (1, n, m.num_channels)), feats[None],
+            torch.zeros(1, n, m.notes, device=dev),
+            torch.zeros(1, 1, m.dim_context, device=dev),
+            torch.ones(1, 1, dtype=torch.bool, device=dev),
+            torch.arange(n, device=dev)[None] < n_valid)
+
+
+def phase_captured(torch, pipe, frames) -> None:
+    """The full-width sampler as captured programs (``pipe._sample``,
+    ``pipe._sample_multipass``) against ``pipe.cfm`` run eagerly on the
+    same x0 and conditioning: the 25-step CFG sampler, the 4-step few-step
+    one and two restart passes must give bit-equal latents, from a capture
+    and from a replay; each path's wall (synchronised host clock) is
+    printed beside the eager one's."""
+    from v2ap_torch import config as C
+
+    x0, text, roll, ctx, cmask, mask = sampler_inputs(torch, pipe, frames)
+    noises = pipe._normal(8, (1,) + tuple(x0.shape))
+    kw = dict(text_embed=text, frames_embed=roll, context=ctx,
+              context_mask=cmask, mask=mask)
+    cfg25 = C.SamplerConfig(steps=25, cfg_strength=2.0)
+    few = C.SamplerConfig(steps=4, cfg_strength=0.0, sway_sampling=False)
+    cases = [
+        ("CFG, 25 steps", cfg25,
+         lambda: pipe._sample(x0, text, roll, ctx, cmask, mask, cfg25),
+         lambda: pipe.cfm.sample(x0, sampler=cfg25, **kw)),
+        ("few-step, 4 steps, no CFG", few,
+         lambda: pipe._sample(x0, text, roll, ctx, cmask, mask, few),
+         lambda: pipe.cfm.sample(x0, sampler=few, **kw)),
+        ("passes 2, restart_t 0.6", cfg25,
+         lambda: pipe._sample_multipass(x0, text, roll, ctx, cmask, mask,
+                                        cfg25, noises, 2, 0.6),
+         lambda: pipe.cfm.sample_multipass(x0, passes=2, restart_t=0.6,
+                                           noises=noises, sampler=cfg25,
+                                           **kw))]
+    for label, _, captured, eager in cases:
+        since = len(pipe.graphs.captures)
+        first = captured()                 # a capture, or the V2A key's replay
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        again = captured()                 # a replay
+        torch.cuda.synchronize()
+        t_graph = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            want = eager()
+        torch.cuda.synchronize()
+        t_eager = time.perf_counter() - t0
+        same = torch.equal(first, want) and torch.equal(again, want)
+        diff = (again - want).abs().max().item()
+        log_captures(pipe, since)
+        log(f"  {label}: captured vs eager bit-equal {same} (max |diff| "
+            f"{diff:.3e}); wall captured {t_graph:.4f} s, eager "
+            f"{t_eager:.4f} s")
+        if not same or not torch.isfinite(want).all():
+            raise RuntimeError(f"captured sampler ({label}) differs from the "
+                               f"eager one")
+
+
+def phase_generate_batch(torch, pipe, frames) -> tuple:
+    """``generate_batch`` over BATCH 10 s clips handed in decoded (the
+    frames rolled in time, one clip each), empty prompts, x0 from the
+    seeds the single generates draw: one warm-up (it captures batch
+    BATCH), then BATCH_RUNS timed calls (launch counts checked as in the
+    generate phase), then each clip's own ``generate``, whose audio each
+    batch row must match within BATCH_REL_RMS."""
+    import numpy as np
+
+    from v2ap_torch.ops.flash_attention import (launch_counts,
+                                                reset_launch_counts)
+
+    m = pipe.cfg.model
+    clips = [np.roll(frames, 17 * i, axis=0) for i in range(BATCH)]
+    caches = [[(c, CLIP_S, 1)] for c in clips]
+    seeds = [100 + i for i in range(BATCH)]
+    x0 = torch.cat([pipe._normal(s, (1, 768, m.num_channels)) for s in seeds])
+
+    def run():
+        return pipe.generate_batch([None] * BATCH, [""] * BATCH,
+                                   duration_s=CLIP_S, frames_caches=caches,
+                                   x0=x0)
+
+    expect = generate_expect(pipe, len(frames))    # K2 for every clip
+    expect["flash_attention"] *= BATCH
+    since = len(pipe.graphs.captures)
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    log(f"  warm-up generate_batch: {time.perf_counter() - t0:.3f} s")
+    log_captures(pipe, since)
+    walls, stages = [], []
+    for _ in range(BATCH_RUNS):
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        wavs, sr = run()
+        walls.append(time.perf_counter() - t0)
+        stages.append(pipe.last_timings)
+        counts = dict(launch_counts)
+        if wavs.shape != (BATCH, int(CLIP_S * sr)) \
+                or not np.isfinite(wavs).all():
+            raise RuntimeError(f"generate_batch: bad waveforms {wavs.shape}")
+        if counts != expect:
+            raise RuntimeError(f"generate_batch: launch counts {counts} != "
+                               f"{expect}")
+    wall = float(np.median(walls))
+    log(f"  generate_batch {BATCH} x 10 s clips x{BATCH_RUNS}: wall (s) "
+        f"{', '.join(f'{w:.4f}' for w in walls)}; median {wall:.4f} s, "
+        f"{BATCH * CLIP_S / wall:.3f} audio-s per wall-s; median stages (s) "
+        + ", ".join(f"{k} {np.median([st[k] for st in stages]):.4f}"
+                    for k in stages[0]))
+    log(f"  launches by the wrappers per call: {counts}")
+    errs, single_walls = [], []
+    for i, s in enumerate(seeds):
+        t0 = time.perf_counter()
+        wav, _ = pipe.generate(None, seed=s, frames_cache=caches[i])
+        single_walls.append(time.perf_counter() - t0)
+        errs.append(rel_rms(torch.from_numpy(wavs[i]), torch.from_numpy(wav)))
+    log(f"  each clip's own generate: wall (s) "
+        f"{', '.join(f'{w:.4f}' for w in single_walls)} (sum "
+        f"{sum(single_walls):.4f}); batch row vs its generate rel-RMS "
+        f"{', '.join(f'{e:.3e}' for e in errs)} (tol {BATCH_REL_RMS})")
+    if max(errs) > BATCH_REL_RMS:
+        raise RuntimeError("generate_batch: a row differs from its generate")
+    return wall, walls
+
+
+def phase_generate_long(torch, pipe) -> None:
+    """``generate_long`` over a LONG_S clip of seeded 224x224 frames at
+    25 fps handed in decoded: chunk_plan's three 10 s chunks (1 s overlap)
+    in one batched sampler call (batch 3 runs padded to 4, the program of
+    the batch phase); finite audio of the clip's length."""
+    import numpy as np
+
+    from v2ap_torch.pipelines.merge import chunk_plan, generate_long
+
+    frames = np.random.default_rng(3).integers(
+        0, 256, (int(LONG_S * FPS), 224, 224, 3), dtype=np.uint8)
+    plan = chunk_plan(LONG_S)
+    since = len(pipe.graphs.captures)
+    walls = []
+    for _ in range(2):                       # the first captures if new
+        t0 = time.perf_counter()
+        wav, sr = generate_long(pipe, None, frames_cache=[(frames, LONG_S, 1)])
+        walls.append(time.perf_counter() - t0)
+        if wav.shape != (int(LONG_S * sr),) or not np.isfinite(wav).all():
+            raise RuntimeError(f"generate_long: bad waveform {wav.shape}")
+    log_captures(pipe, since)
+    log(f"  generate_long {LONG_S:.0f} s clip, {len(plan)} chunks {plan}: "
+        f"{wav.shape[0]} samples at {sr} Hz; walls {walls[0]:.4f} s, "
+        f"{walls[1]:.4f} s ({LONG_S / walls[1]:.3f}x realtime; "
+        f"{len(pipe.graphs.captures) - since} new captures)")
+    if len(plan) != 3:
+        raise RuntimeError(f"generate_long: plan {plan} is not 3 chunks")
+
+
+def _multipart(fields: dict, name: str, payload: bytes) -> tuple:
+    boundary = "----v2apchipsmoke"
+    body = b"".join(
+        f"--{boundary}\r\nContent-Disposition: form-data; name=\"{k}\""
+        f"\r\n\r\n{v}\r\n".encode() for k, v in fields.items())
+    body += (f"--{boundary}\r\nContent-Disposition: form-data; "
+             f"name=\"video\"; filename=\"{name}\"\r\nContent-Type: "
+             f"video/mp4\r\n\r\n").encode() + payload + \
+        f"\r\n--{boundary}--\r\n".encode()
+    return body, f"multipart/form-data; boundary={boundary}"
+
+
+def phase_http(torch, pipe) -> None:
+    """The stdlib server (``v2ap_torch.serving.server.serve``) on
+    127.0.0.1, port 0, over the full-width pipeline: BATCH concurrent
+    ``POST /v2a`` must be answered by ONE ``generate_batch`` call (counted
+    by a wrapper here), each a 200 with a WAV of 10 s at 24 kHz; /healthz
+    and /metrics must show the requests. The uploads are bytes that no
+    decoder reads as a video (this machine has no cv2 to decode one): the
+    server then serves the unconditioned route, zero frame features at
+    the default 10 s, as the JAX server serves a clip it cannot decode.
+    Then ``phase_mixed`` on the same server."""
+    import tempfile
+    import threading
+    import urllib.request
+
+    import numpy as np
+
+    from v2ap_torch.data.audio_io import read_wav
+    from v2ap_torch.serving.server import serve
+
+    calls = []
+    batch = pipe.generate_batch
+
+    def counted(paths, prompts, **kw):
+        calls.append(len(paths))
+        return batch(paths, prompts, **kw)
+
+    pipe.generate_batch = counted
+    server = serve(pipe, host="127.0.0.1", port=0, block=False,
+                   max_batch=BATCH, window_ms=HTTP_WINDOW_MS)
+    port = server.server_address[1]
+    url = f"http://127.0.0.1:{port}"
+    results, errors = {}, []
+
+    def post(i):
+        body, ctype = _multipart({"prompt": "", "steps": "25"},
+                                 f"clip{i}.mp4", bytes(range(256)) * 64)
+        req = urllib.request.Request(f"{url}/v2a", data=body, method="POST",
+                                     headers={"Content-Type": ctype})
+        t0 = time.perf_counter()
+        try:
+            with urllib.request.urlopen(req, timeout=600) as r:
+                results[i] = (r.status, r.headers["Content-Type"], r.read(),
+                              time.perf_counter() - t0)
+        except Exception as exc:             # reported below, fails the run
+            errors.append(f"request {i}: {exc!r}")
+
+    def wave(ids):
+        """POST the requests ``ids`` at once and wait for every answer."""
+        threads = [threading.Thread(target=post, args=(i,)) for i in ids]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        if errors or any(i not in results for i in ids):
+            raise RuntimeError(f"http: {errors or 'requests unanswered'}")
+
+    try:
+        wave(range(BATCH))
+        with urllib.request.urlopen(f"{url}/healthz", timeout=60) as r:
+            health = json.loads(r.read())
+        with urllib.request.urlopen(f"{url}/metrics", timeout=60) as r:
+            metrics = json.loads(r.read())
+        first_calls = list(calls)
+        phase_mixed(pipe, server, wave, results, calls)
+    finally:
+        server.shutdown()
+        server.batcher.close()
+        server.server_close()
+        del pipe.generate_batch               # the pipeline's own again
+    shapes = []
+    with tempfile.TemporaryDirectory() as tmp:
+        for i, (status, ctype, data, _) in sorted(results.items()):
+            path = os.path.join(tmp, f"{i}.wav")
+            with open(path, "wb") as f:
+                f.write(data)
+            audio, sr = read_wav(path)
+            shapes.append((status, ctype, audio.shape, sr,
+                           bool(np.isfinite(audio).all())))
+    log(f"  {BATCH} concurrent POST /v2a (unconditioned route: the uploads "
+        f"do not decode here, as the JAX server serves a clip it cannot "
+        f"decode): generate_batch calls {first_calls}; latency (s) "
+        + ", ".join(f"{results[i][3]:.4f}" for i in range(BATCH))
+        + f"; answers of all {len(shapes)} requests {sorted(set(shapes))}")
+    log(f"  /healthz {health}; /metrics {metrics}")
+    if first_calls != [BATCH]:
+        raise RuntimeError(f"http: {BATCH} requests made generate_batch "
+                           f"calls {first_calls}, not one of {BATCH}")
+    if any(sh != (200, "audio/wav", (1, int(CLIP_S * 24_000)), 24_000, True)
+           for sh in shapes):
+        raise RuntimeError(f"http: bad answers {shapes}")
+    if health.get("status") != "ok" or metrics.get("v2a", {}).get(
+            "requests") != BATCH or metrics["v2a"]["errors"]:
+        raise RuntimeError(f"http: healthz {health} / metrics {metrics}")
+
+
+def phase_mixed(pipe, server, wave, results, calls) -> None:
+    """Mixed traffic on the running server: waves of MIXED_WAVES concurrent
+    POSTs (each wave one ``generate_batch`` call of its size, the batch
+    run padded to a power of two), then one request at each of
+    MIXED_DURATIONS handed to the server's batcher as the server hands it
+    a decoded clip's duration (the uploads do not decode here). Every
+    request must be answered with finite audio of its length; no key may be
+    captured twice (a recapture: the program was evicted) and the programs
+    must fit MAX_PROGRAMS. Prints each wave's latencies and each new
+    capture's cost and pool memory."""
+    import numpy as np
+
+    from v2ap_torch.utils.jitting import MAX_PROGRAMS
+
+    since = len(pipe.graphs.captures)
+    start = BATCH
+    for size in MIXED_WAVES:
+        ids = range(start, start + size)
+        before = len(calls)
+        t0 = time.perf_counter()
+        wave(ids)
+        log(f"  wave of {size} POSTs (a wave under {BATCH} waits out the "
+            f"{HTTP_WINDOW_MS:.0f} ms window): generate_batch calls "
+            f"{calls[before:]}, latency (s) "
+            + ", ".join(f"{results[i][3]:.4f}" for i in ids)
+            + f", wave {time.perf_counter() - t0:.4f} s")
+        if calls[before:] != [size]:
+            raise RuntimeError(f"mixed: a wave of {size} made calls "
+                               f"{calls[before:]}")
+        start += size
+    for dur in MIXED_DURATIONS:
+        t0 = time.perf_counter()
+        wav, sr = server.batcher.submit(None, "", duration_s=dur).result(
+            timeout=600)
+        log(f"  {dur:.0f} s request through the batcher: "
+            f"{time.perf_counter() - t0:.4f} s")
+        if wav.shape != (int(dur * sr),) or not np.isfinite(wav).all():
+            raise RuntimeError(f"mixed: a {dur} s request gave {wav.shape}")
+    log_captures(pipe, since)
+    keys = [c.key for c in pipe.graphs.captures]
+    recaptured = len(keys) - len(set(keys))
+    log(f"  mixed traffic: {len(keys) - since} new captures, {recaptured} "
+        f"recaptures; {len(pipe.graphs)} programs kept (at most "
+        f"{MAX_PROGRAMS}), pools "
+        f"{sum(c.pool_bytes for c in pipe.graphs.captures) / 2**30:.2f} GiB "
+        f"captured in all")
+    if recaptured or len(pipe.graphs) > MAX_PROGRAMS:
+        raise RuntimeError(f"mixed: {recaptured} recaptures, "
+                           f"{len(pipe.graphs)} programs")
 
 
 # --------------------------------------------------------------- phase 2b
@@ -1314,7 +1736,7 @@ def main() -> int:
         "error", message="flex_attention called without torch.compile")
     t_start = time.perf_counter()
 
-    log(f"[1/11] build — card: {card_line()}")
+    log(f"[1/15] build — card: {card_line()}")
     log(f"  torch {torch.__version__} (CUDA {torch.version.cuda}), "
         f"{torch.cuda.get_device_name(0)}; f32 matmul and cuDNN TF32 off")
     t0 = time.perf_counter()
@@ -1324,27 +1746,28 @@ def main() -> int:
         f"{', '.join(src.name for src in fa._SOURCES)} in "
         f"{time.perf_counter() - t0:.2f} s")
 
-    log("[2/11] kernels vs plain versions (bf16 in, f32 reference)")
+    log("[2/15] kernels vs plain versions (bf16 in, f32 reference)")
     kern = phase_kernels(torch)
     kern.update(phase_train_kernels(torch))
     log_bwd_more(torch)
-    log("[3/11] P1 probe: packed (b, n, h*d) vs (b, h, n, d) + transposes")
+    log("[3/15] P1 probe: packed (b, n, h*d) vs (b, h, n, d) + transposes")
     kern["P1"] = phase_probe(torch)
-    log("[4/11] small f32 config: card vs CPU")
+    log("[4/15] small f32 config: card vs CPU")
     phase_small(torch)
     import numpy as np
 
     frames = clip_frames()
-    log("[5/11] full-width V2A generate (frame stride 1, empty prompt)")
+    log("[5/15] full-width V2A generate (frame stride 1, empty prompt; the "
+        "sampler as a captured program)")
     pipe = full_pipeline(torch, "V2A", frame_stride=1)
 
     def generate_v2a():
         return pipe.generate(None, steps=25, cfg_strength=2.0, seed=0,
                              frames_cache=[(frames, CLIP_S, 1)])
 
-    gen_counts = phase_generate(torch, pipe, "V2A generate", generate_v2a,
-                                generate_expect(pipe, len(frames)))
-    log("[6/11] V2A generate profile")
+    phase_generate(torch, pipe, "V2A generate", generate_v2a,
+                   generate_expect(pipe, len(frames)))
+    log("[6/15] V2A generate profile")
 
     def profiled(gen, check=None):
         def run():
@@ -1355,10 +1778,20 @@ def main() -> int:
                 check(pipe)
         return run
 
-    phase_profile(torch, "generate", profiled(generate_v2a), SM90_FWD)
+    gen_counts = phase_profile(torch, "generate", profiled(generate_v2a),
+                               SM90_FWD, generate_expect(pipe, len(frames)),
+                               k1_expect(pipe))
+    log("[7/15] full-width sampler: captured programs vs eager, same inputs")
+    phase_captured(torch, pipe, frames)
+    log(f"[8/15] generate_batch: {BATCH} x 10 s clips, frames handed in")
+    phase_generate_batch(torch, pipe, frames)
+    log(f"[9/15] generate_long: a {LONG_S:.0f} s clip in one batched call")
+    phase_generate_long(torch, pipe)
+    log(f"[10/15] HTTP server: {BATCH} concurrent POST /v2a")
+    phase_http(torch, pipe)
     del pipe
     torch.cuda.empty_cache()
-    log("[7/11] full-width V2P generate with a prompt (v2a_default(): frame "
+    log("[11/15] full-width V2P generate with a prompt (v2a_default(): frame "
         "stride 3, strip stride 2; FLAN-T5-large, Video2Roll)")
     pipe = full_pipeline(torch, "V2P")
     strips = np.random.default_rng(1).integers(
@@ -1378,18 +1811,19 @@ def main() -> int:
     roll = pipe.last_roll
     log(f"  roll {tuple(roll.shape)}: min {roll.min().item():.4f}, max "
         f"{roll.max().item():.4f}, mean {roll.mean().item():.4f}")
-    log("[8/11] V2P generate profile")
+    log("[12/15] V2P generate profile")
     phase_profile(torch, "V2P generate", profiled(generate_v2p, check_roll),
-                  SM90_FWD)
+                  SM90_FWD, generate_expect(pipe, len(frames)),
+                  k1_expect(pipe))
     del pipe, roll
     torch.cuda.empty_cache()
-    log("[9/11] small train: tiny_test() card vs CPU, then "
+    log("[13/15] small train: tiny_test() card vs CPU, then "
         f"{TINY_STEPS} steps")
     phase_small_train(torch)
-    log("[10/11] full-width V2A train step")
+    log("[14/15] full-width V2A train step")
     trainer, batch = full_trainer(torch)
     train_counts = phase_train(torch, trainer, batch)
-    log("[11/11] train-step profile")
+    log("[15/15] train-step profile")
 
     def train_once():
         loss, _ = trainer.train_step(batch)

@@ -497,3 +497,172 @@ def test_tensor_core_backward_is_deterministic(cuda):
     torch.cuda.synchronize()
     for a, b in zip(*runs):
         assert torch.equal(a, b)
+
+
+# --------------------------------------------------------------------------- #
+# The captured sampler (V2APipeline._sample / _sample_multipass as CUDA graphs)
+# --------------------------------------------------------------------------- #
+
+def _small_bf16_pipeline(device):
+    """A small bf16 pipeline whose heads the tensor-core kernels take (64
+    wide; ViT 104), bf16 towers."""
+    import dataclasses
+
+    from v2ap_torch import config as C
+    from v2ap_torch.models.clip_vit import CLIPVisionConfig
+    from v2ap_torch.models.t5 import T5Config
+    from v2ap_torch.pipelines.generate import V2APipeline
+
+    base = C.v2a_default()
+    cfg = base.replace(
+        model=dataclasses.replace(
+            base.model, dim=128, depth=2, heads=2, dim_text=128,
+            text_heads=2, text_depth=2, dim_frames=128, frames_heads=2,
+            dim_context=128, max_seq_len=512),
+        conditioning=dataclasses.replace(base.conditioning, feature_cache=False))
+    clip = CLIPVisionConfig(hidden_size=208, intermediate_size=416,
+                            num_layers=2, num_heads=2, image_size=56,
+                            projection_dim=128)
+    t5 = T5Config(vocab_size=1000, d_model=128, d_kv=64, d_ff=256,
+                  num_layers=2, num_heads=2)
+    return V2APipeline(cfg, seed=3, device=device, clip_config=clip,
+                       t5_config=t5, quantize_towers=False)
+
+
+def _sampler_inputs(pipe, b, n=192, n_valid=150, seed=0):
+    m = pipe.cfg.model
+    gen = torch.Generator(device=pipe.device).manual_seed(seed)
+    r = lambda *s: torch.randn(*s, generator=gen, device=pipe.device)
+    mask = (torch.arange(n, device=pipe.device)[None] < n_valid).repeat(b, 1)
+    return (r(b, n, m.num_channels), r(b, n, m.dim_text),
+            torch.rand(b, n, m.notes, generator=gen, device=pipe.device),
+            r(b, 8, m.dim_context).to(torch.bfloat16),
+            (torch.arange(8, device=pipe.device)[None] < 5).repeat(b, 1),
+            mask)
+
+
+def _eager(pipe, inputs, sampler):
+    x0, text, roll, ctx, cmask, mask = inputs
+    with torch.inference_mode():
+        return pipe.cfm.sample(x0, text_embed=text, frames_embed=roll,
+                               context=ctx, context_mask=cmask, mask=mask,
+                               sampler=sampler)
+
+
+def test_captured_sampler_is_bit_equal_to_eager(cuda):
+    """The pipeline's sampler on the card is one captured program per key;
+    a replay with new inputs gives the eager trajectory's bits, for the CFG
+    sampler, the few-step one and two restart passes; a replay calls no
+    wrapper (K1's counter stays 0) and the profiler's trace shows its K1
+    launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from v2ap_torch import config as C
+
+    pipe = _small_bf16_pipeline(cuda)
+    assert pipe.cfm.to_pred.weight.dtype == torch.bfloat16   # cast once
+    cfg_sampler = C.SamplerConfig(steps=6, cfg_strength=2.0)
+    few = C.SamplerConfig(steps=3, cfg_strength=0.0, sway_sampling=False)
+    for sampler in (cfg_sampler, few):
+        first = _sampler_inputs(pipe, 2, seed=1)
+        pipe._sample(*first, sampler)                    # captures
+        fa.reset_launch_counts()
+        second = _sampler_inputs(pipe, 2, seed=2)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            got = pipe._sample(*second, sampler)         # replays
+            torch.cuda.synchronize()
+        assert fa.launch_counts["flash_attention_packed"] == 0
+        k1 = sum(e.count for e in prof.key_averages()
+                 if "flash_fwd_sm90_kernel<64>" in e.key)
+        assert k1 == (sampler.steps - 1) * 4 * pipe.cfg.model.depth
+        assert torch.equal(got, _eager(pipe, second, sampler))
+    noises = torch.randn((1, 2, 192, pipe.cfg.model.num_channels),
+                         device=cuda)
+    x = _sampler_inputs(pipe, 2, seed=3)
+    got = pipe._sample_multipass(*x, cfg_sampler, noises, 2, 0.6)
+    with torch.inference_mode():
+        want = pipe.cfm.sample_multipass(
+            x[0], passes=2, restart_t=0.6, noises=noises, text_embed=x[1],
+            frames_embed=x[2], context=x[3], context_mask=x[4], mask=x[5],
+            sampler=cfg_sampler)
+    assert torch.equal(got, want)
+    assert len(pipe.graphs) == 3
+
+
+def test_new_batch_size_captures_a_second_program(cuda):
+    """Batch 1 and batch 3 at one bucket are two programs (batch 3 runs
+    padded to 4, its rows bit-equal to the eager sampler on the padded
+    batch); batch 4 replays batch 3's program and batch 1 its own (no new
+    capture)."""
+    from v2ap_torch import config as C
+    from v2ap_torch.utils.jitting import pad_batch
+
+    pipe = _small_bf16_pipeline(cuda)
+    sampler = C.SamplerConfig(steps=4, cfg_strength=2.0)
+    one = _sampler_inputs(pipe, 1, seed=4)
+    three = _sampler_inputs(pipe, 3, seed=5)
+    pipe._sample(*one, sampler)
+    assert len(pipe.graphs) == len(pipe.graphs.captures) == 1
+    got3 = pipe._sample(*three, sampler)
+    assert got3.shape[0] == 3
+    assert len(pipe.graphs) == len(pipe.graphs.captures) == 2
+    got4 = pipe._sample(*_sampler_inputs(pipe, 4, seed=7), sampler)
+    got1 = pipe._sample(*_sampler_inputs(pipe, 1, seed=6), sampler)
+    assert len(pipe.graphs.captures) == 2
+    assert torch.equal(got3, _eager(pipe, tuple(pad_batch(t, 4)
+                                                for t in three), sampler)[:3])
+    assert torch.equal(got4, _eager(pipe, _sampler_inputs(pipe, 4, seed=7),
+                                    sampler))
+    assert torch.equal(got1, _eager(pipe, _sampler_inputs(pipe, 1, seed=6),
+                                    sampler))
+
+
+def test_concurrent_callers_get_their_own_results(cuda):
+    """Threads sampling through one program at once (the HTTP server's
+    handlers) each get the eager result of their own inputs: a call's
+    copy into the static buffers, replay and output copy are not
+    interleaved with another's."""
+    import threading
+
+    from v2ap_torch import config as C
+
+    pipe = _small_bf16_pipeline(cuda)
+    sampler = C.SamplerConfig(steps=4, cfg_strength=2.0)
+    inputs = [_sampler_inputs(pipe, 2, seed=10 + i) for i in range(4)]
+    pipe._sample(*inputs[0], sampler)                 # capture first
+    got = {}
+
+    def work(i):
+        for _ in range(3):
+            got[i] = pipe._sample(*inputs[i], sampler)
+
+    threads = [threading.Thread(target=work, args=(i,)) for i in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    assert not any(t.is_alive() for t in threads)
+    torch.cuda.synchronize()
+    for i in range(4):
+        assert torch.equal(got[i], _eager(pipe, inputs[i], sampler)), i
+
+
+def test_failed_capture_raises_instead_of_running_eagerly(cuda):
+    """A velocity field that synchronises with the host cannot be captured:
+    the pipeline raises and keeps no program, it does not fall back to the
+    eager loop."""
+    from v2ap_torch import config as C
+    from v2ap_torch.models.cfm import CFM
+
+    class HostSyncingCFM(CFM):
+        def pred_head(self, x, *args, **kw):
+            float(x.abs().sum())                # a host sync
+            return super().pred_head(x, *args, **kw)
+
+    pipe = _small_bf16_pipeline(cuda)
+    pipe.cfm.__class__ = HostSyncingCFM
+    with pytest.raises(RuntimeError, match="capturing the program"):
+        pipe._sample(*_sampler_inputs(pipe, 1, seed=7),
+                     C.SamplerConfig(steps=3, cfg_strength=2.0))
+    assert len(pipe.graphs) == 0
+    torch.cuda.synchronize()

@@ -65,3 +65,32 @@ def test_training_sources_are_checked():
             "v2ap_torch/models/video2roll.py",
             "v2ap_torch/scripts/__init__.py",
             "v2ap_torch/scripts/probe_flash_bnhd.py"} <= checked
+
+
+def test_serving_sources_are_checked():
+    """The static check above and the import walk cover the batched-serving
+    slice: the captured sampler's helpers, the WAV files, long video, the
+    request batcher, the server and its examples, the int8 gate's reader
+    and the two entry points."""
+    checked = {p.relative_to(ROOT).as_posix()
+               for p in (ROOT / "v2ap_torch").rglob("*.py")}
+    assert {"v2ap_torch/utils/jitting.py",
+            "v2ap_torch/data/audio_io.py",
+            "v2ap_torch/pipelines/merge.py",
+            "v2ap_torch/serving/__init__.py",
+            "v2ap_torch/serving/batcher.py",
+            "v2ap_torch/serving/server.py",
+            "v2ap_torch/serving/examples.py",
+            "v2ap_torch/evaluation/int8_gate.py",
+            "v2ap_torch/predict.py",
+            "v2ap_torch/app.py"} <= checked
+
+
+@pytest.mark.parametrize("module", ["v2ap_torch.app", "v2ap_torch.predict"])
+def test_entry_points_parse_their_arguments(module):
+    """``python -m`` on each entry point starts without JAX and prints its
+    usage (importing it starts nothing: the work is under ``__main__``)."""
+    out = subprocess.run([sys.executable, "-m", module, "--help"], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "--tiny" in out.stdout and "--cpu" in out.stdout

@@ -1,8 +1,11 @@
 """v2ap_torch — the PyTorch / CUDA port of v2ap_tpu for NVIDIA Hopper.
 
 Grows slice by slice beside the JAX package, which stays the reference.
-This slice: V2A serving with an empty prompt — CLIP ViT-bigG over decoded
-frames, the 25-step CFG flow sampler over the tri-stream transformer, and
-EnCodec decode (``v2ap_torch.pipelines.generate.V2APipeline``). Attention
-runs a hand-written CUDA kernel (``v2ap_torch/csrc/flash_fwd.cu``).
+Serving: ``v2ap_torch.pipelines.generate.V2APipeline`` (V2A and V2P, with
+or without a prompt; ``generate``, ``generate_batch``, ``passes``), long
+videos (``pipelines.merge``), the HTTP server (``serving``, ``python -m
+v2ap_torch.app``) and the ``Predictor``; on the card the sampler runs as
+one captured CUDA graph per shape (``utils.jitting``). Training: the V2A
+step (``models.cfm.CFM.loss``, ``training.Trainer``). Attention runs the
+hand-written CUDA kernels of ``v2ap_torch/csrc/``.
 """

@@ -292,3 +292,75 @@ def interp_weights_piano(num_source: int, duration: float, length: int,
     w = (f - i0).astype(np.float32)
     w[i1 == i0] = 0.0
     return i0.astype(np.int32), i1.astype(np.int32), w
+
+
+# --------------------------------------------------------------------------- #
+# On-disk feature caches and muxing, in the JAX package's file formats
+# --------------------------------------------------------------------------- #
+
+def clip_feature_cache_path(video_path: str, encoder: str = "clip_vit") -> str:
+    suffix = {"clip_vit": ".generated.npz",
+              "clip_vit2": ".generated.clip_vit2.npz",
+              "clip_convnext": ".generated.clip_convnext.npz",
+              "dinov2": ".generated.dinov2.npz",
+              "mixed": ".generated.mixed.npz"}[encoder]
+    return video_path.replace(".mp4", suffix)
+
+
+def piano_frames_cache_path(video_path: str) -> str:
+    return video_path.replace(".mp4", ".generated_frames_raw.2.npz")
+
+
+def piano_roll_cache_path(video_path: str) -> str:
+    """Roll-probability cache: the (n, notes) roll Video2Roll gave."""
+    return video_path.replace(".mp4", ".generated_roll.npz")
+
+
+def save_feature_cache(path: str, features: np.ndarray, duration: float,
+                       tag: Optional[str] = None) -> None:
+    """``np.savez(path, features, duration[, tag=...])``; ``tag`` records
+    the numerics that produced the features so that a mode switch cannot
+    serve stale entries. A directory that cannot be written skips the
+    cache."""
+    try:
+        if tag is None:
+            np.savez(path, features, duration)
+        else:
+            np.savez(path, features, duration, tag=np.asarray(tag))
+    except OSError:
+        pass
+
+
+def load_feature_cache(path: str, tag: Optional[str] = None
+                       ) -> Tuple[Optional[np.ndarray], Optional[float]]:
+    """(features, duration), or (None, None) when the file is missing or,
+    with ``tag`` given, was written under another tag (or none).
+    ``tag=None`` accepts any entry (the precision-independent raw strips)."""
+    if not os.path.exists(path):
+        return None, None
+    data = np.load(path)
+    if tag is not None:
+        stored = str(data["tag"]) if "tag" in data.files else None
+        if stored != tag:
+            return None, None
+    return data["arr_0"], float(data["arr_1"])
+
+
+def mux_audio_onto_video(video_path: str, audio: np.ndarray, sr: int,
+                         out_path: str) -> bool:
+    """Write the audio to ``<out_path stem>.wav``, then put it onto the
+    video with ffmpeg when one is installed. Returns whether ``out_path``
+    was written; without ffmpeg only the wav is."""
+    import shutil
+    import subprocess
+
+    from v2ap_torch.data.audio_io import write_wav
+
+    ffmpeg = shutil.which("ffmpeg")
+    wav_path = os.path.splitext(out_path)[0] + ".wav"
+    write_wav(wav_path, audio, sr)
+    if ffmpeg is None:
+        return False
+    cmd = [ffmpeg, "-y", "-i", video_path, "-i", wav_path, "-c:v", "copy",
+           "-map", "0:v:0", "-map", "1:a:0", "-shortest", out_path]
+    return subprocess.run(cmd, capture_output=True).returncode == 0

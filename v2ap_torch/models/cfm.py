@@ -1,8 +1,8 @@
 """Conditional flow-matching model over EnCodec latents: sampling and the
 V2A training loss.
 
-Counterpart of ``pred_head``, ``sample``, ``_make_cfg_fn`` and ``loss`` of
-``v2ap_tpu/models/cfm.py``:
+Counterpart of ``pred_head``, ``sample``, ``sample_multipass``,
+``_make_cfg_fn`` and ``loss`` of ``v2ap_tpu/models/cfm.py``:
 
   latents (b, n, 128)  --proj_in-->  audio stream
   CLIP frame embeds (b, n, 1280)     text stream (zeroed in the CFG null branch)
@@ -17,13 +17,16 @@ random draws come from one helper, ``draw_loss_randoms``, so that a caller
 can hand in values drawn elsewhere. ``with_video2roll=True`` builds the
 Video2Roll net that ``encode_frames`` runs (V2P serving; V2A feeds a zero
 roll). It defaults to False here, unlike JAX's True, because the V2P MIDI
-loss that would train it and ``sample_multipass`` are not ported yet.
+loss that would train it is not ported yet. ``sample_multipass`` takes its
+restart noise as a tensor (or draws it from a generator before the first
+step), so a whole multi-pass trajectory can be captured as one CUDA graph.
 """
 
 from __future__ import annotations
 
 from typing import Any, NamedTuple, Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -120,9 +123,13 @@ class CFM(nn.Module):
         self.video2roll = (Video2RollNet(num_classes=cfg.notes, dtype=dtype,
                                          device=device)
                            if with_video2roll else None)
-        # every dropout draws from one generator on the model's device
-        self.dropout_generator = torch.Generator(device=device)
-        self.dropout_generator.manual_seed(dropout_seed)
+        # every dropout draws from one generator on the model's device; a
+        # structure-only build on the meta device (create_model_zeros) has
+        # none, and its dropouts draw from the device's default generator
+        self.dropout_generator = None
+        if device.type != "meta":
+            self.dropout_generator = torch.Generator(device=device)
+            self.dropout_generator.manual_seed(dropout_seed)
         for m in self.modules():
             if isinstance(m, Dropout):
                 m.generator = self.dropout_generator
@@ -222,6 +229,50 @@ class CFM(nn.Module):
         out = euler_integrate(fn, x0.float(), ts, method=sampler.method)
         if cond is not None and cond_mask is not None:
             out = torch.where(cond_mask[..., None], cond, out)
+        return out
+
+    def sample_multipass(
+        self,
+        x0: torch.Tensor,                       # (b, n, C) gaussian noise
+        *,
+        passes: int = 2,
+        restart_t: float = 0.6,
+        refine_steps: Optional[int] = None,
+        noises: Optional[torch.Tensor] = None,  # (passes - 1, b, n, C)
+        generator: Optional[torch.Generator] = None,
+        text_embed: torch.Tensor,
+        frames_embed: torch.Tensor,
+        context: Optional[torch.Tensor],
+        context_mask: Optional[torch.Tensor],
+        mask: Optional[torch.Tensor],
+        sampler: SamplerConfig,
+        drop_prompt: Optional[torch.Tensor] = None,
+    ) -> torch.Tensor:
+        """Restart sampling: the full ODE pass, then ``passes - 1`` times
+        re-noise the result to ``restart_t`` along the flow path,
+        x = (1 - restart_t) noise + restart_t out, and integrate
+        restart_t -> 1 over ``refine_steps`` (default max(steps // 2, 2))
+        sway steps mapped onto [restart_t, 1]. Pass p's noise is
+        ``noises[p - 1]``; without ``noises`` all of them are drawn from
+        ``generator`` (float32, on x0's device) before the first step."""
+        if noises is None and passes > 1:
+            noises = torch.randn((passes - 1,) + tuple(x0.shape),
+                                 generator=generator, device=x0.device)
+        out = self.sample(x0, text_embed=text_embed, frames_embed=frames_embed,
+                          context=context, context_mask=context_mask,
+                          mask=mask, sampler=sampler, drop_prompt=drop_prompt)
+        fn = self._make_cfg_fn(
+            batch=x0.shape[0], text_embed=text_embed,
+            frames_embed=frames_embed, context=context,
+            context_mask=context_mask, mask=mask, sampler=sampler,
+            drop_prompt=drop_prompt)
+        steps = refine_steps or max(sampler.steps // 2, 2)
+        base = sway_timesteps(steps, sampler.sway_sampling)
+        # float32 as in JAX: restart_t + (1 - restart_t) * base
+        ts = np.float32(restart_t) + np.float32(1.0 - restart_t) * base
+        for p in range(1, passes):
+            x = (1.0 - restart_t) * noises[p - 1].float() + restart_t * out
+            out = euler_integrate(fn, x, ts, method=sampler.method)
         return out
 
     def _make_cfg_fn(self, *, batch, text_embed, frames_embed, context,

@@ -32,7 +32,10 @@ Pallas kernels the CUDA kernels take any sequence lengths (they mask the
 ragged edges themselves) and any strides with a contiguous last dim, so the
 serving bucket's 800 tokens, CLIP's 257, the 782 tokens of a training
 window and a short cross-attention context all run on them.
-``launch_counts`` counts kernel launches by kernel.
+``launch_counts`` counts kernel launches by kernel. A call made while its
+stream is being captured into a CUDA graph is not counted: it launches
+nothing, the graph launches its kernel at each replay, and what a replay
+launches shows only in a profiler's trace.
 
 The kernels are compiled with nvcc for sm_90a at first use into one
 library in ``build/v2ap_torch/`` (named by the sources' hash, so an edited
@@ -78,6 +81,13 @@ _TMA_BYTES = 16     # TMA's granule for base addresses and strides
 def reset_launch_counts() -> None:
     for name in launch_counts:
         launch_counts[name] = 0
+
+
+def count_launch(name: str) -> None:
+    """One launch of ``name``'s kernel, unless the current stream is being
+    captured (the call then only records the kernel into a graph)."""
+    if not torch.cuda.is_current_stream_capturing():
+        launch_counts[name] += 1
 
 
 # --------------------------------------------------------------------------- #
@@ -506,7 +516,7 @@ def attention_fwd_lse(q, k, v, kv_mask=None, *, softclamp=None, scale=None,
     out = _new_like_heads(q, None) if out is None else out
     lse = torch.empty((b, h, nq), dtype=torch.float32, device=q.device)
     _launch(q, k, v, kv_mask, out, lse, scale=scale, softclamp=softclamp)
-    launch_counts["flash_attention_lse"] += 1
+    count_launch("flash_attention_lse")
     return out, lse
 
 
@@ -521,7 +531,7 @@ def attention_bwd_dq(q, k, v, kv_mask, lse, delta, dout, *, softclamp=None,
     dq = _new_like_heads(q, None) if dq is None else dq
     _launch_bwd("dq", q, k, v, kv_mask, lse, delta, dout, (dq,),
                 scale=scale, softclamp=softclamp)
-    launch_counts["flash_attention_bwd_dq"] += 1
+    count_launch("flash_attention_bwd_dq")
     return dq
 
 
@@ -539,7 +549,7 @@ def attention_bwd_dkv(q, k, v, kv_mask, lse, delta, dout, *, softclamp=None,
     dv = _new_like_heads(v, None) if dv is None else dv
     _launch_bwd("dkv", q, k, v, kv_mask, lse, delta, dout, (dk, dv),
                 scale=scale, softclamp=softclamp)
-    launch_counts["flash_attention_bwd_dkv"] += 1
+    count_launch("flash_attention_bwd_dkv")
     return dk, dv
 
 
@@ -619,7 +629,7 @@ def flash_attention(
                                    scale=scale)
     out = _new_like_heads(q, None)
     _launch(q, k, v, kv_mask, out, scale=scale, softclamp=softclamp)
-    launch_counts["flash_attention"] += 1
+    count_launch("flash_attention")
     return out
 
 
@@ -651,5 +661,5 @@ def flash_attention_packed(
     out = _new_like_heads(q, heads)
     _launch(qh, kh, vh, kv_mask, _heads_view(out, heads, dim_head),
             scale=scale, softclamp=softclamp)
-    launch_counts["flash_attention_packed"] += 1
+    count_launch("flash_attention_packed")
     return out

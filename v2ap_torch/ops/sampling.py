@@ -3,7 +3,11 @@ the CFG parallel-component projection, and the training masks.
 
 Counterpart of ``v2ap_tpu/ops/sampling.py``. The JAX package runs the
 trajectory as one ``lax.scan``; here it is a Python loop over the same
-float32 grid.
+float32 grid, whose t and dt enter the kernels as Python floats. The loop
+makes no host synchronisation and no host-to-device copy, so a whole
+trajectory can be captured as one CUDA graph
+(``v2ap_torch.utils.jitting.CapturedPrograms``), the grid baked in as the
+static grid is baked into JAX's program.
 """
 
 from __future__ import annotations

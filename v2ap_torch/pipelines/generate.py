@@ -5,24 +5,42 @@ Counterpart of ``v2ap_tpu/pipelines/generate.py``:
 
   host:   video decode (cv2), or frames handed in through ``frames_cache``;
           for V2P also grayscale keyboard strips, decoded in the same pass
-          or handed in through ``strips_cache``
+          or handed in through ``strips_cache``; the tagged on-disk frame,
+          strip and roll caches beside the video (the JAX package's files)
   device: CLIP ViT-bigG over every ``frame_stride``-th frame, in chunks,
           blended linearly to the latent rate                   [K2 kernel]
   device: FLAN-T5 over a non-empty prompt (plain PyTorch attention)
   device: Video2Roll over 5-strip windows, the strips blended from every
           ``strip_stride``-th one (V2P)
-  device: 25-step sway-Euler CFM sampling, CFG batch-doubled    [K1 kernel]
+  device: 25-step sway-Euler CFM sampling, CFG batch-doubled, as one
+          captured CUDA graph per shape and sampler (``_sample``,
+          ``_sample_multipass``; restart passes for ``passes > 1``)
+                                                                [K1 kernel]
   device: EnCodec decode
 
-What is not ported yet raises ``NotImplementedError`` here rather than give
-a different result: a tokenizer path (the sentencepiece assets),
-``passes > 1``, int8 towers and the on-disk feature caches. The port reads no
-environment variables.
+``generate`` serves one clip, ``generate_batch`` several at one bucketed
+duration through one sampler call, ``generate_to_file`` writes the audio
+(muxed onto the video when ffmpeg is installed).
+
+The environment switches of the JAX pipeline that change its result are
+read as it reads them: ``V2AP_FRAME_STRIDE`` and ``V2AP_STRIP_STRIDE``
+override the config's strides (and tag the caches). What would change the
+result and is not ported raises
+``NotImplementedError`` rather than give another result: a tokenizer
+(``tokenizer_path``, or ``V2AP_T5_TOKENIZER`` naming an existing path: the
+sentencepiece / HF assets), int8 towers or CFM, and the wire-level
+shipping modes (``V2AP_SHIP_YUV420=1``, ``V2AP_SHIP_STRIP_HALF=1``).
+``quantize_towers=None`` means what it means in JAX: ``V2AP_INT8_TOWERS``
+if set (``0`` is bf16), else the int8 gate's persisted verdict, else int8;
+so the port serves (bf16 towers) only with ``quantize_towers=False`` or
+``V2AP_INT8_TOWERS=0``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import hashlib
+import os
 import time
 from typing import Optional, Sequence, Tuple
 
@@ -31,12 +49,15 @@ import torch
 
 from v2ap_torch.config import SamplerConfig, V2APConfig
 from v2ap_torch.data import video_io
+from v2ap_torch.evaluation.int8_gate import read_gate_default
 from v2ap_torch.models.cfm import CFM
 from v2ap_torch.models.clip_vit import device_normalize
 from v2ap_torch.models.encodec import EncodecConfig, EncodecModel
 from v2ap_torch.models.t5 import T5Encoder, flan_t5_large
 from v2ap_torch.models.video_towers import build_video_towers
 from v2ap_torch.utils.device import resolve_device, seeded_init
+from v2ap_torch.utils.jitting import (CapturedPrograms, batch_bucket,
+                                      cast_params, pad_batch)
 
 
 def bucket_length(n: int, bucket: int = 96) -> int:
@@ -67,6 +88,23 @@ class FallbackTokenizer:
         return ids, mask
 
 
+def _feature_tensor(feats: np.ndarray, device) -> torch.Tensor:
+    """Cached features as a tensor on ``device``: float32 as the port
+    writes them, or bf16 where the file holds the JAX package's bfloat16
+    (numpy reads its two-byte values as void)."""
+    if feats.dtype.kind == "V" and feats.dtype.itemsize == 2:
+        return torch.from_numpy(np.ascontiguousarray(feats).view(np.int16)
+                                ).view(torch.bfloat16).to(device)
+    return torch.from_numpy(np.ascontiguousarray(feats)).to(device)
+
+
+def _env_stride(name: str, default: int) -> int:
+    """A stride switch as the JAX pipeline reads it: the variable if set
+    and non-empty, else the config's value, at least 1."""
+    env = os.environ.get(name)
+    return max(1, int(env) if env else default)
+
+
 class V2APipeline:
     """Owns the model stack on one device (``device=None`` means CUDA)."""
 
@@ -75,25 +113,40 @@ class V2APipeline:
                  t5_config=None, clip_config=None, encodec_config=None,
                  quantize_towers: Optional[bool] = None,
                  quantize_cfm: Optional[bool] = None):
-        if tokenizer_path is not None:
+        env_tok = os.environ.get("V2AP_T5_TOKENIZER")
+        if tokenizer_path is not None or (env_tok and os.path.exists(env_tok)):
             raise NotImplementedError(
-                "tokenizer_path: the sentencepiece / HF tokenizer assets are "
-                "not supported yet; prompts go through FallbackTokenizer, "
-                "the JAX package's tokenizer when no assets are present")
+                f"tokenizer {tokenizer_path or env_tok!r}: the sentencepiece / "
+                "HF tokenizer assets are not supported yet; prompts go "
+                "through FallbackTokenizer, the JAX package's tokenizer when "
+                "no assets are present (unset V2AP_T5_TOKENIZER)")
         self.device = resolve_device(device)
         self.cfg = cfg = cfg or V2APConfig()
         cond = cfg.conditioning
+        if quantize_towers is None:
+            # the JAX pipeline's order: the variable, the gate file, int8
+            env = os.environ.get("V2AP_INT8_TOWERS")
+            if env is not None:
+                quantize_towers = env != "0"
+            else:
+                gate = read_gate_default()
+                quantize_towers = True if gate is None else gate
+        if quantize_cfm is None:
+            quantize_cfm = os.environ.get("V2AP_INT8_CFM", "0") == "1"
         if quantize_towers or quantize_cfm:
-            raise NotImplementedError("int8 towers / CFM are not ported yet; "
-                                      "the port serves bf16 towers")
-        if cond.feature_cache:
             raise NotImplementedError(
-                "on-disk feature caches are not ported yet; use "
-                "ConditioningConfig(feature_cache=False)")
+                "int8 towers / CFM are not ported yet; the port serves bf16 "
+                "towers: pass quantize_towers=False or set V2AP_INT8_TOWERS=0 "
+                "(with quantize_towers=None the JAX pipeline serves int8 "
+                "towers unless V2AP_INT8_TOWERS=0 or the int8 gate says no)")
+        for var in ("V2AP_SHIP_YUV420", "V2AP_SHIP_STRIP_HALF"):
+            if os.environ.get(var) == "1":
+                raise NotImplementedError(f"{var}=1: the wire-level shipping "
+                                          f"modes are not ported yet")
         # encode every frame_stride-th frame and blend between them; keyboard
         # strips likewise at strip_stride (1 = the reference's every frame)
-        self.frame_stride = max(1, cond.frame_stride)
-        self.strip_stride = max(1, cond.strip_stride)
+        self.frame_stride = _env_stride("V2AP_FRAME_STRIDE", cond.frame_stride)
+        self.strip_stride = _env_stride("V2AP_STRIP_STRIDE", cond.strip_stride)
         if encodec_config is None:
             encodec_config = EncodecConfig()
             if cfg.model.num_channels != encodec_config.hidden_size:
@@ -118,16 +171,34 @@ class V2APipeline:
                                          device=self.device)
         self.clip = self.towers[0].model
         self.clip_cfg = self.clip.cfg
-        # frozen encoders are stored bf16 when the model computes in bf16
+        # frozen encoders are stored bf16 when the model computes in bf16;
+        # the CFM keeps f32 parameters and stores bf16 copies of only the
+        # weights its bf16 layers cast on every call (the same values)
         if cfg.model.dtype == "bfloat16":
             for model in (self.t5, *(t.model for t in self.towers)):
                 model.to(torch.bfloat16)
+            cast_params(self.cfm, torch.bfloat16)
         for module in (self.cfm, self.codec, self.t5,
                        *(t.model for t in self.towers)):
             module.eval().requires_grad_(False)
         self.tokenize = FallbackTokenizer(self.t5_cfg.vocab_size)
+        # the sampler's captured programs (CUDA only; the CPU runs eagerly)
+        self.graphs = (CapturedPrograms() if self.device.type == "cuda"
+                       else None)
         self.last_timings: dict = {}
         self.last_roll: Optional[torch.Tensor] = None   # (n, notes), V2P
+
+    @property
+    def _tower_tag(self) -> str:
+        """The numerics tag of the frame-feature cache (JAX's, bf16 towers)."""
+        s = self.frame_stride
+        return "bf16" + (f"+s{s}" if s > 1 else "")
+
+    @property
+    def _roll_tag(self) -> str:
+        """The numerics tag of the roll cache (strip-stride blends apart)."""
+        ss = self.strip_stride
+        return "bf16" + (f"+ss{ss}" if ss > 1 else "")
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -135,6 +206,72 @@ class V2APipeline:
 
     def _to_device(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+    def _normal(self, seed: int, shape: tuple) -> torch.Tensor:
+        """Standard normal float32 ``shape`` on the device from a
+        ``torch.Generator`` seeded with ``seed`` (x0 from the call's seed,
+        restart noise from seed + 1)."""
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        return torch.randn(shape, generator=gen, device=self.device)
+
+    # --------------------------------------------------------------- sampler
+    def _run_sampler(self, key: tuple, run, inputs: tuple,
+                     warm_sampler: SamplerConfig,
+                     batch_dims: Sequence[int]) -> torch.Tensor:
+        """``run(*inputs)`` eagerly on the CPU; on CUDA as the captured
+        program of ``key`` plus the inputs' shapes and dtypes, warmed up
+        once with ``warm_sampler`` (a one-step trajectory: every operation
+        of the program at its shapes). There the batch (``batch_dims``: each
+        input's batch axis) is padded to ``batch_bucket`` rows by repeating
+        the last, and the output cut back: rows do not mix, so the padding
+        changes no row's maths."""
+        if self.graphs is None:
+            return run(*inputs)
+        b = inputs[0].shape[0]
+        size = batch_bucket(b)
+        inputs = tuple(pad_batch(t, size, d)
+                       for t, d in zip(inputs, batch_dims))
+        key = key + tuple(None if t is None else (tuple(t.shape), t.dtype)
+                          for t in inputs)
+        out = self.graphs.run(key, run, inputs,
+                              warmup=lambda *a: run(*a, sampler=warm_sampler))
+        return out[:b]
+
+    @torch.inference_mode()
+    def _sample(self, x0, text, frames_roll, ctx, ctx_mask, mask,
+                sampler: SamplerConfig) -> torch.Tensor:
+        """``CFM.sample`` over (b, n) latents: one captured program per
+        (batch bucket, shapes, dtypes, sampler), the counterpart of JAX's
+        ``nnx.jit`` with the sampler static."""
+        def run(x0, text, frames_roll, ctx, ctx_mask, mask, sampler=sampler):
+            return self.cfm.sample(x0, text_embed=text,
+                                   frames_embed=frames_roll, context=ctx,
+                                   context_mask=ctx_mask, mask=mask,
+                                   sampler=sampler)
+
+        return self._run_sampler(
+            ("sample", sampler), run,
+            (x0, text, frames_roll, ctx, ctx_mask, mask),
+            dataclasses.replace(sampler, steps=2), (0,) * 6)
+
+    @torch.inference_mode()
+    def _sample_multipass(self, x0, text, frames_roll, ctx, ctx_mask, mask,
+                          sampler: SamplerConfig, noises: torch.Tensor,
+                          passes: int, restart_t: float) -> torch.Tensor:
+        """``CFM.sample_multipass`` with its restart noise handed in
+        ((passes - 1, b, n, C), drawn before the program): one captured
+        program per (shapes, dtypes, sampler, passes, restart_t)."""
+        def run(x0, text, frames_roll, ctx, ctx_mask, mask, noises,
+                sampler=sampler):
+            return self.cfm.sample_multipass(
+                x0, passes=passes, restart_t=restart_t, noises=noises,
+                text_embed=text, frames_embed=frames_roll, context=ctx,
+                context_mask=ctx_mask, mask=mask, sampler=sampler)
+
+        return self._run_sampler(
+            ("multipass", sampler, passes, restart_t), run,
+            (x0, text, frames_roll, ctx, ctx_mask, mask, noises),
+            dataclasses.replace(sampler, steps=2), (0,) * 6 + (1,))
 
     # ------------------------------------------------------------ conditioning
     @torch.inference_mode()
@@ -148,10 +285,19 @@ class V2APipeline:
     def _encode_tower(self, tower, video_path: Optional[str], chunk: int,
                       frames_cache: list):
         """One tower's embeddings of every ``frame_stride``-th frame (on the
-        device) and the clip's duration. Decodes the video into
-        ``frames_cache`` unless it already holds (frames, duration, step),
-        with step 1 (full rate) or the frame stride."""
+        device) and the clip's duration. With ``feature_cache`` on and a
+        video path, a cache file of this tower and tag beside the video
+        answers instead, and a computed result is written there. Decodes
+        the video into ``frames_cache`` unless it already holds (frames,
+        duration, step), with step 1 (full rate) or the frame stride."""
         stride = self.frame_stride
+        cache = None
+        if self.cfg.conditioning.feature_cache and video_path is not None:
+            cache = video_io.clip_feature_cache_path(video_path, tower.name)
+            feats, duration = video_io.load_feature_cache(
+                cache, tag=self._tower_tag)
+            if feats is not None:
+                return _feature_tensor(feats, self.device), duration
         if not frames_cache:
             frames_cache.append(video_io.read_video_frames(video_path,
                                                            step=stride)
@@ -166,10 +312,14 @@ class V2APipeline:
         if stride > 1 and step == 1:
             frames = frames[::stride]
         px = tower.preprocess(frames)                 # uint8 geometry only
-        feats = [tower.model(device_normalize(
-                     self._to_device(px[i: i + chunk]), tower.mean, tower.std))
-                 for i in range(0, len(px), chunk)]
-        return torch.cat(feats), duration
+        feats = torch.cat([tower.model(device_normalize(
+            self._to_device(px[i: i + chunk]), tower.mean, tower.std))
+            for i in range(0, len(px), chunk)])
+        if cache is not None:
+            # float32 holds a bf16 feature exactly, and both packages read it
+            video_io.save_feature_cache(cache, feats.float().cpu().numpy(),
+                                        duration, tag=self._tower_tag)
+        return feats, duration
 
     @torch.inference_mode()
     def encode_video_frames_clip(self, video_path: Optional[str], length: int,
@@ -207,13 +357,20 @@ class V2APipeline:
                             frames_cache=None, strips_cache=None):
         """Full-rate grayscale keyboard strips resampled to the roll rate:
         uint8 (rows, H, W), or None when nothing decodes. The strips come
-        from ``strips_cache=[(uint8 (t, H, W) strips, duration)]``, else from
-        full-rate frames in ``frames_cache``, else from decoding
-        ``video_path`` (both of the latter need cv2)."""
+        from the strip cache beside the video (``feature_cache`` on), else
+        ``strips_cache=[(uint8 (t, H, W) strips, duration)]``, else
+        full-rate frames in ``frames_cache``, else decoding ``video_path``
+        (both of the latter need cv2); strips that did not come from the
+        cache are written to it."""
         cond = self.cfg.conditioning
-        strips = duration = None
-        if strips_cache:
+        cache = (video_io.piano_frames_cache_path(video_path)
+                 if cond.feature_cache and video_path is not None else None)
+        strips, duration = (video_io.load_feature_cache(cache)
+                            if cache is not None else (None, None))
+        if strips is None and strips_cache:
             strips, duration = strips_cache[0]
+            if strips is not None and cache is not None:
+                video_io.save_feature_cache(cache, strips, duration)
         if strips is None:
             frames = None
             if frames_cache:
@@ -228,33 +385,58 @@ class V2APipeline:
                 return None
             strips = video_io.piano_preprocess(frames, cond.piano_frame_w,
                                                cond.piano_frame_h)
+            if cache is not None:
+                video_io.save_feature_cache(cache, strips, duration)
+        if strips.ndim == 4:                  # caches store (t, h, w, 1)
+            strips = strips[..., 0]
+        if strips.dtype != np.uint8:          # older float caches
+            strips = np.clip(strips * 255.0, 0, 255).round().astype(np.uint8)
         idx = video_io.interp_indices_piano(
             len(strips), duration, length, video_multi=self.cfg.model.video_multi,
             sample_rate=cond.sampling_rate, frame_size=cond.frame_size)
         return strips[idx]
 
     def _decode_strips(self, video_path: Optional[str], frames_cache: list,
-                       strips_cache, strip_step: int):
-        """(uint8 strips of every ``strip_step``-th source frame, duration,
-        full-rate frame count). From ``strips_cache`` (full-rate strips,
-        taken at ``strip_step`` as the fused decoder would give them), else
-        by one decode of ``video_path`` that also puts RGB frames at the
-        frame stride into an empty ``frames_cache``. Raises if neither
-        gives strips: the pipeline never serves a zero roll."""
+                       strips_cache):
+        """(uint8 strips of every ``strip_stride``-th source frame, duration,
+        full-rate frame count), or None when nothing gives strips. From
+        ``strips_cache`` (full-rate strips, taken at the stride as the fused
+        decoder would give them), else by one decode of ``video_path`` that
+        also puts RGB frames at the frame stride into an empty
+        ``frames_cache``."""
+        ss = self.strip_stride
         if strips_cache:
             strips, duration = strips_cache[0]
-            return strips[::strip_step], duration, len(strips)
+            return strips[::ss], duration, len(strips)
+        if video_path is None:
+            return None
         cond = self.cfg.conditioning
         rgb, strips, duration, n_src = video_io.read_video_frames_and_strips(
             video_path, step=self.frame_stride, width=cond.piano_frame_w,
-            height=cond.piano_frame_h, strip_step=strip_step)
+            height=cond.piano_frame_h, strip_step=ss)
         if strips is None:
-            raise RuntimeError(f"piano=True: no keyboard strips decoded from "
-                               f"{video_path!r} (decoding needs cv2; pass "
-                               f"strips_cache=[(strips, duration)] instead)")
+            return None
         if not frames_cache:
             frames_cache.append((rgb, duration, self.frame_stride))
         return strips, duration, n_src
+
+    def _piano_strips(self, video_path: Optional[str], length: int,
+                      frames_cache: list, strips_cache, source=None):
+        """Keyboard strips for a roll of ``length`` rows, on the device, as
+        ``_roll_from_strips`` takes them, or None when nothing gives strips.
+        With ``source`` (``_decode_strips``'s result) at a strip stride above
+        1, the strided blend plan; otherwise the rows ``encode_piano_frames``
+        gives from the source's full-rate strips, the strip cache,
+        ``strips_cache``, ``frames_cache`` or a decode."""
+        if source is not None:
+            strips, dur, n_src = source
+            if self.strip_stride > 1:
+                return self._strided_strip_plan(strips, n_src, dur, length)
+            strips_cache = [(strips, dur)]
+        rows = self.encode_piano_frames(video_path, length,
+                                        frames_cache=frames_cache,
+                                        strips_cache=strips_cache)
+        return None if rows is None else self._ship_strips(rows)
 
     def _ship_strips(self, strips: np.ndarray) -> torch.Tensor:
         """uint8 strips (t, H, W) -> a (1, t, H, W) uint8 batch on the
@@ -288,6 +470,27 @@ class V2APipeline:
         return self.cfm.encode_frames(frames, n)
 
     # ---------------------------------------------------------------- generate
+    def _plan_length(self, dur_s: float) -> Tuple[float, int, int]:
+        """(duration_s, n_valid, n): valid latents and their 96-bucket under
+        the abs-pos ceiling (latents + registers fit max_seq_len)."""
+        cond = self.cfg.conditioning
+        sr = cond.sampling_rate
+        max_n = ((self.cfg.model.max_seq_len
+                  - self.cfg.model.num_registers) // 96) * 96
+        nv = min(int(round(dur_s * sr / cond.frame_size)), max_n)
+        return (min(dur_s, nv * cond.frame_size / sr), nv,
+                min(bucket_length(nv), max_n))
+
+    def _sampler(self, steps: int, cfg_strength: float,
+                 fewstep: Optional[int]) -> SamplerConfig:
+        """The 25-step sway CFG sampler, or ``fewstep`` uniform Euler steps
+        without CFG (the distilled-student mode)."""
+        if fewstep:
+            return SamplerConfig(steps=fewstep, cfg_strength=0.0,
+                                 sway_sampling=False)
+        return SamplerConfig(steps=steps, cfg_strength=cfg_strength,
+                             sway_sampling=True)
+
     @torch.inference_mode()
     def generate(
         self,
@@ -301,6 +504,7 @@ class V2APipeline:
         seed: int = 0,
         max_duration_s: float = 30.0,
         passes: int = 1,
+        restart_t: float = 0.6,
         fewstep: Optional[int] = None,
         frames_cache: Optional[list] = None,
         strips_cache: Optional[list] = None,
@@ -312,49 +516,58 @@ class V2APipeline:
         (step 1, or the frame stride). An empty prompt becomes a zero
         context of length 1 (the reference's dropped prompt); any other
         goes through T5. ``piano=True`` feeds keyboard strips through
-        Video2Roll: strips decoded from ``video_path`` with cv2, or handed in
-        as ``strips_cache=[(uint8 (t, 100, 900) full-rate strips,
-        duration_s)]``; without either it raises. With ``duration_s`` left
-        to the clip, strips are taken every ``strip_stride``-th and blended;
-        an explicit ``duration_s`` takes every strip, as in JAX.
+        Video2Roll: strips decoded from ``video_path`` with cv2, read from
+        the roll or strip cache beside it, or handed in as
+        ``strips_cache=[(uint8 (t, 100, 900) full-rate strips,
+        duration_s)]``; without any it raises. With ``duration_s`` left to
+        the clip, strips are taken every ``strip_stride``-th and blended; an
+        explicit ``duration_s`` takes every strip, as in JAX.
         ``fewstep=N`` runs N uniform Euler steps without CFG (the
-        distilled-student mode). ``x0`` is drawn from a ``torch.Generator``
-        seeded with ``seed``.
+        distilled-student mode). ``passes > 1`` refines by restart sampling
+        from ``restart_t``. x0 is drawn from a ``torch.Generator`` seeded
+        with ``seed``, the restart noise from one seeded with ``seed + 1``.
         """
-        if passes > 1:
-            raise NotImplementedError("passes > 1 (sample_multipass) is not "
-                                      "ported yet")
         if piano and not strips_cache and video_path is None:
             raise ValueError("piano=True needs keyboard strips: a video path "
                              "to decode or strips_cache=[(strips, duration)]")
         dev = self.device
         cond = self.cfg.conditioning
         sr = cond.sampling_rate
+        caching = cond.feature_cache and video_path is not None
         frames_cache = [] if frames_cache is None else frames_cache
         timings = {}
         t0 = time.perf_counter()
 
-        def plan_length(dur_s):
-            """(duration_s, n_valid, n) under the abs-pos ceiling."""
-            max_n = ((self.cfg.model.max_seq_len
-                      - self.cfg.model.num_registers) // 96) * 96
-            nv = min(int(round(dur_s * sr / cond.frame_size)), max_n)
-            return (min(dur_s, nv * cond.frame_size / sr), nv,
-                    min(bucket_length(nv), max_n))
-
-        n = strips_dev = None
+        n = strips_dev = roll_np = None
         if piano and duration_s is None:
-            # the strips decode with the frames; their duration plans n
-            ss = self.strip_stride
-            strips, dur, n_src = self._decode_strips(video_path, frames_cache,
-                                                     strips_cache, ss)
-            duration_s, n_valid, n = plan_length(min(dur or 10.0,
-                                                     max_duration_s))
-            if ss > 1:
-                strips_dev = self._strided_strip_plan(strips, n_src, dur, n)
-            else:
-                strips_dev = self._ship_strips(self.encode_piano_frames(
-                    video_path, n, strips_cache=[(strips, dur)]))
+            if caching:
+                # the roll cache skips the strips and Video2Roll altogether
+                roll_np, roll_dur = video_io.load_feature_cache(
+                    video_io.piano_roll_cache_path(video_path),
+                    tag=self._roll_tag)
+                if roll_np is not None:
+                    duration_s, n_valid, n = self._plan_length(
+                        min(roll_dur, max_duration_s))
+                    if len(roll_np) != n:         # another length bucket
+                        roll_np = duration_s = n = None
+            # strided strips never read the full-rate strip cache: its exact
+            # rolls would land under the strided roll tag
+            has_strip_cache = (self.strip_stride == 1 and caching
+                               and os.path.exists(
+                                   video_io.piano_frames_cache_path(video_path)))
+            if roll_np is None and not has_strip_cache:
+                # the strips decode with the frames; their duration plans n
+                source = self._decode_strips(video_path, frames_cache,
+                                             strips_cache)
+                if source is None:
+                    raise RuntimeError(
+                        f"piano=True: no keyboard strips decoded from "
+                        f"{video_path!r} (decoding needs cv2; pass "
+                        f"strips_cache=[(strips, duration)] instead)")
+                duration_s, n_valid, n = self._plan_length(
+                    min(source[1] or 10.0, max_duration_s))
+                strips_dev = self._piano_strips(video_path, n, frames_cache,
+                                                strips_cache, source)
         text_embed, video_duration = None, None
         if video_path is not None or frames_cache:
             probe_len = int(max_duration_s * sr / cond.frame_size)
@@ -364,10 +577,10 @@ class V2APipeline:
         timings["video_encode_s"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         if duration_s is None:
-            duration_s, n_valid, n = plan_length(
+            duration_s, n_valid, n = self._plan_length(
                 min(video_duration or 10.0, max_duration_s))
         elif n is None:
-            duration_s, n_valid, n = plan_length(duration_s)
+            duration_s, n_valid, n = self._plan_length(duration_s)
 
         b = 1
         tdim = self.cfg.model.dim_text_raw or self.cfg.model.dim_text
@@ -385,42 +598,145 @@ class V2APipeline:
             # context of length 1 equals the zeroed encoder output
             ctx = torch.zeros(b, 1, self.cfg.model.dim_context, device=dev)
             ctx_mask = torch.ones(b, 1, dtype=torch.bool, device=dev)
+        roll_cache_write = None
         if piano:
             t1 = time.perf_counter()
-            if strips_dev is None:      # explicit duration: every strip
-                strips = self.encode_piano_frames(
-                    video_path, n, frames_cache=frames_cache,
-                    strips_cache=strips_cache)
-                if strips is None:
-                    raise RuntimeError(f"piano=True: no keyboard strips from "
-                                       f"{video_path!r}")
-                strips_dev = self._ship_strips(strips)
-            frames_roll = self._roll_from_strips(strips_dev, n)
+            if roll_np is not None:                       # roll-cache hit
+                frames_roll = self._to_device(roll_np[None]).float()
+            else:
+                if strips_dev is None:  # explicit duration or the strip cache
+                    strips_dev = self._piano_strips(video_path, n,
+                                                    frames_cache, strips_cache)
+                    if strips_dev is None:
+                        raise RuntimeError(f"piano=True: no keyboard strips "
+                                           f"from {video_path!r}")
+                frames_roll = self._roll_from_strips(strips_dev, n)
+                if caching:
+                    # tagged by the path that made the roll: the exact path
+                    # can run at strip stride > 1 (explicit duration_s)
+                    tag = self._roll_tag
+                    if not isinstance(strips_dev, tuple):
+                        tag = tag.split("+ss")[0]
+                    roll_cache_write = (video_io.piano_roll_cache_path(
+                        video_path), duration_s, tag)
             self._sync()
             timings["roll_s"] = time.perf_counter() - t1
         else:
             frames_roll = torch.zeros(b, n, self.cfg.model.notes, device=dev)
         mask = torch.arange(n, device=dev)[None, :] < n_valid
-        gen = torch.Generator(device=dev).manual_seed(seed)
-        x0 = torch.randn(b, n, self.cfg.model.num_channels, generator=gen,
-                         device=dev)
+        x0 = self._normal(seed, (b, n, self.cfg.model.num_channels))
         timings["conditioning_s"] = time.perf_counter() - t0
 
         t0 = time.perf_counter()
-        if fewstep:
-            sampler = SamplerConfig(steps=fewstep, cfg_strength=0.0,
-                                    sway_sampling=False)
+        sampler = self._sampler(steps, cfg_strength, fewstep)
+        if passes > 1:
+            noises = self._normal(seed + 1, (passes - 1,) + tuple(x0.shape))
+            latents = self._sample_multipass(x0, text, frames_roll, ctx,
+                                             ctx_mask, mask, sampler, noises,
+                                             passes, restart_t)
         else:
-            sampler = SamplerConfig(steps=steps, cfg_strength=cfg_strength,
-                                    sway_sampling=True)
-        latents = self.cfm.sample(x0, text_embed=text, frames_embed=frames_roll,
-                                  context=ctx, context_mask=ctx_mask,
-                                  mask=mask, sampler=sampler)
+            latents = self._sample(x0, text, frames_roll, ctx, ctx_mask,
+                                   mask, sampler)
         self._sync()
         timings["sample_s"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         wav = self.codec.decode(latents[:, :n_valid]).cpu().numpy()
         timings["decode_s"] = time.perf_counter() - t0
+        if roll_cache_write is not None:
+            path, dur, tag = roll_cache_write
+            video_io.save_feature_cache(path, frames_roll[0].cpu().numpy(),
+                                        dur, tag=tag)
         self.last_timings = timings
         self.last_roll = frames_roll[0] if piano else None
         return wav[0, : int(duration_s * sr)], sr
+
+    @torch.inference_mode()
+    def generate_batch(
+        self,
+        video_paths: Sequence[Optional[str]],
+        prompts: Sequence[str],
+        *,
+        duration_s: float = 10.0,
+        steps: int = 25,
+        cfg_strength: float = 2.0,
+        piano: bool = False,
+        seed: int = 0,
+        fewstep: Optional[int] = None,
+        frames_caches: Optional[Sequence[Optional[list]]] = None,
+        strips_caches: Optional[Sequence[Optional[list]]] = None,
+        x0=None,
+    ) -> Tuple[np.ndarray, int]:
+        """Throughput mode: b clips ride the batch axis of ONE sampler call
+        at one bucketed duration. Returns ((b, samples) float32, 24000).
+
+        Clip i comes from ``video_paths[i]``, or decoded through
+        ``frames_caches[i]`` / ``strips_caches[i]`` (each as ``generate``'s
+        ``frames_cache`` / ``strips_cache``). A clip with no video, or one
+        that does not decode, gets zero features (and a zero roll), as in
+        JAX. Empty prompts get a zero context; if every prompt is empty T5
+        does not run. x0 is drawn from ``seed`` unless ``x0`` ((b, n, C)
+        float32) is given."""
+        dev = self.device
+        cond = self.cfg.conditioning
+        mcfg = self.cfg.model
+        sr = cond.sampling_rate
+        b = len(video_paths)
+        frames_caches = list(frames_caches or [None] * b)
+        strips_caches = list(strips_caches or [None] * b)
+        if not len(prompts) == len(frames_caches) == len(strips_caches) == b:
+            raise ValueError("video_paths, prompts, frames_caches and "
+                             "strips_caches need one entry per clip")
+        _, n_valid, n = self._plan_length(duration_s)
+        t0 = time.perf_counter()
+        tdim = mcfg.dim_text_raw or mcfg.dim_text
+        text = torch.zeros(b, n, tdim, device=dev)
+        frames_roll = torch.zeros(b, n, mcfg.notes, device=dev)
+        for i, vp in enumerate(video_paths):
+            decoded = list(frames_caches[i] or [])
+            if vp is None and not decoded and not strips_caches[i]:
+                continue
+            if piano:
+                # the strips decode first, with the frames the tower takes
+                strips_dev = self._piano_strips(
+                    vp, n_valid, decoded, strips_caches[i],
+                    self._decode_strips(vp, decoded, strips_caches[i]))
+                if strips_dev is not None:
+                    frames_roll[i] = self._roll_from_strips(strips_dev, n)[0]
+            if vp is not None or decoded:
+                feats, _ = self.encode_video_frames_clip(
+                    vp, n_valid, frames_cache=decoded)
+                if feats is not None:
+                    text[i, : len(feats)] = feats[:n]
+        if all(not p.strip() for p in prompts):
+            # every prompt dropped: a zero context of any length equals the
+            # zeroed T5 output (bias-free k/v), so T5 does not run
+            ctx = torch.zeros(b, 1, mcfg.dim_context, device=dev)
+            ctx_mask = torch.ones(b, 1, dtype=torch.bool, device=dev)
+        else:
+            eff = [p if p.strip() else "the sound of X X" for p in prompts]
+            drop = torch.tensor([not p.strip() for p in prompts], device=dev)
+            ctx, ctx_mask = self.encode_text(eff)
+            ctx = torch.where(drop[:, None, None], 0.0, ctx)
+        mask = (torch.arange(n, device=dev)[None, :] < n_valid).repeat(b, 1)
+        x0 = (self._normal(seed, (b, n, mcfg.num_channels)) if x0 is None
+              else torch.as_tensor(x0, dtype=torch.float32, device=dev))
+        self._sync()
+        timings = {"conditioning_s": time.perf_counter() - t0}
+        t0 = time.perf_counter()
+        latents = self._sample(x0, text, frames_roll, ctx, ctx_mask, mask,
+                               self._sampler(steps, cfg_strength, fewstep))
+        self._sync()
+        timings["sample_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        wavs = self.codec.decode(latents[:, :n_valid]).cpu().numpy()
+        timings["decode_s"] = time.perf_counter() - t0
+        self.last_timings = timings
+        return wavs[:, : int(duration_s * sr)], sr
+
+    def generate_to_file(self, video_path: str, out_path: str, **kw) -> str:
+        """``generate`` the video's audio and put it onto the video at
+        ``out_path`` with ffmpeg; without ffmpeg the audio is written to
+        ``<out_path stem>.wav`` only. Returns ``out_path``."""
+        wav, sr = self.generate(video_path, **kw)
+        video_io.mux_audio_onto_video(video_path, wav, sr, out_path)
+        return out_path

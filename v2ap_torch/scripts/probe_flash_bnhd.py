@@ -57,7 +57,7 @@ def flash_bnhd(q, k, v, kv_mask=None, *, softclamp=None, scale=None,
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     fa._launch(qh, kh, vh, kv_mask, fa._heads_view(out, h, dim_head),
                scale=scale, softclamp=softclamp)
-    fa.launch_counts["flash_bnhd"] += 1
+    fa.count_launch("flash_bnhd")
     return out
 
 
