@@ -121,10 +121,49 @@ Phases, each of which fails the run (exit 1, no result line) if it fails:
                K3, K4 and K5 must run 48 times each per step, K1 and K2
                not at all; loss and gradient norm finite; parameters and
                EMA moved. Median step time, audio-seconds per second, peak
-               memory;
+               memory. Then ``ModelConfig.remat`` on, policies "full" and
+               "dots", on the same trainer and batch: a warm-up step, a
+               timed one (wall, peak memory) and a profiled one (kernel
+               time, busy share, host-launched kernels); K3 must run twice
+               as often as without remat (the recompute runs each
+               attention again), K4 and K5 as often;
   15. train profile — CUDA time by kernel group over one more train step,
                failing as phase 6 does, and unless the tensor-core backward
-               (K4, K5 at d 64) ran and no CUDA-core backward kernel did.
+               (K4, K5 at d 64) ran and no CUDA-core backward kernel did;
+  16. corpus train — a seeded corpus under a temporary directory in the
+               default corpora's layout (10 s 24 kHz wavs in two .scp
+               manifests, one of sound effects; two vggsound rows and one
+               piano row whose .mp4 paths do not exist, with sibling wavs,
+               the piano row's .3.npy roll, and feature and strip caches
+               primed through the pipeline from seeded frames and strips,
+               since this machine has no cv2); ``TrainingPipeline`` over
+               v2a_default() with remat "dots" (the CLI's default), EMA and
+               a checkpoint every CORPUS_SAVE_STEP steps (one kept): ``fit``
+               takes one warm-up step and CORPUS_STEPS timed ones at batch
+               TRAIN_BATCH x 750 latents. Per step: the ``device_batch``
+               wall (EnCodec encode, T5, cache reads) and the train step's
+               apart, loss / flow / MIDI loss, launches; medians,
+               training audio-s per s, peak memory, each checkpoint's bytes
+               and seconds. Fails unless the losses are finite, a batch had
+               the piano row and its MIDI loss was nonzero, every video
+               row had CLIP features and the piano row strips, the
+               checkpoints were written at steps 3 and 6, metrics.jsonl
+               holds every step and heartbeat.json the last, each step
+               launched K3 96 times and K4, K5 48, and every flash backward
+               took the tensor-core route;
+  17. resume and serve — a fresh ``TrainingPipeline`` on the same work dir
+               resumes at step 6 with parameters, buffers, AdamW moments,
+               EMA and the dropout generator bit-equal to the pipeline that
+               saved them (restore seconds and bytes), then takes one step
+               on the next batch with the piano row, under the profiler
+               (kernel groups; fails as phase 15 does, or on a zero MIDI
+               loss);
+               ``save_model`` writes its EMA CFM to ``serve/cfm``; a fresh
+               serving pipeline (phase 5's configuration) must return
+               ["cfm"] from ``load_weights`` and generate, from phase 5's
+               frames and x0, latents and audio bit-equal to those of a
+               pipeline given the same float32 state before
+               ``cast_params``. The temporary directory is removed.
 
 The line before the last is a JSON object with one entry per kernel (K1-K5
 and P1; the launches of K1/K2 from the profiled V2A generate, K1's counted
@@ -140,8 +179,10 @@ import dataclasses
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 
@@ -174,6 +215,9 @@ TRAIN_BATCH = 8                    # TrainConfig.batch_size
 TRAIN_LATENTS = 750                # DataConfig.target_length, 10 s at 75 Hz
 TRAIN_CONTEXT = 16                 # prompt tokens, as scripts/bench_train.py
 TRAIN_STEPS = 5                    # timed full-width train steps (median)
+CORPUS_STEPS = 5                   # timed corpus train steps after a warm-up
+CORPUS_SAVE_STEP = 3               # checkpoints at steps 3 and 6
+CORPUS_WAVS = 4                    # 10 s wavs in each audio manifest
 TINY_STEPS = 20                    # tiny loss-falls check (scripts/train_smoke.py)
 BATCH = 4                          # clips of a generate_batch, HTTP requests
 BATCH_RUNS = 3                     # timed generate_batch calls (median)
@@ -726,7 +770,7 @@ def full_pipeline(torch, label: str, **conditioning):
         f"s (CFM {m(pipe.cfm) - (m(v2r) if v2r is not None else 0):.1f} M "
         f"params f32 + Video2Roll {m(v2r) if v2r is not None else 0:.1f} M "
         f"f32, ViT-bigG {m(pipe.clip):.1f} M bf16, FLAN-T5 encoder "
-        f"{m(pipe.t5):.1f} M bf16, EnCodec decoder {m(pipe.codec):.1f} M "
+        f"{m(pipe.t5):.1f} M bf16, EnCodec {m(pipe.codec):.1f} M "
         f"f32; frame stride {pipe.frame_stride}, strip stride "
         f"{pipe.strip_stride})")
     return pipe
@@ -1707,6 +1751,408 @@ def phase_train(torch, trainer, batch) -> dict:
     return counts
 
 
+def phase_train_remat(torch, trainer, batch, plain_counts: dict) -> None:
+    """The same trainer and batch with ``ModelConfig.remat`` on, per policy
+    ("full", "dots"): one warm-up step, one timed step (wall, peak memory,
+    launches) and one under the profiler (kernel time, busy share,
+    host-launched kernels). Each attention runs again in its layer's
+    recompute, so K3 must launch twice its count without remat; K4 and K5
+    as often as without."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from v2ap_torch.ops.flash_attention import (launch_counts,
+                                                reset_launch_counts)
+
+    model = trainer.model
+    base = model.cfg
+    expect = dict(plain_counts)
+    expect["flash_attention_lse"] *= 2
+    try:
+        for policy in ("full", "dots"):
+            model.cfg = model.transformer.cfg = dataclasses.replace(
+                base, remat=True, remat_policy=policy)
+            trainer.train_step(batch)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            loss, _ = trainer.train_step(batch)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = dict(launch_counts)
+            peak = torch.cuda.max_memory_allocated()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                trainer.train_step(batch)
+                torch.cuda.synchronize()
+                prof_wall = time.perf_counter() - t0
+            kernels = sum(e.device_time_total for e in kernel_rows(prof))
+            host = sum(e.count for e in prof.key_averages()
+                       if "LaunchKernel" in e.key)
+            log(f"  remat {policy}: step {wall:.4f} s (after one warm-up), "
+                f"peak memory {peak / 2**30:.2f} GiB, loss {loss.item():.4f}; "
+                f"launches {counts}; profiled step: {kernels / 1e3:.1f} ms "
+                f"of kernels in {prof_wall * 1e3:.1f} ms (busy "
+                f"{kernels / 1e6 / prof_wall:.1%}), {host} host-launched "
+                f"kernels")
+            if counts != expect or not np.isfinite(loss.item()):
+                raise RuntimeError(f"train remat {policy}: launches {counts} "
+                                   f"!= {expect} or non-finite loss")
+    finally:
+        model.cfg = model.transformer.cfg = base
+
+
+# --------------------------------------------------------------- phase 16
+
+def make_corpus(root: str) -> list:
+    """The seeded corpus under ``root``, in the default corpora's layout:
+    CORPUS_WAVS 10 s 24 kHz wavs in each of ``audioset_sl.scp`` and
+    ``bbc.scp`` (the sound effects), two rows of ``vggsound_train.scp`` and
+    one of ``piano_train.scp``, whose .mp4 paths do not exist: each has its
+    sibling .wav, the piano row its 88-key ``.3.npy`` roll at the latent
+    rate. Returns the video paths."""
+    import numpy as np
+
+    from v2ap_torch.data.audio_io import SAMPLE_RATE, write_wav
+
+    rng = np.random.default_rng(2)
+    n = int(CLIP_S * SAMPLE_RATE)
+
+    def wav(stem):
+        path = os.path.join(root, stem + ".wav")
+        write_wav(path, (rng.normal(size=n) * rng.uniform(0.05, 0.2)
+                         ).astype(np.float32))
+        return path
+
+    manifests = {
+        "audioset_sl.scp": [(wav(f"a{i}"), f"Sound {i}")
+                            for i in range(CORPUS_WAVS)],
+        "bbc.scp": [(wav(f"e{i}"), f"Effect {i}") for i in range(CORPUS_WAVS)],
+        "vggsound_train.scp": [], "piano_train.scp": []}
+    videos = []
+    for scp, stem, caption in (("vggsound_train.scp", "v0", "a dog barks"),
+                               ("vggsound_train.scp", "v1", "rain"),
+                               ("piano_train.scp", "p0", "a piano")):
+        wav(stem)
+        path = os.path.join(root, stem + ".mp4")
+        manifests[scp].append((path, caption))
+        videos.append(path)
+    np.save(os.path.join(root, "p0.3.npy"),
+            (rng.random((TRAIN_LATENTS, 88)) > 0.9).astype(np.float32))
+    for scp, rows in manifests.items():
+        with open(os.path.join(root, scp), "w") as f:
+            f.writelines(f"{p}\t{c}\n" for p, c in rows)
+    return videos
+
+
+def corpus_config():
+    """v2a_default() as the CLI trains it: remat "dots", TrainConfig
+    defaults with EMA and a checkpoint every CORPUS_SAVE_STEP steps."""
+    from v2ap_torch import config as C
+
+    cfg = C.v2a_default()
+    return cfg.replace(
+        model=dataclasses.replace(cfg.model, remat=True, remat_policy="dots"),
+        train=dataclasses.replace(cfg.train, use_ema=True,
+                                  save_step=CORPUS_SAVE_STEP))
+
+
+def prime_caches(pipe, videos: list) -> None:
+    """What a machine without cv2 needs: each video's tower features and the
+    piano video's keyboard strips written to the caches beside the (absent)
+    video from seeded decoded frames and strips, through the pipeline's own
+    ``frames_cache`` / ``strips_cache``."""
+    import numpy as np
+
+    rng = np.random.default_rng(3)
+    t = int(CLIP_S * FPS)
+    for path in videos:
+        frames = rng.integers(0, 256, (t, 224, 224, 3), dtype=np.uint8)
+        pipe.encode_video_frames_clip(path, TRAIN_LATENTS,
+                                      frames_cache=[(frames, CLIP_S, 1)])
+        if os.path.basename(path).startswith("p"):
+            strips = rng.integers(0, 256, (t, 100, 900), dtype=np.uint8)
+            pipe.encode_piano_frames(path, TRAIN_LATENTS,
+                                     strips_cache=[(strips, CLIP_S)])
+
+
+def phase_corpus_train(torch, root: str, device: str = "cuda") -> tuple:
+    """``TrainingPipeline(v2a_default())`` with the full towers, remat
+    "dots" and EMA on the seeded corpus: ``fit`` for one warm-up step and
+    CORPUS_STEPS timed ones (batch TRAIN_BATCH x 750 latents), checkpoints
+    at CORPUS_SAVE_STEP and its multiples (one kept). Each step's
+    ``device_batch`` (EnCodec encode, T5, cache reads) and train step are
+    timed apart; launches are counted per step and every flash backward's
+    kernel route recorded. Returns (the pipeline, the batcher)."""
+    import numpy as np
+
+    from v2ap_torch.data.dataset import TrainBatcher
+    from v2ap_torch.data.manifests import default_corpora, load_corpora
+    from v2ap_torch.ops import flash_attention as fa
+    from v2ap_torch.training.pipeline import TrainingPipeline
+
+    videos = make_corpus(root)
+    cfg = corpus_config()
+    t0 = time.perf_counter()
+    tp = TrainingPipeline(cfg, seed=0, work_dir=os.path.join(root, "run"),
+                          device=device)
+    tp.resumer.mgr.max_to_keep = 1
+    torch.cuda.synchronize()
+    log(f"  build: {time.perf_counter() - t0:.2f} s (CFM f32 trainable with "
+        f"Video2Roll, ViT-bigG and FLAN-T5 bf16, EnCodec f32); free disk "
+        f"under the work dir {shutil.disk_usage(root).free / 2**30:.1f} GiB")
+    t0 = time.perf_counter()
+    prime_caches(tp.pipe, videos)
+    log(f"  caches primed for {len(videos)} videos in "
+        f"{time.perf_counter() - t0:.2f} s")
+    samples = load_corpora(default_corpora(root))
+    batcher = TrainBatcher(samples, cfg.data, batch_size=TRAIN_BATCH, seed=0)
+
+    rec = {"db": [], "step": [], "counts": [], "loss": [], "frames": [],
+           "saves": [], "routes": {}}
+    device_batch, train_step = tp.device_batch, tp.trainer.train_step
+    maybe_save, bwd_plan = tp.resumer.maybe_save, fa.bwd_launch_plan
+
+    def timed_batch(batch):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = device_batch(batch)
+        torch.cuda.synchronize()
+        rec["db"].append(time.perf_counter() - t0)
+        for i, vp in enumerate(batch.video_paths):
+            if vp is not None and not out["text_embed"][i].any():
+                raise RuntimeError(f"corpus train: no CLIP features for {vp}")
+            if vp is not None and batch.piano[i] and not (
+                    "frames" in out and out["frames"][i].any()):
+                raise RuntimeError(f"corpus train: no strips for {vp}")
+        rec["frames"].append("frames" in out)
+        return out
+
+    def timed_step(batch, **kw):
+        torch.cuda.synchronize()
+        fa.reset_launch_counts()
+        t0 = time.perf_counter()
+        loss, bk = train_step(batch, **kw)
+        torch.cuda.synchronize()
+        rec["step"].append(time.perf_counter() - t0)
+        rec["counts"].append(dict(fa.launch_counts))
+        rec["loss"].append((loss.item(), float(bk.flow), float(bk.midi)))
+        if len(rec["step"]) == 1:            # the timed steps' peak from here
+            torch.cuda.reset_peak_memory_stats()
+        return loss, bk
+
+    def timed_save():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        saved = maybe_save()
+        if saved:
+            step = tp.trainer.step
+            path = tp.resumer.mgr.path(step)
+            rec["saves"].append((step, time.perf_counter() - t0,
+                                 os.path.getsize(path)))
+        return saved
+
+    def recorded_plan(q, k, v, dout, grads):
+        plan = bwd_plan(q, k, v, dout, grads)
+        rec["routes"][plan.route] = rec["routes"].get(plan.route, 0) + 1
+        return plan
+
+    tp.device_batch, tp.trainer.train_step = timed_batch, timed_step
+    tp.resumer.maybe_save = timed_save
+    fa.bwd_launch_plan = recorded_plan
+    try:
+        final = tp.fit(batcher, num_steps=1 + CORPUS_STEPS, log_every=1)
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        fa.bwd_launch_plan = bwd_plan
+        del tp.device_batch, tp.trainer.train_step, tp.resumer.maybe_save
+    for i, ((loss, flow, midi), fr, c) in enumerate(
+            zip(rec["loss"], rec["frames"], rec["counts"]), 1):
+        log(f"  step {i}: device_batch {rec['db'][i - 1]:.4f} s, train step "
+            f"{rec['step'][i - 1]:.4f} s; loss {loss:.4f} flow {flow:.4f} "
+            f"midi {midi:.4f}{' (piano row)' if fr else ''}; K3 "
+            f"{c['flash_attention_lse']} K4 {c['flash_attention_bwd_dq']} "
+            f"K5 {c['flash_attention_bwd_dkv']}")
+    per_layer = cfg.model.depth * 4
+    expect = dict.fromkeys(fa.launch_counts, 0)
+    expect.update(flash_attention_lse=2 * per_layer,
+                  flash_attention_bwd_dq=per_layer,
+                  flash_attention_bwd_dkv=per_layer)
+    db, st = (float(np.median(x[1:])) for x in (rec["db"], rec["step"]))
+    audio_s = TRAIN_BATCH * CLIP_S
+    split = {kind: [w for w, fr in zip(rec["step"][1:], rec["frames"][1:])
+                    if fr == piano] for kind, piano in (("with", True),
+                                                        ("without", False))}
+    log(f"  {CORPUS_STEPS} timed steps (after one warm-up): median "
+        f"device_batch {db:.4f} s + train step {st:.4f} s = "
+        f"{db + st:.4f} s a step, {audio_s / (db + st):.2f} training "
+        f"audio-s per s; train step median "
+        + ", ".join(f"{k} the piano row {np.median(v):.4f} s ({len(v)})"
+                    for k, v in split.items() if v)
+        + f"; peak memory {peak / 2**30:.2f} GiB; flash backward routes "
+        f"{rec['routes']}")
+    for step, secs, size in rec["saves"]:
+        log(f"  checkpoint at step {step}: {size / 2**30:.2f} GiB "
+            f"({size} bytes) written in {secs:.2f} s "
+            f"({size / secs / 2**30:.2f} GiB/s)")
+    work = tp.work_dir
+    metrics = [json.loads(x) for x in
+               open(os.path.join(work, "logs", "metrics.jsonl"))]
+    beat = json.load(open(os.path.join(work, "heartbeat.json")))
+    bad = []
+    if final != 1 + CORPUS_STEPS:
+        bad.append(f"fit ended at step {final}")
+    if not all(np.isfinite(x).all() for x in rec["loss"]):
+        bad.append("non-finite loss")
+    if not any(rec["frames"]) or not all(
+            midi > 0 for (_, _, midi), fr in zip(rec["loss"], rec["frames"])
+            if fr):
+        bad.append("no piano row, or a zero MIDI loss with one")
+    if [s for s, _, _ in rec["saves"]] != list(range(
+            CORPUS_SAVE_STEP, final + 1, CORPUS_SAVE_STEP)):
+        bad.append(f"checkpoints at {rec['saves']}")
+    if [m["step"] for m in metrics] != list(range(1, final + 1)) or \
+            beat["step"] != final:
+        bad.append(f"metrics {len(metrics)} records, heartbeat {beat}")
+    if any(c != expect for c in rec["counts"]):
+        bad.append(f"launches {rec['counts']} != {expect}")
+    if rec["routes"].get("cuda_core") or not rec["routes"].get("wgmma"):
+        bad.append(f"flash backward routes {rec['routes']}")
+    if bad:
+        raise RuntimeError("corpus train: " + "; ".join(bad))
+    return tp, batcher
+
+
+# --------------------------------------------------------------- phase 17
+
+def trainer_states_equal(torch, a, b) -> list:
+    """Names of the exact-state entries in which trainers ``a`` and ``b``
+    differ: parameters and buffers, EMA, dropout generator, AdamW moments,
+    step counts."""
+    sa, sb = a.state_dict(), b.state_dict()
+    diff = [f"model.{k}" for k, v in sa["model"].items()
+            if not torch.equal(v, sb["model"][k])]
+    diff += [f"ema.{k}" for k, v in sa["ema"].items()
+             if not torch.equal(v, sb["ema"][k])]
+    if not torch.equal(sa["rng"], sb["rng"]):
+        diff.append("rng")
+    oa, ob = sa["opt"]["adamw"]["state"], sb["opt"]["adamw"]["state"]
+    diff += [f"opt.{i}.{k}" for i, st in oa.items() for k, v in st.items()
+             if not torch.equal(v, ob[i][k])]
+    if len(oa) != len(ob) or sa["opt"]["count"] != sb["opt"]["count"] or \
+            sa["step"] != sb["step"]:
+        diff.append("opt / step counts")
+    return diff
+
+
+def phase_resume_and_serve(torch, held: dict, root: str, frames,
+                           device: str = "cuda") -> None:
+    """A fresh ``TrainingPipeline`` on phase 16's work dir resumes at its
+    last checkpoint, with the state of the pipeline that saved it, bit for
+    bit, and takes one step; ``save_model`` writes its EMA CFM to
+    ``serve/cfm``; a fresh serving pipeline (as phase 5's) loads it with
+    ``load_weights`` and generates from phase 5's frames and x0, bit-equal
+    (latents and waveform) to a pipeline given the same float32 state before
+    ``cast_params``."""
+    import numpy as np
+
+    from v2ap_torch.pipelines.generate import V2APipeline
+    from v2ap_torch.training.pipeline import TrainingPipeline
+    from v2ap_torch.utils.checkpoint import MODEL_FILE, save_model
+    from v2ap_torch.utils.jitting import cast_params
+
+    old = held.pop("pipe")
+    batcher = held.pop("batcher")
+    t0 = time.perf_counter()
+    tp = TrainingPipeline(corpus_config(), seed=0, work_dir=old.work_dir,
+                          device=device)
+    torch.cuda.synchronize()
+    build = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    step = tp.resumer.maybe_resume()
+    torch.cuda.synchronize()
+    restore = time.perf_counter() - t0
+    size = os.path.getsize(tp.resumer.mgr.path(step))
+    diff = trainer_states_equal(torch, old.trainer, tp.trainer)
+    log(f"  fresh pipeline {build:.2f} s; resumed at step {step} from "
+        f"{size / 2**30:.2f} GiB in {restore:.2f} s "
+        f"({size / restore / 2**30:.2f} GiB/s); state vs the saving "
+        f"pipeline: {'bit-equal' if not diff else diff[:5]}")
+    if step != old.trainer.step or diff:
+        raise RuntimeError(f"resume: step {step} vs {old.trainer.step}, "
+                           f"differs in {diff[:10]}")
+    del old
+    torch.cuda.empty_cache()
+    batch = tp.device_batch(next(b for b in batcher if any(b.piano)))
+    result = []
+
+    def step():
+        result.append(tp.trainer.train_step(batch))
+
+    phase_profile(torch, "corpus train step with the piano row", step,
+                  SM90_FWD[1:] + SM90_BWD)
+    loss, bk = result[0]
+    log(f"  the step after resume: step {tp.trainer.step}, loss "
+        f"{loss.item():.4f}, midi {float(bk.midi):.4f}")
+    if not (np.isfinite(loss.item()) and float(bk.midi) > 0):
+        raise RuntimeError("resume: non-finite loss or a zero MIDI loss")
+    tp.trainer.ema.copy_to(tp.pipe.cfm)
+    serve = os.path.join(root, "serve")
+    t0 = time.perf_counter()
+    save_model(os.path.join(serve, "cfm"), tp.pipe.cfm, step=tp.trainer.step)
+    secs = time.perf_counter() - t0
+    size = os.path.getsize(os.path.join(serve, "cfm", MODEL_FILE))
+    log(f"  save_model(serve/cfm), the EMA CFM: {size / 2**30:.2f} GiB "
+        f"({size} bytes) in {secs:.2f} s")
+    del tp
+    torch.cuda.empty_cache()
+
+    def generate(pipe):
+        latents = []
+        decode = pipe.codec.decode
+        pipe.codec.decode = lambda z: latents.append(z.clone()) or decode(z)
+        wav, _ = pipe.generate(None, steps=25, cfg_strength=2.0, seed=0,
+                               frames_cache=[(frames, CLIP_S, 1)])
+        return latents[0], wav
+
+    pipe = full_pipeline(torch, "V2A serving", frame_stride=1)
+    t0 = time.perf_counter()
+    loaded = pipe.load_weights(serve)
+    torch.cuda.synchronize()
+    log(f"  load_weights(serve) -> {loaded} in "
+        f"{time.perf_counter() - t0:.2f} s")
+    if loaded != ["cfm"]:
+        raise RuntimeError(f"load_weights gave {loaded}")
+    lat_a, wav_a = generate(pipe)
+    del pipe
+    torch.cuda.empty_cache()
+    state = torch.load(os.path.join(serve, "cfm", MODEL_FILE),
+                       map_location="cpu", weights_only=True,
+                       mmap=True)["state"]
+    base = corpus_config()
+    cfg = base.replace(
+        model=dataclasses.replace(base.model, remat=False),
+        conditioning=dataclasses.replace(base.conditioning,
+                                         feature_cache=False, frame_stride=1))
+    ref = V2APipeline(cfg, seed=0, device=device, quantize_towers=False,
+                      trainable_cfm=True)
+    ref.cfm.load_state_dict(state)
+    cast_params(ref.cfm, torch.bfloat16)
+    ref.cfm.eval().requires_grad_(False)
+    lat_b, wav_b = generate(ref)
+    del ref
+    torch.cuda.empty_cache()
+    same = torch.equal(lat_a, lat_b) and np.array_equal(wav_a, wav_b)
+    log(f"  generate from load_weights vs from the state before cast_params: "
+        f"latents {tuple(lat_a.shape)} and {wav_a.shape[0]} samples "
+        f"{'bit-equal' if same else 'DIFFER'} (max |latent diff| "
+        f"{(lat_a - lat_b).abs().max().item():.3e})")
+    if not same or not np.isfinite(wav_a).all():
+        raise RuntimeError("serve: load_weights differs from cast_params")
+
+
 # ------------------------------------------------------------------ main
 
 def main() -> int:
@@ -1736,7 +2182,7 @@ def main() -> int:
         "error", message="flex_attention called without torch.compile")
     t_start = time.perf_counter()
 
-    log(f"[1/15] build — card: {card_line()}")
+    log(f"[1/17] build — card: {card_line()}")
     log(f"  torch {torch.__version__} (CUDA {torch.version.cuda}), "
         f"{torch.cuda.get_device_name(0)}; f32 matmul and cuDNN TF32 off")
     t0 = time.perf_counter()
@@ -1746,18 +2192,18 @@ def main() -> int:
         f"{', '.join(src.name for src in fa._SOURCES)} in "
         f"{time.perf_counter() - t0:.2f} s")
 
-    log("[2/15] kernels vs plain versions (bf16 in, f32 reference)")
+    log("[2/17] kernels vs plain versions (bf16 in, f32 reference)")
     kern = phase_kernels(torch)
     kern.update(phase_train_kernels(torch))
     log_bwd_more(torch)
-    log("[3/15] P1 probe: packed (b, n, h*d) vs (b, h, n, d) + transposes")
+    log("[3/17] P1 probe: packed (b, n, h*d) vs (b, h, n, d) + transposes")
     kern["P1"] = phase_probe(torch)
-    log("[4/15] small f32 config: card vs CPU")
+    log("[4/17] small f32 config: card vs CPU")
     phase_small(torch)
     import numpy as np
 
     frames = clip_frames()
-    log("[5/15] full-width V2A generate (frame stride 1, empty prompt; the "
+    log("[5/17] full-width V2A generate (frame stride 1, empty prompt; the "
         "sampler as a captured program)")
     pipe = full_pipeline(torch, "V2A", frame_stride=1)
 
@@ -1767,7 +2213,7 @@ def main() -> int:
 
     phase_generate(torch, pipe, "V2A generate", generate_v2a,
                    generate_expect(pipe, len(frames)))
-    log("[6/15] V2A generate profile")
+    log("[6/17] V2A generate profile")
 
     def profiled(gen, check=None):
         def run():
@@ -1781,17 +2227,17 @@ def main() -> int:
     gen_counts = phase_profile(torch, "generate", profiled(generate_v2a),
                                SM90_FWD, generate_expect(pipe, len(frames)),
                                k1_expect(pipe))
-    log("[7/15] full-width sampler: captured programs vs eager, same inputs")
+    log("[7/17] full-width sampler: captured programs vs eager, same inputs")
     phase_captured(torch, pipe, frames)
-    log(f"[8/15] generate_batch: {BATCH} x 10 s clips, frames handed in")
+    log(f"[8/17] generate_batch: {BATCH} x 10 s clips, frames handed in")
     phase_generate_batch(torch, pipe, frames)
-    log(f"[9/15] generate_long: a {LONG_S:.0f} s clip in one batched call")
+    log(f"[9/17] generate_long: a {LONG_S:.0f} s clip in one batched call")
     phase_generate_long(torch, pipe)
-    log(f"[10/15] HTTP server: {BATCH} concurrent POST /v2a")
+    log(f"[10/17] HTTP server: {BATCH} concurrent POST /v2a")
     phase_http(torch, pipe)
     del pipe
     torch.cuda.empty_cache()
-    log("[11/15] full-width V2P generate with a prompt (v2a_default(): frame "
+    log("[11/17] full-width V2P generate with a prompt (v2a_default(): frame "
         "stride 3, strip stride 2; FLAN-T5-large, Video2Roll)")
     pipe = full_pipeline(torch, "V2P")
     strips = np.random.default_rng(1).integers(
@@ -1811,19 +2257,20 @@ def main() -> int:
     roll = pipe.last_roll
     log(f"  roll {tuple(roll.shape)}: min {roll.min().item():.4f}, max "
         f"{roll.max().item():.4f}, mean {roll.mean().item():.4f}")
-    log("[12/15] V2P generate profile")
+    log("[12/17] V2P generate profile")
     phase_profile(torch, "V2P generate", profiled(generate_v2p, check_roll),
                   SM90_FWD, generate_expect(pipe, len(frames)),
                   k1_expect(pipe))
     del pipe, roll
     torch.cuda.empty_cache()
-    log("[13/15] small train: tiny_test() card vs CPU, then "
+    log("[13/17] small train: tiny_test() card vs CPU, then "
         f"{TINY_STEPS} steps")
     phase_small_train(torch)
-    log("[14/15] full-width V2A train step")
+    log("[14/17] full-width V2A train step, then with remat full and dots")
     trainer, batch = full_trainer(torch)
     train_counts = phase_train(torch, trainer, batch)
-    log("[15/15] train-step profile")
+    phase_train_remat(torch, trainer, batch, train_counts)
+    log("[15/17] train-step profile")
 
     def train_once():
         loss, _ = trainer.train_step(batch)
@@ -1831,6 +2278,19 @@ def main() -> int:
             raise RuntimeError("train profile: non-finite loss")
 
     phase_profile(torch, "train step", train_once, SM90_FWD[1:] + SM90_BWD)
+    del trainer, batch, train_once
+    torch.cuda.empty_cache()
+    root = tempfile.mkdtemp(prefix="v2ap_chip_smoke_")
+    try:
+        log("[16/17] train from corpora: TrainingPipeline(v2a_default()), "
+            f"remat dots, EMA, batch {TRAIN_BATCH} x {TRAIN_LATENTS}")
+        tp, batcher = phase_corpus_train(torch, root)
+        log("[17/17] resume, save the EMA CFM, load_weights, generate")
+        held = {"pipe": tp, "batcher": batcher}
+        del tp, batcher
+        phase_resume_and_serve(torch, held, root, frames)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
 
     main_case = {"K1": "K1 self-attn (2, 800, 16x64)",
                  "K2": "K2 ViT-bigG (64, 16, 257, 104)",

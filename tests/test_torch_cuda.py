@@ -10,7 +10,8 @@ file imports no JAX, so it runs on a machine that has only PyTorch:
     python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_cuda.py
 
 (``--noconftest`` skips ``tests/conftest.py``, which sets up JAX for the
-rest of the suite.)
+rest of the suite.) The last tests check the training slice on the card:
+remat against no remat in bf16 and the checkpoint round trip.
 
 Tolerances, against the plain version computed in float32 from the same
 inputs: float32 1e-5 max abs (summation order only); bfloat16 1e-2 max abs
@@ -650,7 +651,7 @@ def test_concurrent_callers_get_their_own_results(cuda):
 def test_failed_capture_raises_instead_of_running_eagerly(cuda):
     """A velocity field that synchronises with the host cannot be captured:
     the pipeline raises and keeps no program, it does not fall back to the
-    eager loop."""
+    eager loop; the device's default generator draws again afterwards."""
     from v2ap_torch import config as C
     from v2ap_torch.models.cfm import CFM
 
@@ -666,3 +667,122 @@ def test_failed_capture_raises_instead_of_running_eagerly(cuda):
                      C.SamplerConfig(steps=3, cfg_strength=2.0))
     assert len(pipe.graphs) == 0
     torch.cuda.synchronize()
+    state = torch.cuda.get_rng_state(cuda)
+    a = torch.randn(4, device=cuda)
+    torch.cuda.set_rng_state(state, cuda)
+    assert torch.equal(torch.randn(4, device=cuda), a)
+
+
+def _v2p_batch(cfg, b=2, n=24, nc=6, seed=5):
+    """A V2P batch on the card: ragged lens and context, keyboard strips
+    at the roll rate, a binary ground-truth roll."""
+    rng = np.random.default_rng(seed)
+    r = lambda *s: torch.from_numpy(rng.normal(size=s).astype(np.float32))
+    return {"latents": r(b, n, cfg.num_channels),
+            "lens": torch.tensor([n, n - 5]),
+            "text_embed": r(b, n, cfg.dim_text),
+            "context": r(b, nc, cfg.dim_context),
+            "context_mask": torch.arange(nc)[None] < torch.tensor([[nc], [3]]),
+            "frames": torch.from_numpy(rng.random(
+                (b, n // 3 + 1, 100, 900)).astype(np.float32)),
+            "midis": torch.from_numpy(
+                (rng.random((b, n, cfg.notes)) > 0.7).astype(np.float32))}
+
+
+@pytest.mark.parametrize("policy", ["full", "dots"])
+def test_remat_gradients_equal_no_remat_in_bf16(cuda, policy):
+    """A bf16 V2P loss at dropout 0.1 on the card: remat gives the loss and
+    gradients of the same step without it (the recompute draws the
+    forward's dropout masks from the CFM's CUDA generator), within 1e-5 of
+    each gradient's scale (the embedding's and convolutions' backward sum
+    with atomics in any order; cuDNN deterministic otherwise), and
+    launches K3 twice as often, K4 and K5 as often."""
+    import dataclasses
+
+    from v2ap_torch import config as C
+    from v2ap_torch.models.cfm import CFM, draw_loss_randoms
+
+    base = C.tiny_test()
+    cfg = dataclasses.replace(base.model, dtype="bfloat16", dropout=0.1)
+    torch.manual_seed(0)
+    plain = CFM(cfg, base.conditioning, with_video2roll=True, device=cuda)
+    remat = CFM(dataclasses.replace(cfg, remat=True, remat_policy=policy),
+                base.conditioning, with_video2roll=True, device=cuda)
+    remat.load_state_dict(plain.state_dict())
+    batch = {k: v.to(cuda) for k, v in _v2p_batch(cfg).items()}
+    b, n, c = batch["latents"].shape
+    draws = draw_loss_randoms(b, n, c, base.conditioning.frac_lengths_mask,
+                              generator=torch.Generator().manual_seed(1),
+                              device=cuda)
+    out = {}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for name, model in (("plain", plain), ("remat", remat)):
+            model.dropout_generator.manual_seed(9)
+            fa.reset_launch_counts()
+            loss = model.loss(batch["latents"], lens=batch["lens"],
+                              text_embed=batch["text_embed"],
+                              context=batch["context"],
+                              context_mask=batch["context_mask"],
+                              frames=batch["frames"], midis=batch["midis"],
+                              draws=draws).loss
+            loss.backward()
+            torch.cuda.synchronize()
+            out[name] = (loss.item(), dict(fa.launch_counts),
+                         {k: p.grad for k, p in model.named_parameters()
+                          if p.grad is not None},
+                         model.dropout_generator.get_state())
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    (l0, c0, g0, s0), (l1, c1, g1, s1) = out["plain"], out["remat"]
+    assert np.isfinite(l0) and l1 == pytest.approx(l0, rel=1e-6)
+    assert torch.equal(s0, s1)
+    assert c1 == {**c0, "flash_attention_lse": 2 * c0["flash_attention_lse"]}
+    assert c0["flash_attention_lse"] == 4 * cfg.depth
+    assert set(g0) == set(g1) and any(k.startswith("video2roll") for k in g0)
+    for k, g in g0.items():
+        tol = 1e-5 * max(1.0, g.abs().max().item())
+        assert (g1[k] - g).abs().max().item() <= tol, k
+
+
+def test_checkpoint_round_trip_on_cuda(cuda, tmp_path):
+    """Two V2P steps of a bf16 tiny trainer with EMA on the card, a
+    checkpoint, a fresh trainer restored from it: parameters, buffers, AdamW
+    moments and count, EMA and the CUDA dropout generator bit-equal, and
+    the next step finite."""
+    import dataclasses
+
+    from v2ap_torch import config as C
+    from v2ap_torch.models.cfm import CFM
+    from v2ap_torch.training import Trainer
+    from v2ap_torch.utils.checkpoint import CheckpointManager
+
+    base = C.tiny_test()
+    cfg = dataclasses.replace(base.model, dtype="bfloat16")
+    tcfg = C.TrainConfig(learning_rate=1e-3, warmup_steps=2, use_ema=True)
+    torch.manual_seed(0)
+    trainer = Trainer(CFM(cfg, base.conditioning, with_video2roll=True,
+                          device=cuda), tcfg)
+    batch = _v2p_batch(cfg)
+    for _ in range(2):
+        trainer.train_step(batch)
+    mgr = CheckpointManager(str(tmp_path / "ckpts"), max_to_keep=1)
+    mgr.save(trainer.step, trainer)
+    torch.manual_seed(1)
+    fresh = Trainer(CFM(cfg, base.conditioning, with_video2roll=True,
+                        device=cuda), tcfg)
+    assert mgr.restore(fresh) == 2 == fresh.step
+    a, b = trainer.state_dict(), fresh.state_dict()
+    for k, v in a["model"].items():
+        assert v.is_cuda and torch.equal(v, b["model"][k]), k
+    for k, v in a["ema"].items():
+        assert torch.equal(v, b["ema"][k]), k
+    assert torch.equal(a["rng"], b["rng"])
+    assert fresh.model.dropout_generator.device.type == "cuda"
+    for i, st in a["opt"]["adamw"]["state"].items():
+        for k, v in st.items():
+            assert torch.equal(v, b["opt"]["adamw"]["state"][i][k]), (i, k)
+    assert a["opt"]["count"] == b["opt"]["count"] == 2
+    loss, _ = fresh.train_step(batch)
+    assert torch.isfinite(loss)

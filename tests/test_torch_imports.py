@@ -11,7 +11,7 @@ import pytest
 import torch
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "flax", "v2ap_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "v2ap_tpu")
 
 
 def test_port_loads_no_jax_modules():
@@ -84,6 +84,31 @@ def test_serving_sources_are_checked():
             "v2ap_torch/evaluation/int8_gate.py",
             "v2ap_torch/predict.py",
             "v2ap_torch/app.py"} <= checked
+
+
+def test_training_pipeline_sources_are_checked():
+    """The static check and the import walk cover the training slice: the
+    data layer, the pipeline, resilience, checkpoints, observability and
+    the train entry point."""
+    checked = {p.relative_to(ROOT).as_posix()
+               for p in (ROOT / "v2ap_torch").rglob("*.py")}
+    assert {"v2ap_torch/data/dataset.py",
+            "v2ap_torch/data/manifests.py",
+            "v2ap_torch/data/mixing.py",
+            "v2ap_torch/training/pipeline.py",
+            "v2ap_torch/training/resilience.py",
+            "v2ap_torch/utils/checkpoint.py",
+            "v2ap_torch/utils/observability.py",
+            "v2ap_torch/train.py"} <= checked
+
+
+def test_train_entry_point_parses_its_arguments():
+    """``python -m v2ap_torch.train --help`` starts without JAX."""
+    out = subprocess.run([sys.executable, "-m", "v2ap_torch.train", "--help"],
+                         cwd=ROOT, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "--corpora-root" in out.stdout and "--device" in out.stdout
 
 
 @pytest.mark.parametrize("module", ["v2ap_torch.app", "v2ap_torch.predict"])

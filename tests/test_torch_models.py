@@ -264,8 +264,7 @@ def test_encodec_decode_matches_jax():
     jcfg = j_encodec.EncodecConfig()
     jm = j_encodec.EncodecModel(jcfg, rngs=nnx.Rngs(0))
     tm = t_encodec.EncodecModel(t_encodec.EncodecConfig(), device="cpu")
-    with pytest.warns(UserWarning, match="encoder"):
-        load_jax_params(tm, flatten_jax(jm))
+    load_jax_params(tm, flatten_jax(jm))
     lat = np.random.default_rng(5).normal(
         size=(2, 11, jcfg.hidden_size)).astype(np.float32)
     ref = np.asarray(nnx.jit(lambda m, z: m.decode(z))(jm, lat))
@@ -363,10 +362,9 @@ def test_video_io_matches_jax(tmp_path):
 
 def test_load_jax_params_rejects_unknown_and_missing_keys(cfm_pair):
     _, tm, _, flat = cfm_pair
-    with pytest.warns(UserWarning, match="encoder.conv1.kernel"):
-        skipped = load_jax_params(
-            tm, {**flat, "encoder.conv1.kernel": np.zeros(3)})
-    assert skipped == ["encoder.conv1.kernel"]
+    # every JAX module is ported: a codec key has no place in a CFM
+    with pytest.raises(KeyError, match="no place"):
+        load_jax_params(tm, {**flat, "encoder.conv1.kernel": np.zeros(3)})
     # Video2Roll is ported: its keys need a CFM built with it
     with pytest.raises(KeyError, match="no place"):
         load_jax_params(tm, {**flat, "video2roll.fc.kernel": np.zeros(1)})

@@ -84,8 +84,7 @@ def pipelines():
     randomize_params_and_stats(jp.cfm.video2roll, 24)
     tp = _port_pipeline(_cfg(t_config))
     load_jax_params(tp.cfm, flatten_jax(jp.cfm))
-    with pytest.warns(UserWarning, match="encoder"):
-        load_jax_params(tp.codec, flatten_jax(jp.codec))
+    load_jax_params(tp.codec, flatten_jax(jp.codec))
     load_jax_params(tp.clip, flatten_jax(jp.clip))
     load_jax_params(tp.t5, flatten_jax(jp.t5))
     return jp, tp

@@ -46,9 +46,8 @@ B, N_LAT, NC = 2, 24, 4
 def test_train_config_matches_jax():
     assert dataclasses.asdict(t_config.TrainConfig()) == \
         dataclasses.asdict(j_config.TrainConfig())
-    for f in ("target_length", "min_target_length"):
-        assert getattr(t_config.DataConfig(), f) == \
-            getattr(j_config.DataConfig(), f)
+    assert dataclasses.asdict(t_config.DataConfig()) == \
+        dataclasses.asdict(j_config.DataConfig())
 
 
 # ------------------------------------------------------------ masks, dropout
@@ -451,15 +450,15 @@ def test_trainer_run_steps_and_calls_back():
 
 
 def test_unported_options_raise():
+    """DPO and FactorCL are not ported; the bf16 first moment and remat are
+    (tests/test_torch_training_v2p.py) and build."""
     with pytest.raises(NotImplementedError):
         t_trainer.make_train_step(t_config.TrainConfig(dpo=True))
     with pytest.raises(NotImplementedError):
         t_trainer.make_train_step(t_config.TrainConfig(contrastive=True))
-    with pytest.raises(NotImplementedError):
-        t_trainer.make_tx(t_config.TrainConfig(mu_bf16=True), [])
+    t_trainer.make_tx(t_config.TrainConfig(mu_bf16=True), [])
     _, tcfg = model_cfgs(remat=True)
-    with pytest.raises(NotImplementedError, match="remat"):
-        t_cfm.CFM(tcfg, device="cpu")
+    assert t_cfm.CFM(tcfg, device="cpu").transformer.cfg.remat
 
 
 def test_trainer_refuses_missing_cuda():

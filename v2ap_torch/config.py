@@ -1,8 +1,10 @@
 """Typed configuration for the PyTorch port.
 
-A copy of the fields of ``v2ap_tpu.config`` that the port's V2A/V2P serving
-and V2A training slices read (the port imports nothing of the JAX package). The field names,
-defaults and meanings are the JAX package's, so one configuration drives both.
+A copy of ``v2ap_tpu.config`` (the port imports nothing of the JAX
+package) without ``MeshConfig``, which belongs to parallelism, not ported
+yet. The field names, defaults and meanings are the JAX package's, so one
+configuration drives both, and ``V2APConfig.from_json`` reads what the JAX
+package's ``to_json`` writes (its ``mesh`` section must hold the defaults).
 ``ModelConfig.dtype`` is the compute dtype: matmul inputs are cast to it,
 parameters stay float32, norms and softmax run in float32.
 """
@@ -10,6 +12,7 @@ parameters stay float32, norms and softmax run in float32.
 from __future__ import annotations
 
 import dataclasses
+import json
 from dataclasses import dataclass, field
 from typing import Any, Optional, Tuple
 
@@ -64,7 +67,9 @@ class ModelConfig:
     # compute dtypes
     dtype: str = "bfloat16"
     param_dtype: str = "float32"
-    # per-layer activation recomputation: not ported (True raises)
+    # per-layer activation recomputation in training: "full" recomputes
+    # every activation of a tri-stream layer, "dots" saves the outputs of
+    # products without batch dimensions and recomputes the rest
     remat: bool = False
     remat_policy: str = "full"
     # every audio layer's time-cond projections as one stacked matmul
@@ -111,11 +116,19 @@ class ConditioningConfig:
 
 @dataclass(frozen=True)
 class DataConfig:
-    """The training window (the JAX package's DataConfig has the data
-    pipeline's other fields, which the port does not read yet)."""
+    """Training data pipeline (``v2ap_torch.data.dataset.TrainBatcher``)."""
 
     target_length: int = 750                   # 10 s of 75 Hz latents
     min_target_length: int = 750
+    hop_size: int = 320
+    sample_rate: int = 24_000
+    oversample_multi: int = 4                  # candidate oversampling factor
+    keep_last: int = 5                         # rows kept per oversampled batch
+    theta_ratio: float = 0.5                   # SE / non-SE corpus resampling ratio
+    clap_filter: bool = False
+    mix_augment: bool = True
+    num_workers: int = 8
+    seed: int = 0
 
 
 @dataclass(frozen=True)
@@ -128,11 +141,11 @@ class TrainConfig:
     batch_size: int = 8
     epochs: int = 10
     save_step: int = 2000
-    midi_loss_weight: float = 10.0             # not read: the V2P MIDI loss is not ported
-    mu_bf16: bool = False                      # not ported (True raises)
+    midi_loss_weight: float = 10.0             # weight of the V2P MIDI loss
+    mu_bf16: bool = False                      # bf16 AdamW first moment
     ema_decay: float = 0.999
     use_ema: bool = False
-    switch_ema_every: int = 0                  # not read by the port: call Trainer.switch_ema
+    switch_ema_every: int = 0                  # >0: TrainingPipeline.fit copies EMA -> model every N steps
     # DPO preference optimization: not ported (True raises)
     dpo: bool = False
     dpo_beta: float = 1.0
@@ -151,8 +164,52 @@ class V2APConfig:
     data: DataConfig = field(default_factory=DataConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
 
+    # ------------------------------------------------------------------ io
+    def to_dict(self) -> dict:
+        return dataclasses.asdict(self)
+
+    def to_json(self, **kw: Any) -> str:
+        return json.dumps(self.to_dict(), indent=2, **kw)
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "V2APConfig":
+        def build(klass, sub):
+            fields = {f.name for f in dataclasses.fields(klass)}
+            kwargs = {}
+            for k, v in sub.items():
+                if k not in fields:
+                    raise KeyError(f"unknown config key {klass.__name__}.{k}")
+                kwargs[k] = tuple(v) if isinstance(v, list) else v
+            return klass(**kwargs)
+
+        unknown = set(d) - {"model", "sampler", "conditioning", "data",
+                            "mesh", "train"}
+        if unknown:
+            raise KeyError(f"unknown config sections {sorted(unknown)}")
+        mesh = {k: v for k, v in d.get("mesh", {}).items()
+                if _MESH_DEFAULTS.get(k, object()) != v}
+        if mesh:
+            raise NotImplementedError(f"mesh {mesh}: parallelism is not "
+                                      f"ported yet")
+        return cls(
+            model=build(ModelConfig, d.get("model", {})),
+            sampler=build(SamplerConfig, d.get("sampler", {})),
+            conditioning=build(ConditioningConfig, d.get("conditioning", {})),
+            data=build(DataConfig, d.get("data", {})),
+            train=build(TrainConfig, d.get("train", {})),
+        )
+
+    @classmethod
+    def from_json(cls, s: str) -> "V2APConfig":
+        return cls.from_dict(json.loads(s))
+
     def replace(self, **sections: Any) -> "V2APConfig":
         return dataclasses.replace(self, **sections)
+
+
+# the JAX package's MeshConfig defaults: the one mesh section the port reads
+_MESH_DEFAULTS = {"data_axis": "data", "model_axis": "model",
+                  "data_parallel": -1, "model_parallel": 1}
 
 
 def v2a_default() -> V2APConfig:
@@ -165,6 +222,42 @@ def v2p_88key() -> V2APConfig:
     cfg = V2APConfig()
     return cfg.replace(model=dataclasses.replace(cfg.model, notes=88,
                                                  note_min=0, note_max=87))
+
+
+VARIANTS = ("crossatt", "crossatt6", "crossatt3", "crossatt3_2")
+
+
+def variant_preset(name: str) -> V2APConfig:
+    """One config per model variant, as the JAX package's:
+    ``crossatt`` (no piano-roll stream or Video2Roll), ``crossatt6``
+    (+ FactorCL), ``crossatt3`` (the shipped V2A + V2P model) and
+    ``crossatt3_2`` (88 keys)."""
+    cfg = V2APConfig()
+    if name == "crossatt":
+        return cfg.replace(
+            model=dataclasses.replace(cfg.model, video2roll=False))
+    if name == "crossatt6":
+        return cfg.replace(
+            model=dataclasses.replace(cfg.model, video2roll=False),
+            train=dataclasses.replace(cfg.train, contrastive=True))
+    if name == "crossatt3":
+        return cfg
+    if name == "crossatt3_2":
+        return v2p_88key()
+    raise ValueError(f"unknown variant {name!r}; expected one of {VARIANTS}")
+
+
+def tiny_tower_test() -> V2APConfig:
+    """tiny_test with stream widths matched to the tiny frozen towers
+    (``t5_tiny_test`` d_model 32, ``clip_tiny_test`` projection 16), the
+    config of the CPU-runnable ``--tiny`` entry points; training windows
+    shrink to fit the tiny max_seq_len."""
+    cfg = tiny_test()
+    return cfg.replace(
+        model=dataclasses.replace(
+            cfg.model, dim_text=16, dim_context=32, num_channels=8),
+        data=dataclasses.replace(cfg.data, target_length=96,
+                                 min_target_length=96))
 
 
 def tiny_test() -> V2APConfig:

@@ -1,21 +1,27 @@
-"""WAV files: read and write.
+"""Host-side audio IO: WAV decode and encode, resampling, normalisation,
+max-energy segment selection, length shaping.
 
-A copy of ``read_wav`` and ``write_wav`` of ``v2ap_tpu/data/audio_io.py``,
-what serving and the merge tools read and write: 16-, 24- and 32-bit PCM
-in, 16-bit PCM out, with the standard library's ``wave``. The JAX
-package's native decoder (``v2ap_tpu/native``) is not ported; its results
-are the same. Resampling, normalisation and segment selection belong to
-the training data layer and are not ported yet.
+A copy of ``v2ap_tpu/data/audio_io.py``: 16-, 24- and 32-bit PCM in,
+16-bit PCM out, with the standard library's ``wave``; scipy polyphase
+resampling to 24 kHz mono; mean removal and peak normalisation to 0.5; the
+max-energy window of ``target_frames`` hops by a prefix sum; short clips
+padded by repetition. The JAX package's native decoder and max-energy
+search (``v2ap_tpu/native``) are not ported; they give the same samples
+and the same window start.
 """
 
 from __future__ import annotations
 
+import math
 import os
 import wave
+from fractions import Fraction
 
 import numpy as np
 
 SAMPLE_RATE = 24_000
+HOP_SIZE = 320
+TARGET_FRAMES = 750          # 10 s of 75 Hz latent frames
 
 
 def read_wav(path: str) -> tuple[np.ndarray, int]:
@@ -51,3 +57,75 @@ def write_wav(path: str, audio: np.ndarray, sr: int = SAMPLE_RATE) -> None:
         w.setsampwidth(2)
         w.setframerate(sr)
         w.writeframes(pcm.T.tobytes())
+
+
+def resample(audio: np.ndarray, sr: int, target_sr: int = SAMPLE_RATE
+             ) -> np.ndarray:
+    """Polyphase resampling (ch, n) -> (ch, m)."""
+    if sr == target_sr:
+        return audio
+    from scipy.signal import resample_poly
+    frac = Fraction(target_sr, sr).limit_denominator(1000)
+    return resample_poly(audio, frac.numerator, frac.denominator,
+                         axis=-1).astype(np.float32)
+
+
+def normalize_wav(audio: np.ndarray) -> np.ndarray:
+    """Mean removal, then peak normalisation to 0.5."""
+    audio = audio - audio.mean()
+    audio = audio / (np.abs(audio[0]).max() + 1e-8)
+    return (audio * 0.5).astype(np.float32)
+
+
+def pad_or_repeat(audio: np.ndarray, length: int) -> np.ndarray:
+    """Tile short clips to fill ``length`` samples, truncate long ones."""
+    n = audio.shape[-1]
+    if n >= length:
+        return audio[..., :length]
+    reps = math.ceil(length / n)
+    return np.tile(audio, (1, reps))[..., :length]
+
+
+def frame_energy(audio: np.ndarray, hop: int = HOP_SIZE) -> np.ndarray:
+    """(1, n) -> per-hop mean |x| energies."""
+    n = audio.shape[-1] // hop
+    return np.abs(audio[0, : n * hop]).reshape(n, hop).mean(axis=1)
+
+
+def select_max_energy_segment(audio: np.ndarray, target_frames: int,
+                              hop: int = HOP_SIZE) -> np.ndarray:
+    """The ``target_frames``-hop window of the largest summed hop energy
+    (the first on a tie), by a prefix sum; shorter clips are padded by
+    repetition."""
+    total = audio.shape[-1] // hop
+    if total <= target_frames:
+        return pad_or_repeat(audio, target_frames * hop)
+    e = frame_energy(audio, hop)
+    csum = np.concatenate([[0.0], np.cumsum(e)])
+    window = csum[target_frames:] - csum[:-target_frames]   # sums of windows
+    start = int(np.argmax(window[: total - target_frames + 1]))
+    return audio[..., start * hop: (start + target_frames) * hop]
+
+
+def load_training_clip(path: str, target_frames: int = TARGET_FRAMES,
+                       val: bool = False,
+                       rng: np.random.Generator | None = None,
+                       ) -> np.ndarray | None:
+    """Decode, mix down to mono, resample to 24 kHz, normalise, then the
+    max-energy (train) or leading (val) window of ``target_frames`` hops.
+    Returns (1, n), or None for a file that does not decode or is silent or
+    not finite. ``rng`` is unused, as in JAX."""
+    try:
+        audio, sr = read_wav(path)
+    except Exception:
+        return None
+    audio = audio.mean(axis=0, keepdims=True) if audio.shape[0] > 1 else audio
+    audio = resample(audio, sr)
+    if not np.isfinite(audio).all() or np.abs(audio).max() < 1e-6:
+        return None
+    audio = normalize_wav(audio)
+    length = target_frames * HOP_SIZE
+    if val:
+        return pad_or_repeat(audio, length)
+    audio = pad_or_repeat(audio, max(length, audio.shape[-1]))
+    return select_max_energy_segment(audio, target_frames)

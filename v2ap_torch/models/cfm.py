@@ -1,5 +1,5 @@
 """Conditional flow-matching model over EnCodec latents: sampling and the
-V2A training loss.
+training loss (V2A, and V2P with the MIDI loss on the Video2Roll stream).
 
 Counterpart of ``pred_head``, ``sample``, ``sample_multipass``,
 ``_make_cfg_fn`` and ``loss`` of ``v2ap_tpu/models/cfm.py``:
@@ -12,12 +12,19 @@ Counterpart of ``pred_head``, ``sample``, ``sample_multipass``,
 
 Inference is Euler integration over a sway schedule with classifier-free
 guidance folded into one batch-doubled forward per step. Training is the
-span-masked flow-matching MSE with per-sample condition dropout; its seven
-random draws come from one helper, ``draw_loss_randoms``, so that a caller
-can hand in values drawn elsewhere. ``with_video2roll=True`` builds the
-Video2Roll net that ``encode_frames`` runs (V2P serving; V2A feeds a zero
-roll). It defaults to False here, unlike JAX's True, because the V2P MIDI
-loss that would train it is not ported yet. ``sample_multipass`` takes its
+span-masked flow-matching MSE with per-sample condition dropout, plus, when
+keyboard frames are given, the weighted MSE of Video2Roll's roll against
+the ground-truth roll (the MIDI loss, x ``midi_loss_weight``) and its
+precision / recall / F1 / accuracy; its seven random draws come from one
+helper, ``draw_loss_randoms``, so that a caller can hand in values drawn
+elsewhere. ``with_video2roll=True`` builds the Video2Roll net that
+``encode_frames`` runs (V2P; V2A feeds a zero roll). It defaults to False
+here, unlike JAX's True: the pipelines pass ``ModelConfig.video2roll``, as
+JAX's do, and a bare CFM for V2A builds no unused net. Under autograd with
+``ModelConfig.remat`` on, ``encode_frames`` runs Video2Roll over
+``V2R_REMAT_CHUNK`` windows at a time, each chunk recomputed in the
+backward: at a training batch of 8 x 251 windows of 5 x 100 x 900 its
+saved activations would otherwise take ~120 GiB. ``sample_multipass`` takes its
 restart noise as a tensor (or draws it from a generator before the first
 step), so a whole multi-pass trajectory can be captured as one CUDA graph.
 """
@@ -32,7 +39,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from v2ap_torch.config import ConditioningConfig, ModelConfig, SamplerConfig
-from v2ap_torch.models.transformer import TriStreamTransformer
+from v2ap_torch.models.transformer import TriStreamTransformer, remat
 from v2ap_torch.models.video2roll import Video2RollNet
 from v2ap_torch.ops.layers import Dropout, Linear
 from v2ap_torch.ops.sampling import (
@@ -40,6 +47,11 @@ from v2ap_torch.ops.sampling import (
     sway_timesteps,
 )
 from v2ap_torch.utils.device import resolve_device
+
+# Video2Roll windows per recomputed chunk in training under remat: ~65 MB of
+# saved activations a window in bf16 (counted by
+# tests/test_torch_training_v2p.py), ~8 GiB a chunk
+V2R_REMAT_CHUNK = 128
 
 
 class LossBreakdown(NamedTuple):
@@ -184,7 +196,13 @@ class CFM(nn.Module):
                + torch.arange(-half, w - half, device=frames.device)[None, :]
                ).clamp(0, t - 1)
         stacked = frames[:, idx].reshape(b * t, w, hh, ww)
-        probs = torch.sigmoid(self.video2roll(stacked).float())
+        if self.cfg.remat and torch.is_grad_enabled():
+            logits = torch.cat([
+                remat(self.video2roll, stacked[i: i + V2R_REMAT_CHUNK])
+                for i in range(0, b * t, V2R_REMAT_CHUNK)])
+        else:
+            logits = self.video2roll(stacked)
+        probs = torch.sigmoid(logits.float())
         probs = probs.reshape(b, t, self.cfg.notes)
         vm = self.cfg.video_multi
         if float(vm).is_integer():
@@ -332,19 +350,29 @@ class CFM(nn.Module):
         context_mask: Optional[torch.Tensor],   # (b, nc)
         generator: Optional[torch.Generator] = None,
         draws: Optional[LossDraws] = None,
-        frames: Optional[torch.Tensor] = None,
+        frames: Optional[torch.Tensor] = None,  # (b, t, H, W) in [0, 1]
+        midis: Optional[torch.Tensor] = None,   # (b, n, notes) gt roll
         times=None,                             # fixed times (val) or None
         x0: Optional[torch.Tensor] = None,      # coupled noise, else drawn
         val: bool = False,
+        midi_loss_weight: float = 10.0,
+        train_video_encoder: bool = True,
+        use_midi_gt: bool = False,
     ) -> CFMOutput:
-        """Flow-matching training objective for V2A (no keyboard frames):
-        span mask, x0 and t, w = (1-t) x0 + t x1 against the flow x1 - x0,
-        per-sample dropout of the audio condition, the CLIP stream (one draw
-        for the batch) and the prompt, dropout in the transformer unless
-        ``val``. The random values come from ``draws`` if given, else from
-        ``draw_loss_randoms`` on ``generator``."""
-        if frames is not None:
-            raise NotImplementedError("the V2P MIDI loss is not ported")
+        """Flow-matching training objective: span mask, x0 and t,
+        w = (1-t) x0 + t x1 against the flow x1 - x0, per-sample dropout of
+        the audio condition, the CLIP stream (one draw for the batch) and
+        the prompt, dropout in the transformer unless ``val``. The random
+        values come from ``draws`` if given, else from
+        ``draw_loss_randoms`` on ``generator``.
+
+        With keyboard ``frames`` and their ground-truth roll ``midis``,
+        Video2Roll's roll feeds the frames stream and the MIDI loss
+        sum(mask * |midis - 0.1| * (roll - midis)^2) / max(valid * notes, 1)
+        adds ``midi_loss_weight`` times itself to the total;
+        ``train_video_encoder=False`` feeds the ground truth instead and
+        adds no MIDI loss, ``use_midi_gt`` feeds the ground truth while
+        still training Video2Roll."""
         cc = self.cond_cfg
         b, n, c = x1.shape
         dev = x1.device
@@ -372,7 +400,21 @@ class CFM(nn.Module):
         flow = x1 - x0
         cond = (None if no_audio_cond
                 else torch.where(span_mask[..., None], 0.0, x1))
-        frames_embed = torch.zeros(b, n, self.cfg.notes, device=dev)
+        zero = torch.zeros((), device=dev)
+        loss_midi = pre = rec = f1 = acc = zero
+        if frames is None:
+            frames_embed = torch.zeros(b, n, self.cfg.notes, device=dev)
+        else:
+            midis_eff = midis.to(dev).float()
+            frames_embed = midis_eff
+            if train_video_encoder:
+                roll = self.encode_frames(frames.to(dev), n)
+                per = (roll - midis_eff) ** 2 * (midis_eff - 0.10).abs()
+                loss_midi = torch.where(mask[..., None], per, 0.0).sum() / \
+                    torch.clamp(mask.sum() * self.cfg.notes, min=1)
+                pre, rec, f1, acc = roll_metrics(roll, midis_eff, mask)
+                if not use_midi_gt:
+                    frames_embed = roll
 
         if not val:
             drop_audio = draws.drop_audio < cc.audiocond_drop_prob
@@ -396,7 +438,28 @@ class CFM(nn.Module):
         loss_flow = torch.where(span_mask[..., None], per, 0.0).sum() / \
             torch.clamp(span_mask.sum() * c, min=1)
         per_sample = (per.mean(-1) * span_mask).mean(-1)
-        zero = torch.zeros((), device=dev)
-        breakdown = LossBreakdown(loss_flow, zero, zero, zero, zero, zero)
-        return CFMOutput(loss_flow, pred, x0 + pred, breakdown,
-                         per_sample_flow=per_sample)
+        breakdown = LossBreakdown(loss_flow, loss_midi, pre, rec, f1, acc)
+        return CFMOutput(loss_flow + loss_midi * midi_loss_weight, pred,
+                         x0 + pred, breakdown, per_sample_flow=per_sample)
+
+
+def roll_metrics(probs: torch.Tensor, gt: torch.Tensor, mask: torch.Tensor):
+    """Precision, recall, F1 and accuracy of a roll at 25 Hz: rolls and
+    mask mean-pooled over 3 frames, a note on where the prediction is
+    >= 0.4 and the ground truth >= 0.5, pooled frames whose mask mean is
+    >= 0.99 counted; each 0 where its denominator is."""
+    b, t, f = probs.shape
+    t3 = (t // 3) * 3
+    p3 = probs[:, :t3].reshape(b, t3 // 3, 3, f).mean(dim=2)
+    g3 = gt[:, :t3].reshape(b, t3 // 3, 3, f).mean(dim=2)
+    m3 = (mask[:, :t3].reshape(b, t3 // 3, 3).float().mean(dim=2)
+          >= 0.99)[..., None]
+    tp = ((p3 >= 0.4) & (g3 >= 0.5) & m3).sum().float()
+    fp = ((p3 >= 0.4) & (g3 < 0.5) & m3).sum().float()
+    fn = ((p3 < 0.4) & (g3 >= 0.5) & m3).sum().float()
+
+    def ratio(num, den):
+        return torch.where(den > 0, num / torch.clamp(den, min=1), 0.0)
+
+    return (ratio(tp, tp + fp), ratio(tp, tp + fn),
+            ratio(2 * tp, 2 * tp + fp + fn), ratio(tp, tp + fp + fn))

@@ -1,10 +1,13 @@
-"""EnCodec 24 kHz decoder (SEANet conv stack + LSTM), latents -> waveform.
+"""EnCodec 24 kHz codec (SEANet conv stacks + LSTM): waveform -> latents
+(the training targets) and latents -> waveform (the vocoder), and the
+residual vector quantizer (latents <-> codes).
 
-Counterpart of the decoder side of ``v2ap_tpu/models/encodec.py``, with the
-same causal-padding semantics. Public functions keep the JAX layouts
-((b, n, 128) latents in, (b, t) waveform out); inside, layers run on
-PyTorch's (b, c, t). Float32 throughout. The encoder and the residual
-vector quantizer are not ported yet.
+Counterpart of ``v2ap_tpu/models/encodec.py``, with the same
+causal-padding semantics. Public functions keep the JAX layouts ((b, t)
+waveform, (b, n, 128) latents, (q, b, n) codes); inside, layers run on
+PyTorch's (b, c, t). Float32 throughout. Layer indices of the encoder and
+the decoder match the JAX stacks' (ELU placeholders included), so weight
+paths agree (``v2ap_torch.utils.convert``).
 """
 
 from __future__ import annotations
@@ -157,6 +160,39 @@ class ResidualLSTM(nn.Module):
         return y.transpose(1, 2) + x
 
 
+class EncodecEncoder(nn.Module):
+    """waveform (b, 1, t) -> latents (b, 128, t / 320)."""
+
+    def __init__(self, cfg: EncodecConfig, *, device=None):
+        super().__init__()
+        self.cfg = cfg
+        layers = [CausalConv1d(cfg, cfg.audio_channels, cfg.num_filters,
+                               cfg.kernel_size, device=device)]
+        scaling = 1
+        for ratio in reversed(tuple(cfg.upsampling_ratios)):
+            cur = scaling * cfg.num_filters
+            layers += [ResnetBlock1d(cfg, cur,
+                                     (cfg.dilation_growth_rate ** j, 1),
+                                     device=device)
+                       for j in range(cfg.num_residual_layers)]
+            layers += [nn.ELU(),
+                       CausalConv1d(cfg, cur, cur * 2, ratio * 2,
+                                    stride=ratio, device=device)]
+            scaling *= 2
+        layers += [ResidualLSTM(scaling * cfg.num_filters,
+                                cfg.num_lstm_layers, device=device),
+                   nn.ELU(),
+                   CausalConv1d(cfg, scaling * cfg.num_filters,
+                                cfg.hidden_size, cfg.last_kernel_size,
+                                device=device)]
+        self.layers = nn.ModuleList(layers)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for layer in self.layers:
+            x = layer(x)
+        return x
+
+
 class EncodecDecoder(nn.Module):
     """latents (b, 128, n) -> waveform (b, 1, n*320). Layer indices match
     the JAX decoder's (ELU placeholders included), so weight paths agree."""
@@ -190,13 +226,58 @@ class EncodecDecoder(nn.Module):
         return x
 
 
+class ResidualVQ(nn.Module):
+    """Residual vector quantizer: ``num_quantizers`` codebooks of
+    ``codebook_size`` vectors, each quantizing what the ones before left."""
+
+    def __init__(self, cfg: EncodecConfig, *, device=None):
+        super().__init__()
+        self.codebooks = nn.Parameter(torch.randn(
+            cfg.num_quantizers, cfg.codebook_size, cfg.hidden_size,
+            device=device))
+
+    def encode(self, latents: torch.Tensor, num_quantizers: int
+               ) -> torch.Tensor:
+        """latents (b, n, d) -> codes (q, b, n): each codebook's nearest
+        vector by the squared distance |r|^2 - 2 r.c + |c|^2 (the first on
+        a tie), subtracted from the residual r."""
+        residual = latents.float()
+        codes = []
+        for q in range(num_quantizers):
+            cb = self.codebooks[q]                                   # (K, d)
+            d2 = ((residual ** 2).sum(-1, keepdim=True)
+                  - 2.0 * residual @ cb.T + (cb ** 2).sum(-1)[None, None, :])
+            idx = d2.argmin(dim=-1)                                  # (b, n)
+            residual = residual - cb[idx]
+            codes.append(idx)
+        return torch.stack(codes)
+
+    def decode(self, codes: torch.Tensor) -> torch.Tensor:
+        """codes (q, b, n) -> latents (b, n, d): the sum of the codebooks'
+        vectors."""
+        out = 0.0
+        for q in range(codes.shape[0]):
+            out = out + self.codebooks[q][codes[q]]
+        return out
+
+
 class EncodecModel(nn.Module):
-    """The codec's decoding half: ``decode`` turns latents into audio."""
+    """``encode`` turns audio into latents, ``decode`` latents into audio;
+    ``quantizer`` maps latents to codes and back."""
 
     def __init__(self, cfg: EncodecConfig | None = None, *, device=None):
         super().__init__()
         self.cfg = cfg or EncodecConfig()
-        self.decoder = EncodecDecoder(self.cfg, device=resolve_device(device))
+        device = resolve_device(device)
+        self.encoder = EncodecEncoder(self.cfg, device=device)
+        self.decoder = EncodecDecoder(self.cfg, device=device)
+        self.quantizer = ResidualVQ(self.cfg, device=device)
+
+    def encode(self, waveform: torch.Tensor) -> torch.Tensor:
+        """(b, t) or (b, t, 1) -> (b, t / 320, 128) continuous latents."""
+        if waveform.ndim == 3:
+            waveform = waveform[..., 0]
+        return self.encoder(waveform.float()[:, None]).transpose(1, 2)
 
     def decode(self, latents: torch.Tensor) -> torch.Tensor:
         """(b, n, 128) -> (b, t) waveform."""

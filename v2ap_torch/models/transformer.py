@@ -9,23 +9,76 @@ linear fusions. 32 registers are prepended to every stream; the key-padding
 mask is shared (registers always attend). Matmuls run in the config's
 compute dtype, norms and softmax in float32. ``deterministic=False``
 (training) turns on the attention-output and GLU dropouts at
-``cfg.dropout``; ``cfg.remat`` (activation recomputation) is not ported.
+``cfg.dropout``.
+
+``cfg.remat`` recomputes activations in the backward, one tri-stream layer
+(text and frames blocks, cross-condition, audio block: JAX's
+``_layer_fwd``) at a time, through ``torch.utils.checkpoint``:
+``remat_policy="full"`` saves only the layer's inputs, ``"dots"`` (JAX's
+``dots_with_no_batch_dims_saveable``) also the outputs of products without
+batch dimensions (``aten.mm``, ``aten.addmm``). The dropouts draw from the
+model's own generator, which checkpointing does not restore, so each
+layer's recompute sets it to its state at the layer's forward and puts it
+back after: the recomputed masks are the forward's. The attention kernels
+are not products to PyTorch, so a recompute launches them again.
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
+import torch.utils.checkpoint
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy,
+                                    create_selective_checkpoint_contexts)
 
 from v2ap_torch.config import ModelConfig
 from v2ap_torch.ops.attention import Attention
 from v2ap_torch.ops.conv import DepthwiseConv1d
 from v2ap_torch.ops.feedforward import GLUFeedForward
 from v2ap_torch.ops.fourier import TimeCondMLP
-from v2ap_torch.ops.layers import Embed, Linear
+from v2ap_torch.ops.layers import Dropout, Embed, Linear
 from v2ap_torch.ops.norms import AdaLNZero, AdaptiveRMSNorm, RMSNorm
 from v2ap_torch.ops.rope import rope_table
 from v2ap_torch.utils.device import resolve_device
+
+
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    """The "dots" policy: keep products without batch dimensions."""
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def remat(fn, *args, policy: str = "full",
+          generator: torch.Generator | None = None):
+    """``fn(*args)`` under ``torch.utils.checkpoint`` (non-reentrant), its
+    activations recomputed in the backward; ``policy`` "full" or "dots".
+    ``generator`` (what ``fn``'s dropouts draw from) is set to its state
+    at the forward for each recompute and restored after it."""
+    state = generator.get_state() if generator is not None else None
+    calls = [0]
+
+    def run(*a):
+        calls[0] += 1
+        if calls[0] == 1 or generator is None:
+            return fn(*a)
+        after = generator.get_state()
+        generator.set_state(state)
+        try:
+            return fn(*a)
+        finally:
+            generator.set_state(after)
+
+    kw = {}
+    if policy == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _save_dots)
+    return torch.utils.checkpoint.checkpoint(run, *args, use_reentrant=False,
+                                             **kw)
 
 
 class CrossCondition(nn.Module):
@@ -158,9 +211,8 @@ class TriStreamTransformer(nn.Module):
             raise ValueError("depth must be even for U-Net skips")
         if not 1 <= cfg.text_depth <= cfg.depth:
             raise ValueError(f"text_depth {cfg.text_depth} not in [1, depth]")
-        if cfg.remat:
-            raise NotImplementedError("remat (per-layer activation "
-                                      "recomputation) is not ported")
+        if cfg.remat and cfg.remat_policy not in ("full", "dots"):
+            raise ValueError(f"unknown remat policy {cfg.remat_policy!r}")
         self.cfg = cfg
         device = resolve_device(device)
         dtype = getattr(torch, cfg.dtype)
@@ -261,24 +313,42 @@ class TriStreamTransformer(nn.Module):
 
         skips = []
         all_gammas = self._fused_cond_gammas(cond) if cfg.fused_adaln else None
+        use_remat = cfg.remat and torch.is_grad_enabled()
+        generator = (next((m.generator for m in self.modules()
+                           if isinstance(m, Dropout)), None)
+                     if use_remat else None)
         for ind in range(cfg.depth):
             layer = ind + 1
             skip = None if layer <= cfg.depth // 2 else skips.pop()
-            if ind < cfg.text_depth:
-                text_embed = self.text_blocks[ind](
-                    text_embed, rotary=rot_text, mask=mask,
-                    deterministic=deterministic)
-                frames_embed = self.frames_blocks[ind](
-                    frames_embed, rotary=rot_frames, mask=mask,
-                    deterministic=deterministic)
-                x, text_embed, frames_embed = self.cross_conditions[ind](
-                    x, text_embed, frames_embed)
-            x_mid = x
-            x = self.audio_blocks[ind](
-                x, skip, cond=cond, rotary=rot_audio, mask=mask,
-                context=context, context_mask=context_mask,
-                deterministic=deterministic,
-                gammas=None if all_gammas is None else all_gammas[ind])
+
+            def layer_fwd(x, text_embed, frames_embed, skip, cond, gammas,
+                          ind=ind):
+                """One tri-stream layer; also returns the post-fusion x,
+                the U-Net skip source."""
+                if ind < cfg.text_depth:
+                    text_embed = self.text_blocks[ind](
+                        text_embed, rotary=rot_text, mask=mask,
+                        deterministic=deterministic)
+                    frames_embed = self.frames_blocks[ind](
+                        frames_embed, rotary=rot_frames, mask=mask,
+                        deterministic=deterministic)
+                    x, text_embed, frames_embed = self.cross_conditions[ind](
+                        x, text_embed, frames_embed)
+                x_mid = x
+                x = self.audio_blocks[ind](
+                    x, skip, cond=cond, rotary=rot_audio, mask=mask,
+                    context=context, context_mask=context_mask,
+                    deterministic=deterministic, gammas=gammas)
+                return x, text_embed, frames_embed, x_mid
+
+            args = (x, text_embed, frames_embed, skip, cond,
+                    None if all_gammas is None else all_gammas[ind])
+            if use_remat:
+                x, text_embed, frames_embed, x_mid = remat(
+                    layer_fwd, *args, policy=cfg.remat_policy,
+                    generator=generator)
+            else:
+                x, text_embed, frames_embed, x_mid = layer_fwd(*args)
             if layer <= cfg.depth // 2:
                 skips.append(x_mid)
         return self.final_norm(x[:, r:])

@@ -104,8 +104,10 @@ class Conv2d(nn.Module):
 class BatchNorm2d(nn.Module):
     """nnx.BatchNorm(use_running_average=True, dtype=f32) over the channels
     of NCHW inputs: (x - mean) / sqrt(var + eps) * scale + bias from the
-    running statistics, computed and returned in float32. Inference only:
-    the port trains no BatchNorm."""
+    running statistics, computed and returned in float32. The statistics
+    are never updated, in training too (JAX's Video2Roll runs with
+    ``use_running_average`` there as well); scale and bias take
+    gradients."""
 
     def __init__(self, num_features: int, eps: float = 1e-5, device=None):
         super().__init__()

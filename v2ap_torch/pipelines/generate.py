@@ -106,13 +106,21 @@ def _env_stride(name: str, default: int) -> int:
 
 
 class V2APipeline:
-    """Owns the model stack on one device (``device=None`` means CUDA)."""
+    """Owns the model stack on one device (``device=None`` means CUDA).
+
+    The frozen encoders (T5, the video towers) are stored in bf16 when the
+    model computes in bf16, and nothing takes gradients. ``trainable_cfm``
+    (which the JAX signature lacks; ``TrainingPipeline`` passes it) keeps
+    the CFM's parameters float32 and trainable: the serving pipeline stores
+    bf16 copies of the weights its bf16 layers cast (``cast_params``) and
+    freezes every module, which training must not."""
 
     def __init__(self, cfg: V2APConfig | None = None, *, seed: int = 0,
                  device=None, tokenizer_path: Optional[str] = None,
                  t5_config=None, clip_config=None, encodec_config=None,
                  quantize_towers: Optional[bool] = None,
-                 quantize_cfm: Optional[bool] = None):
+                 quantize_cfm: Optional[bool] = None,
+                 trainable_cfm: bool = False):
         env_tok = os.environ.get("V2AP_T5_TOKENIZER")
         if tokenizer_path is not None or (env_tok and os.path.exists(env_tok)):
             raise NotImplementedError(
@@ -174,12 +182,13 @@ class V2APipeline:
         # frozen encoders are stored bf16 when the model computes in bf16;
         # the CFM keeps f32 parameters and stores bf16 copies of only the
         # weights its bf16 layers cast on every call (the same values)
+        frozen = [self.codec, self.t5, *(t.model for t in self.towers)]
         if cfg.model.dtype == "bfloat16":
-            for model in (self.t5, *(t.model for t in self.towers)):
+            for model in frozen[1:]:
                 model.to(torch.bfloat16)
-            cast_params(self.cfm, torch.bfloat16)
-        for module in (self.cfm, self.codec, self.t5,
-                       *(t.model for t in self.towers)):
+            if not trainable_cfm:
+                cast_params(self.cfm, torch.bfloat16)
+        for module in frozen + ([] if trainable_cfm else [self.cfm]):
             module.eval().requires_grad_(False)
         self.tokenize = FallbackTokenizer(self.t5_cfg.vocab_size)
         # the sampler's captured programs (CUDA only; the CPU runs eagerly)
@@ -187,6 +196,32 @@ class V2APipeline:
                        else None)
         self.last_timings: dict = {}
         self.last_roll: Optional[torch.Tensor] = None   # (n, notes), V2P
+
+    # ------------------------------------------------------------------ io
+    def load_weights(self, ckpt_dir: str) -> list:
+        """Load what ``v2ap_torch.utils.checkpoint.save_model`` wrote under
+        ``ckpt_dir``: the subdirectories ``cfm/``, ``encodec/``, ``t5/``,
+        ``clip/`` and the video towers' names, whichever exist, else
+        ``ckpt_dir`` itself as a bare CFM. Each tensor is copied into the
+        pipeline's own in its dtype, so a float32 CFM state loads into the
+        serving CFM's bf16-stored layers as ``cast_params`` rounds it.
+        Returns the names loaded."""
+        from v2ap_torch.utils.checkpoint import load_model
+
+        pairs = [("cfm", self.cfm), ("encodec", self.codec), ("t5", self.t5),
+                 ("clip", self.clip)]
+        pairs += [(t.name, t.model) for t in self.towers]
+        loaded, seen = [], set()
+        for name, model in pairs:
+            path = os.path.join(ckpt_dir, name)
+            if os.path.isdir(path) and path not in seen:
+                seen.add(path)
+                load_model(path, model)
+                loaded.append(name)
+        if not loaded and os.path.isdir(ckpt_dir):
+            load_model(ckpt_dir, self.cfm)       # a bare CFM directory
+            loaded.append("cfm")
+        return loaded
 
     @property
     def _tower_tag(self) -> str:
@@ -274,6 +309,12 @@ class V2APipeline:
             dataclasses.replace(sampler, steps=2), (0,) * 6 + (1,))
 
     # ------------------------------------------------------------ conditioning
+    @torch.no_grad()
+    def _encode_audio(self, waveforms: torch.Tensor) -> torch.Tensor:
+        """EnCodec latents of waveforms: (b, t) float32 at 24 kHz ->
+        (b, t / 320, 128) float32 on the device (the training targets)."""
+        return self.codec.encode(waveforms.to(self.device).float())
+
     @torch.inference_mode()
     def encode_text(self, prompts: Sequence[str]):
         """Prompts -> (T5 hidden states (b, 64, d_model) in T5's dtype, bool

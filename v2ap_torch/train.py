@@ -1,0 +1,154 @@
+"""Training entry point of the port.
+
+    # the shipped V2A + V2P model (crossatt3) on the card
+    python -m v2ap_torch.train --corpora-root /data/scps --steps 100000
+
+    # 88 keys, accumulated batches
+    python -m v2ap_torch.train --corpora-root /data/scps \\
+        --variant crossatt3_2 --grad-accum 2 --batch-size 16
+
+    # everything from a config file (V2APConfig JSON, either package's)
+    python -m v2ap_torch.train --corpora-root /data/scps --config cfg.json
+
+    # the CPU-runnable miniature
+    python -m v2ap_torch.train --corpora-root /tmp/c --tiny --device cpu
+
+Counterpart of ``scripts/train.py``: the corpus mix
+(``manifests.default_corpora`` under ``--corpora-root``), the host
+``TrainBatcher`` and the ``TrainingPipeline``, which resumes from and
+checkpoints to ``--work-dir/ckpts``. Remat is on with the ``dots`` policy
+unless ``--no-remat`` or ``--tiny``, as in JAX. Not ported, and refused:
+the two-stream variants (``crossatt``, ``crossatt6``), ``--dpo``,
+``--contrastive``, video encoders other than ``clip_vit``, and the
+multi-host options (``--host-id``, ``--num-hosts``, ``--no-mesh``), which
+belong to parallelism.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import sys
+
+PORTED_VARIANTS = ("crossatt3", "crossatt3_2")
+
+
+def build_config(args):
+    from v2ap_torch import config as cfgmod
+
+    if args.variant not in PORTED_VARIANTS:
+        raise NotImplementedError(
+            f"--variant {args.variant}: only {PORTED_VARIANTS} are ported "
+            f"(the two-stream models are not)")
+    if args.config:
+        with open(args.config) as f:
+            cfg = cfgmod.V2APConfig.from_json(f.read())
+    elif args.tiny:
+        cfg = cfgmod.tiny_tower_test()
+        base = cfgmod.variant_preset(args.variant)
+        cfg = cfg.replace(
+            model=dataclasses.replace(cfg.model,
+                                      video2roll=base.model.video2roll),
+            train=dataclasses.replace(cfg.train,
+                                      contrastive=base.train.contrastive))
+    else:
+        cfg = cfgmod.variant_preset(args.variant)
+
+    model_kw, train_kw = {}, {}
+    if not args.no_remat and not args.tiny:
+        model_kw.update(remat=True, remat_policy=args.remat_policy)
+    if args.grad_accum is not None:
+        train_kw["grad_accum"] = args.grad_accum
+    if args.batch_size is not None:
+        train_kw["batch_size"] = args.batch_size
+    if model_kw:
+        cfg = cfg.replace(model=dataclasses.replace(cfg.model, **model_kw))
+    if train_kw:
+        cfg = cfg.replace(train=dataclasses.replace(cfg.train, **train_kw))
+    return cfg
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(prog="python -m v2ap_torch.train")
+    ap.add_argument("--corpora-root", required=True)
+    ap.add_argument("--config", default=None,
+                    help="V2APConfig JSON file (V2APConfig.to_json); the "
+                         "flags below override its values")
+    ap.add_argument("--variant", default="crossatt3",
+                    help="crossatt3 (the shipped V2A + V2P model) or "
+                         "crossatt3_2 (88 keys)")
+    ap.add_argument("--video-encoder", default=None,
+                    help="only clip_vit is ported")
+    ap.add_argument("--dpo", action="store_true", help="not ported")
+    ap.add_argument("--contrastive", action="store_true", help="not ported")
+    ap.add_argument("--grad-accum", type=int, default=None)
+    ap.add_argument("--steps", type=int, default=100_000)
+    ap.add_argument("--batch-size", type=int, default=None)
+    ap.add_argument("--eval-scp", default=None,
+                    help="held-out manifest for the val loss / F1 and the "
+                         "latent figures every save_step")
+    ap.add_argument("--work-dir", default="runs/v2ap")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--remat-policy", choices=("dots", "full"),
+                    default="dots",
+                    help="'dots' keeps the products' outputs (faster), "
+                         "'full' recomputes everything (least memory)")
+    ap.add_argument("--no-remat", action="store_true",
+                    help="keep all activations")
+    ap.add_argument("--tiny", action="store_true",
+                    help="the miniature model and frozen towers")
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: cuda)")
+    ap.add_argument("--host-id", type=int, default=None, help="not ported")
+    ap.add_argument("--num-hosts", type=int, default=None,
+                    help="not ported")
+    ap.add_argument("--no-mesh", action="store_true", help="not ported")
+    args = ap.parse_args(argv)
+
+    unported = [flag for flag, on in (
+        ("--dpo", args.dpo), ("--contrastive", args.contrastive),
+        ("--host-id", args.host_id is not None),
+        ("--num-hosts", args.num_hosts is not None),
+        ("--no-mesh", args.no_mesh),
+        (f"--video-encoder {args.video_encoder}",
+         args.video_encoder not in (None, "clip_vit"))) if on]
+    if unported:
+        raise NotImplementedError(f"{', '.join(unported)}: not ported (DPO, "
+                                  f"FactorCL, other video towers and "
+                                  f"parallelism come later)")
+
+    from v2ap_torch.data.dataset import TrainBatcher
+    from v2ap_torch.data.manifests import (CorpusSpec, default_corpora,
+                                           load_corpora, load_corpus)
+    from v2ap_torch.training.pipeline import TrainingPipeline
+
+    cfg = build_config(args)
+    samples = load_corpora(default_corpora(args.corpora_root))
+    if not samples:
+        print(f"no samples found under {args.corpora_root}", file=sys.stderr)
+        return 2
+    batcher = TrainBatcher(samples, cfg.data,
+                           batch_size=cfg.train.batch_size, seed=args.seed,
+                           micro_batches=cfg.train.grad_accum)
+    eval_batcher = None
+    if args.eval_scp:
+        eval_samples = load_corpus(CorpusSpec("eval", args.eval_scp))
+        if eval_samples:
+            eval_batcher = TrainBatcher(eval_samples, cfg.data,
+                                        batch_size=cfg.train.batch_size,
+                                        seed=args.seed + 1, mix_prob=0.0)
+    tower_kw = {}
+    if args.tiny:
+        from v2ap_torch.models.clip_vit import clip_tiny_test
+        from v2ap_torch.models.t5 import t5_tiny_test
+        tower_kw = dict(t5_config=t5_tiny_test(), clip_config=clip_tiny_test())
+    pipeline = TrainingPipeline(cfg, seed=args.seed, work_dir=args.work_dir,
+                                device=args.device, **tower_kw)
+    final = pipeline.fit(batcher, num_steps=args.steps,
+                         eval_batcher=eval_batcher, seed=args.seed)
+    print(f"finished at step {final}")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,16 +1,23 @@
 """Training loop: AdamW with a warmup -> decay schedule, global-norm clip,
-gradient accumulation and EMA.
+gradient accumulation and EMA, for V2A batches and V2P batches (keyboard
+frames and their ground-truth roll, the MIDI loss).
 
 Counterpart of ``v2ap_tpu/training/trainer.py``. The optimizer reproduces
 ``optax.chain(clip_by_global_norm(grad_clip), adamw(schedule, b1=0.9,
-b2=0.999, weight_decay=0.01))``: optax's schedule arithmetic (step 0 uses
-0.01 * lr, the decay starts at ``warmup_steps``), optax's clip
-g * min(1, max_norm / |g|) (``torch.nn.utils.clip_grad_norm_`` adds 1e-6
-to the norm, so it is not used), and AdamW over every parameter, with a
-zero gradient where a parameter took no part in the loss (optax still
-decays its weight). The step runs eagerly and updates the model in place;
-the JAX package's remat, DPO, FactorCL, bf16 first moment, checkpoints and
-``TrainingPipeline`` are not ported (the first four raise).
+b2=0.999, weight_decay=0.01, mu_dtype=bf16 if mu_bf16 else None))``:
+optax's schedule arithmetic (step 0 uses 0.01 * lr, the decay starts at
+``warmup_steps``), optax's clip g * min(1, max_norm / |g|)
+(``torch.nn.utils.clip_grad_norm_`` adds 1e-6 to the norm, so it is not
+used), and AdamW over every parameter, with a zero gradient where a
+parameter took no part in the loss (optax still decays its weight). With
+``mu_bf16`` the first moment is stored in bf16 and the update is optax's
+arithmetic on its float32 value (``torch.optim.AdamW`` cannot do that),
+else ``torch.optim.AdamW`` runs. The step runs eagerly and updates the
+model in place; remat is the model's (``ModelConfig.remat``). DPO and
+FactorCL are not ported and raise. ``Trainer.state_dict`` /
+``load_state_dict`` carry the exact training state (parameters, buffers,
+the model's dropout generator, the optimizer's moments and count, the EMA
+shadow, the step) for ``v2ap_torch.utils.checkpoint``.
 """
 
 from __future__ import annotations
@@ -54,23 +61,76 @@ def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
     return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(tensors)))
 
 
+B1, B2, EPS, WEIGHT_DECAY = 0.9, 0.999, 1e-8, 0.01
+B1_BF16 = float(torch.tensor(B1, dtype=torch.bfloat16))
+
+
+class _AdamWBf16Mu:
+    """optax's ``adamw(lr, b1, b2, eps, weight_decay, mu_dtype=bf16)``, in
+    float32: mu = (1 - b1) g + bf16(bf16(b1) mu), nu = (1 - b2) g^2 + b2 nu,
+    u = (mu / (1 - b1^t)) / (sqrt(nu / (1 - b2^t)) + eps) + wd p,
+    p += -lr u; mu is then stored rounded to bf16, nu in float32."""
+
+    def __init__(self, params: Sequence[nn.Parameter]):
+        self.params = params
+        self.mu = [torch.zeros_like(p, dtype=torch.bfloat16) for p in params]
+        self.nu = [torch.zeros_like(p) for p in params]
+
+    @torch.no_grad()
+    def step(self, lr: float, count: int) -> None:
+        grads = [p.grad for p in self.params]
+        mu = torch._foreach_mul(grads, 1.0 - B1)
+        # JAX multiplies the bf16 moment by b1 in bf16: b1 itself rounds to
+        # bf16 (0.8984375), and so does the product, before the sum
+        torch._foreach_add_(mu, [m.float() for m in
+                                 torch._foreach_mul(self.mu, B1_BF16)])
+        sq = torch._foreach_mul(grads, grads)
+        torch._foreach_mul_(sq, 1.0 - B2)
+        torch._foreach_mul_(self.nu, B2)
+        torch._foreach_add_(self.nu, sq)
+        # bias corrections in float32, as optax's 1 - decay ** count
+        t = np.float32(count + 1)
+        c1 = float(np.float32(1.0) - np.float32(B1) ** t)
+        c2 = float(np.float32(1.0) - np.float32(B2) ** t)
+        den = torch._foreach_div(self.nu, c2)
+        torch._foreach_sqrt_(den)
+        torch._foreach_add_(den, EPS)
+        upd = torch._foreach_div(mu, c1)
+        torch._foreach_div_(upd, den)
+        torch._foreach_add_(upd, torch._foreach_mul(self.params,
+                                                    WEIGHT_DECAY))
+        torch._foreach_mul_(upd, float(-np.float32(lr)))
+        torch._foreach_add_(self.params, upd)
+        for dst, src in zip(self.mu, mu):
+            dst.copy_(src)
+
+    def state_dict(self) -> dict:
+        return {"mu": list(self.mu), "nu": list(self.nu)}
+
+    def load_state_dict(self, state: dict) -> None:
+        with torch.no_grad():
+            for dst, src in zip(self.mu + self.nu, state["mu"] + state["nu"]):
+                dst.copy_(src)
+
+
 class ClippedAdamW:
-    """optax's clip_by_global_norm then adamw over ``params``; ``step()``
-    returns the global gradient norm before the clip (a device tensor)."""
+    """optax's clip_by_global_norm then adamw over ``params`` (the first
+    moment in bf16 with ``cfg.mu_bf16``); ``step()`` returns the global
+    gradient norm before the clip (a device tensor)."""
 
     def __init__(self, params: Iterable[nn.Parameter], cfg: TrainConfig):
-        if cfg.mu_bf16:
-            raise NotImplementedError("a bf16 first moment is not ported")
         self.params = list(params)
         self.schedule = make_lr_schedule(cfg)
         self.grad_clip = cfg.grad_clip
         self.count = 0
-        self.adamw = torch.optim.AdamW(self.params, lr=self.schedule(0),
-                                       betas=(0.9, 0.999), eps=1e-8,
-                                       weight_decay=0.01)
+        self.adamw = (_AdamWBf16Mu(self.params) if cfg.mu_bf16 else
+                      torch.optim.AdamW(self.params, lr=self.schedule(0),
+                                        betas=(B1, B2), eps=EPS,
+                                        weight_decay=WEIGHT_DECAY))
 
     def zero_grad(self) -> None:
-        self.adamw.zero_grad(set_to_none=True)
+        for p in self.params:
+            p.grad = None
 
     @torch.no_grad()
     def step(self) -> torch.Tensor:
@@ -81,11 +141,22 @@ class ClippedAdamW:
         norm = global_norm(grads)
         torch._foreach_mul_(grads, torch.where(
             norm < self.grad_clip, 1.0, self.grad_clip / norm))
-        for group in self.adamw.param_groups:
-            group["lr"] = self.schedule(self.count)
-        self.adamw.step()
+        lr = self.schedule(self.count)
+        if isinstance(self.adamw, _AdamWBf16Mu):
+            self.adamw.step(lr, self.count)
+        else:
+            for group in self.adamw.param_groups:
+                group["lr"] = lr
+            self.adamw.step()
         self.count += 1
         return norm
+
+    def state_dict(self) -> dict:
+        return {"count": self.count, "adamw": self.adamw.state_dict()}
+
+    def load_state_dict(self, state: dict) -> None:
+        self.count = int(state["count"])
+        self.adamw.load_state_dict(state["adamw"])
 
 
 def make_tx(cfg: TrainConfig, params: Iterable[nn.Parameter]) -> ClippedAdamW:
@@ -115,14 +186,18 @@ class EMA:
             p.copy_(self.shadow[name])
 
 
-def _loss(model: CFM, batch: dict, *, generator, draws, val: bool = False,
-          times=None):
-    if batch.get("frames") is not None:
-        raise NotImplementedError("the V2P MIDI loss is not ported")
+def _loss(model: CFM, batch: dict, *, generator, draws, midi_loss_weight,
+          val: bool = False, times=None):
+    """``model.loss`` on a batch dict; with ``frames`` in it (a V2P batch)
+    also its ``midis``, as JAX's ``has_frames``."""
+    has_frames = batch.get("frames") is not None
     return model.loss(
         batch["latents"], lens=batch["lens"], text_embed=batch["text_embed"],
         context=batch.get("context"), context_mask=batch.get("context_mask"),
-        generator=generator, draws=draws, times=times, val=val)
+        generator=generator, draws=draws, times=times, val=val,
+        frames=batch["frames"] if has_frames else None,
+        midis=batch.get("midis") if has_frames else None,
+        midi_loss_weight=midi_loss_weight)
 
 
 def _micro(batch: dict, i: int, accum: int) -> dict:
@@ -135,7 +210,8 @@ def make_train_step(train_cfg: TrainConfig):
     """Build the train step ``step(model, optimizer, batch, *, generator,
     draws=None) -> (loss, breakdown, grad_norm)``. The batch dict carries
     latents (b, n, C), lens (b,), text_embed (b, n, dt), context (b, nc, dc)
-    and context_mask (b, nc). With ``grad_accum > 1`` the batch splits into
+    and context_mask (b, nc), and for V2P frames (b, t, H, W) in [0, 1] and
+    midis (b, n, notes). With ``grad_accum > 1`` the batch splits into
     micro-batches along axis 0 and their gradients are averaged; ``draws``
     is then one ``LossDraws`` per micro-batch."""
     if train_cfg.dpo:
@@ -156,7 +232,8 @@ def make_train_step(train_cfg: TrainConfig):
         for i in range(accum):
             mb = batch if accum == 1 else _micro(batch, i, accum)
             d = draws if accum == 1 or draws is None else draws[i]
-            out = _loss(model, mb, generator=generator, draws=d)
+            out = _loss(model, mb, generator=generator, draws=d,
+                        midi_loss_weight=train_cfg.midi_loss_weight)
             (out.loss / accum).backward()
             bk = LossBreakdown(*(x.detach() if isinstance(x, torch.Tensor)
                                  else x for x in out.breakdown))
@@ -170,17 +247,18 @@ def make_train_step(train_cfg: TrainConfig):
     return train_step
 
 
-def make_eval_step():
+def make_eval_step(train_cfg: TrainConfig | None = None):
     """Deterministic validation forward: times 0.5, the centred span, no
     condition dropout or transformer dropout, no autograd.
     ``step(model, batch, *, generator, draws=None, return_pred=False)``."""
+    midi_loss_weight = (train_cfg or TrainConfig()).midi_loss_weight
 
     @torch.no_grad()
     def eval_step(model: CFM, batch: dict, *,
                   generator: Optional[torch.Generator] = None,
                   draws: Optional[LossDraws] = None, return_pred: bool = False):
         out = _loss(model, batch, generator=generator, draws=draws, val=True,
-                    times=0.5)
+                    times=0.5, midi_loss_weight=midi_loss_weight)
         if return_pred:
             return out.loss, out.breakdown, out.pred_data
         return out.loss, out.breakdown
@@ -199,7 +277,7 @@ class Trainer:
         self.cfg = train_cfg or TrainConfig()
         self.model = model
         self._train_step = make_train_step(self.cfg)
-        self._eval_step = make_eval_step()
+        self._eval_step = make_eval_step(self.cfg)
         self.optimizer = make_tx(self.cfg, model.parameters())
         self.ema = (EMA(model, self.cfg.ema_decay) if self.cfg.use_ema
                     else None)
@@ -222,11 +300,13 @@ class Trainer:
         self.step += 1
         return loss, breakdown
 
-    def eval_step(self, batch: dict, *, draws=None,
-                  return_pred: bool = False) -> tuple:
+    def eval_step(self, batch: dict, *, draws=None, return_pred: bool = False,
+                  generator: Optional[torch.Generator] = None) -> tuple:
+        """The val loss; x0 drawn from ``generator`` (the trainer's when
+        None) unless ``draws`` are given."""
         return self._eval_step(self.model, self._on_device(batch),
-                               generator=self.generator, draws=draws,
-                               return_pred=return_pred)
+                               generator=generator or self.generator,
+                               draws=draws, return_pred=return_pred)
 
     def switch_ema(self) -> None:
         """Copy the EMA shadow into the live model ("switch EMA"); the
@@ -234,6 +314,28 @@ class Trainer:
         if self.ema is None:
             raise ValueError("switch_ema requires use_ema=True")
         self.ema.copy_to(self.model)
+
+    def state_dict(self) -> dict:
+        """The exact training state: the model's parameters and buffers and
+        its dropout generator's state, the optimizer's, the EMA shadow, the
+        step. The tensors are the live ones (no copies)."""
+        gen = self.model.dropout_generator
+        return {"model": self.model.state_dict(),
+                "rng": gen.get_state() if gen is not None else None,
+                "opt": self.optimizer.state_dict(),
+                "ema": self.ema.shadow if self.ema is not None else None,
+                "step": self.step}
+
+    @torch.no_grad()
+    def load_state_dict(self, state: dict) -> None:
+        self.model.load_state_dict(state["model"])
+        if state["rng"] is not None:
+            self.model.dropout_generator.set_state(state["rng"])
+        self.optimizer.load_state_dict(state["opt"])
+        if self.ema is not None and state["ema"] is not None:
+            for name, s in self.ema.shadow.items():
+                s.copy_(state["ema"][name])
+        self.step = int(state["step"])
 
     def run(self, batches: Iterator[dict], *, num_steps: int,
             log_every: int = 50, callback=None) -> None:

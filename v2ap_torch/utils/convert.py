@@ -3,8 +3,9 @@
 ``load_jax_params(module, flat)`` takes a JAX model's state flattened to
 dotted paths and numpy arrays — its ``nnx.Param`` leaves plus the time
 embedding's fixed Fourier projection (a plain ``nnx.Variable``) — and fills
-the port's ``CFM`` (Video2Roll included), ``EncodecModel``, ``CLIPVisionModel``
-or ``T5Encoder`` in place. The port mirrors the JAX module tree, so a path
+the port's ``CFM`` (Video2Roll included), ``EncodecModel`` (encoder,
+decoder and the quantizer's codebooks), ``CLIPVisionModel`` or
+``T5Encoder`` in place. The port mirrors the JAX module tree, so a path
 maps to the module of the same path; only the leaf layout changes:
 
   * ``Linear`` kernel (in, out)                 -> weight (out, in)
@@ -17,15 +18,11 @@ maps to the module of the same path; only the leaf layout changes:
     -> weight / bias / running_mean / running_var
   * ``ResidualLSTM`` w_ih.i / w_hh.i / b_ih.i / b_hh.i -> lstm.*_l{i}
 
-Keys of modules the port does not build yet (the EnCodec encoder and
-quantizer) are skipped and named in a warning. Any other key
-the port has no place for, any shape mismatch, and any port tensor left
-unfilled raise.
+A key the port has no place for, any shape mismatch, and any port tensor
+left unfilled raise.
 """
 
 from __future__ import annotations
-
-import warnings
 
 import numpy as np
 import torch
@@ -33,8 +30,6 @@ from torch import nn
 
 from v2ap_torch.ops.layers import BatchNorm2d, Conv2d, Embed, LayerNorm, Linear
 
-# prefixes of JAX modules that later slices of the port will build
-_NOT_PORTED = ("encoder.", "quantizer.")
 _BN_LEAVES = {"scale": "weight", "bias": "bias", "mean": "running_mean",
               "var": "running_var"}
 _LSTM_LEAVES = {"w_ih": "weight_ih_l", "w_hh": "weight_hh_l",
@@ -73,16 +68,12 @@ def _target(module: nn.Module, key: str):
     return prefix + leaf, lambda a: a
 
 
-def load_jax_params(module: nn.Module, flat: dict) -> list:
-    """Copy ``flat`` (dotted JAX path -> array) into ``module`` in place.
-    Returns the skipped keys of not-yet-ported modules."""
+def load_jax_params(module: nn.Module, flat: dict) -> None:
+    """Copy ``flat`` (dotted JAX path -> array) into ``module`` in place."""
     tensors = dict(module.named_parameters())
     tensors.update(module.named_buffers())
-    filled, skipped, unused = set(), [], []
+    filled, unused = set(), []
     for key, arr in flat.items():
-        if key.startswith(_NOT_PORTED):
-            skipped.append(key)
-            continue
         try:
             name, transform = _target(module, key)
         except AttributeError:
@@ -104,7 +95,3 @@ def load_jax_params(module: nn.Module, flat: dict) -> list:
     missing = sorted(set(tensors) - filled)
     if missing:
         raise KeyError(f"port tensors not filled: {missing}")
-    if skipped:
-        warnings.warn(f"skipped {len(skipped)} keys of modules the port does "
-                      f"not build yet: {sorted(skipped)}")
-    return skipped

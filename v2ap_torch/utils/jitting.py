@@ -104,6 +104,18 @@ def cast_params(module: nn.Module, dtype: torch.dtype) -> int:
     return n
 
 
+def _release_generator(dev: torch.device) -> None:
+    """A failed capture leaves the device's default generator marked as
+    capturing (PyTorch ends its capture only when the graph ends cleanly),
+    and every later random draw on the device then raises. Give it a fresh
+    state at the same seed and offset."""
+    gen = torch.cuda.default_generators[
+        dev.index if dev.index is not None else torch.cuda.current_device()]
+    fresh = torch.Generator(device=dev)
+    fresh.set_state(gen.get_state())
+    gen.graphsafe_set_state(fresh.graphsafe_get_state())
+
+
 def batch_bucket(b: int) -> int:
     """The batch a program is captured for: ``b`` rounded up to a power of
     two, so that a server's batches of 1 to ``max_batch`` clips make
@@ -208,6 +220,7 @@ class CapturedPrograms:
                 out = fn(*static)
                 pool = torch.cuda.memory_reserved(dev) - reserved
         except Exception as exc:
+            _release_generator(dev)
             raise RuntimeError(f"capturing the program for {key} failed; "
                                f"it does not run eagerly instead") from exc
         self._programs[key] = prog = _Program(graph, static, out)
