@@ -15,7 +15,9 @@ Phases, each of which fails the run (exit 1, no result line) if it fails:
                its time printed beside the CUDA-core kernel's
                (``CUDA_CORE_MS``, from PERF.md, by CUDA events as ``ms``):
                K1 (packed) and K2 (4D) forwards, K1 also with logits in
-               softclamp's range; K3 (forward with lse), K4 (dq) and K5
+               softclamp's range and at the training shapes of the DPO
+               reference forward (8, 782, 16x64 and 8x64; cross-attention
+               8, 782x16 with 4-16 keys valid); K3 (forward with lse), K4 (dq) and K5
                (dk, dv) at the training shapes, with logits of std 40, with
                a fully masked batch element (exactly zero gradient) and in
                f32; K4 and K5 also at d = 104, ViT-bigG's (64, 257,
@@ -163,7 +165,34 @@ Phases, each of which fails the run (exit 1, no result line) if it fails:
                ["cfm"] from ``load_weights`` and generate, from phase 5's
                frames and x0, latents and audio bit-equal to those of a
                pipeline given the same float32 state before
-               ``cast_params``. The temporary directory is removed.
+               ``cast_params``. The temporary directory is removed;
+  18a. DPO   — phase 14's trainer and batch (rows 6 and 7 a preference
+               pair) with ``TrainConfig(dpo=True)`` (EMA on, the shadow is
+               the reference model): the first step's DPO term must be
+               within 1e-2 of ln 2 (the shadow equals the model and draws
+               the policy's dropout masks), then DPO_STEPS timed steps,
+               each launching K1 48 times (the reference forward, no
+               autograd) and K3, K4, K5 48 times, every term finite; wall,
+               peak memory, and one step under the profiler (tensor-core
+               kernels only, busy share, host launches);
+  18b. FactorCL — the same for ``variant_preset("crossatt6")`` with DPO
+               under remat "dots" (K3 96 a step): the contrastive term
+               finite and nonzero, FactorCL's parameters moved, and the
+               layer-1 hiddens returned by layer 1's checkpointed call
+               (and by no other layer's);
+  19. reflow — the full-width teacher draws REFLOW_BATCH x REFLOW_LATENTS
+               pairs with its 25-step sway CFG sampler (K1 1152 a batch),
+               the student takes REFLOW_STEPS distill steps (K3-K5 48
+               each); ``save_model``, a serving pipeline's
+               ``load_weights`` and ``generate(fewstep=2)``: finite audio of
+               the clip's length; seconds per pair batch and per step;
+  20. reference layout — a full-width synthetic crossatt3 ``.pt`` (the
+               keys and shapes of ``reference_manifest``) through ``python
+               -m v2ap_torch.convert``, a strict load leaving no key, the
+               permuted q rows, ``load_weights`` and one V2A generate; the
+               ``.pt`` removed; a crossatt6 state dict into a seeded
+               crossatt6 CFM leaves only FactorCL's keys and zeroes
+               ``to_frames`` and ``proj_frames``. Load seconds printed.
 
 The line before the last is a JSON object with one entry per kernel (K1-K5
 and P1; the launches of K1/K2 from the profiled V2A generate, K1's counted
@@ -395,6 +424,23 @@ def kernel_cases(torch):
     cases.append((f"K1 cross-attn nk=64, {PROMPT_TOKENS} valid "
                   "(2, 800x64, 16x64)", "K1", rnd(2, 800, 1024),
                   *kv.chunk(2, dim=-1), prompt, dict(heads=16)))
+    # the DPO reference forward (phases 18a-b): K1 at the training shapes,
+    # 750 latents + 32 registers, and the prompt context with 4-16 valid
+    n, tb = TRAIN_LATENTS + 32, TRAIN_BATCH
+    full = torch.ones(tb, n, dtype=torch.bool, device=dev)
+    for label, heads in ((f"K1 self-attn, training ({tb}, {n}, 16x64)", 16),
+                         (f"K1 roll self-attn, training ({tb}, {n}, 8x64)",
+                          8)):
+        q, k, v = rnd(tb, n, 3 * heads * 64).chunk(3, dim=-1)
+        cases.append((label, "K1", q, k, v, full, dict(heads=heads)))
+    ctx_len = torch.randint(4, TRAIN_CONTEXT + 1, (tb,), generator=gen,
+                            device=dev)
+    ctx_mask = torch.arange(TRAIN_CONTEXT, device=dev)[None] < ctx_len[:, None]
+    kv = rnd(tb, TRAIN_CONTEXT, 2048)
+    cases.append((f"K1 cross-attn, training ({tb}, {n}x{TRAIN_CONTEXT}, "
+                  f"16x64), context 4-{TRAIN_CONTEXT} valid", "K1",
+                  rnd(tb, n, 1024), *kv.chunk(2, dim=-1), ctx_mask,
+                  dict(heads=16)))
     for label, nb in (("K2 ViT-bigG (64, 16, 257, 104)", 64),
                       ("K2 ViT-bigG stride-3 tail chunk (20, 16, 257, 104)",
                        84 - 64)):
@@ -1656,9 +1702,12 @@ def phase_small_train(torch) -> None:
 
 # --------------------------------------------------------------- phase 7
 
-def full_trainer(torch):
-    """v2a_default() CFM (bf16 compute, f32 params, dropout 0.1) from seed 0
-    on the card, TrainConfig() with EMA, and the synthetic batch."""
+def full_trainer(torch, cfg=None, train_cfg=None, pair: bool = False):
+    """A full-width CFM (``cfg``, v2a_default() by default: bf16 compute,
+    f32 params, dropout 0.1) from seed 0 on the card, a Trainer with
+    ``train_cfg`` (TrainConfig() with EMA by default), and the synthetic
+    batch; ``pair`` gives rows 6 and 7 the same conditioning (a preference
+    pair: a winner and a loser)."""
     import numpy as np
 
     from v2ap_torch import config as C
@@ -1666,12 +1715,12 @@ def full_trainer(torch):
     from v2ap_torch.training import Trainer
     from v2ap_torch.utils.device import seeded_init
 
-    cfg = C.v2a_default()
+    cfg = cfg or C.v2a_default()
     dev = torch.device("cuda")
     t0 = time.perf_counter()
     with seeded_init(0, dev):
         model = CFM(cfg.model, cfg.conditioning, device=dev)
-    trainer = Trainer(model, C.TrainConfig(use_ema=True))
+    trainer = Trainer(model, train_cfg or C.TrainConfig(use_ema=True))
     rng = np.random.default_rng(0)
     b, n, nc = TRAIN_BATCH, TRAIN_LATENTS, TRAIN_CONTEXT
     r = lambda *s: torch.from_numpy(rng.normal(size=s).astype(np.float32))
@@ -1681,6 +1730,9 @@ def full_trainer(torch):
              "context": r(b, nc, cfg.model.dim_context),
              "context_mask": torch.arange(nc)[None] < torch.from_numpy(
                  rng.integers(4, nc + 1, size=(b, 1)))}
+    if pair:
+        for k in ("text_embed", "context", "context_mask"):
+            batch[k][7] = batch[k][6]
     batch = {k: v.to(dev) for k, v in batch.items()}
     torch.cuda.synchronize()
     log(f"  build: {time.perf_counter() - t0:.2f} s, CFM "
@@ -2153,6 +2205,343 @@ def phase_resume_and_serve(torch, held: dict, root: str, frames,
         raise RuntimeError("serve: load_weights differs from cast_params")
 
 
+# --------------------------------------------------------------- phase 18
+
+DPO_STEPS = 5                      # timed DPO steps after the first
+REFLOW_BATCH = 4                   # scripts' defaults: 4 x 736 latents
+REFLOW_LATENTS = 736
+REFLOW_STEPS = 3                   # distill steps (one pair batch each)
+REF_SCALE = 0.02                   # synthetic reference weights' std
+
+
+def phase_dpo(torch, label: str, trainer, batch) -> None:
+    """DPO (and FactorCL where the trainer has it) at full width: the first
+    step (its DPO term must be within 1e-2 of ln 2: the EMA shadow equals
+    the model and draws the policy's dropout masks), DPO_STEPS timed ones
+    (launches checked each step: K1 once per attention for the reference
+    forward without autograd, K3 once, or twice under remat, K4 and K5
+    once), every term finite, FactorCL's term nonzero and its parameters
+    moved; under remat the FactorCL tap must come out of the checkpointed
+    layer 1 (a pair of tensors among its outputs, and from no other
+    layer). Then one step under the profiler (tensor-core kernels only)."""
+    import numpy as np
+
+    from v2ap_torch.models import transformer as tmod
+    from v2ap_torch.ops.flash_attention import (launch_counts,
+                                                reset_launch_counts)
+
+    model = trainer.model
+    con = trainer.fcl is not None
+    per = model.cfg.depth * 4
+    expect = dict.fromkeys(launch_counts, 0)
+    expect.update(flash_attention_packed=per,
+                  flash_attention_lse=per * (2 if model.cfg.remat else 1),
+                  flash_attention_bwd_dq=per, flash_attention_bwd_dkv=per)
+    fcl_start = ([p.detach().clone() for p in trainer.fcl.parameters()]
+                 if con else [])
+    remat = tmod.remat
+    taps = []
+
+    def spy(fn, *args, **kw):
+        out = remat(fn, *args, **kw)
+        taps.append(len(out[4]))
+        return out
+
+    tmod.remat = spy
+    try:
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        loss, bk = trainer.train_step(batch)
+        torch.cuda.synchronize()
+        first = time.perf_counter() - t0
+    finally:
+        tmod.remat = remat
+    counts = dict(launch_counts)
+    dpo1 = float(bk.dpo)
+    log(f"  first step {first:.3f} s: loss {loss.item():.4f}, flow "
+        f"{float(bk.flow):.4f}, dpo {dpo1:.6f} (ln 2 = {math.log(2):.6f}, "
+        f"|diff| {abs(dpo1 - math.log(2)):.2e}, tol 1e-2), contrastive "
+        f"{float(bk.contrastive):.6f}; launches {counts}")
+    want_taps = ([2] + [0] * (model.cfg.depth - 1) if con
+                 else [0] * model.cfg.depth) if model.cfg.remat else []
+    if taps != want_taps:
+        raise RuntimeError(f"{label}: the checkpointed layers returned "
+                           f"tapped hiddens {taps}, expected {want_taps}")
+    if model.cfg.remat and con:
+        log(f"  FactorCL tap: layer 1's (audio, CLIP-stream) hiddens are "
+            f"outputs of its checkpointed call ({model.cfg.remat_policy}); "
+            f"the other {model.cfg.depth - 1} layers return none")
+    if abs(dpo1 - math.log(2)) > 1e-2 or counts != expect:
+        raise RuntimeError(f"{label}: first DPO term {dpo1} (not ln 2) or "
+                           f"launches {counts} != {expect}")
+    torch.cuda.reset_peak_memory_stats()
+    walls, terms = [], []
+    for _ in range(DPO_STEPS):
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        loss, bk = trainer.train_step(batch)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        if dict(launch_counts) != expect:
+            raise RuntimeError(f"{label}: launches {dict(launch_counts)} != "
+                               f"{expect}")
+        terms.append((loss.item(), float(bk.flow), float(bk.dpo),
+                      float(bk.contrastive)))
+    peak = torch.cuda.max_memory_allocated()
+    terms = np.asarray(terms)
+    moved = (max((p - q).abs().max().item() for p, q in
+                 zip(trainer.fcl.parameters(), fcl_start)) if con else 0.0)
+    wall = float(np.median(walls))
+    audio_s = TRAIN_BATCH * TRAIN_LATENTS / 75.0
+    log(f"  {label} x{DPO_STEPS}: wall (s) "
+        f"{', '.join(f'{w:.4f}' for w in walls)}; median {wall:.4f} s, "
+        f"{audio_s / wall:.2f} training audio-s per s; peak memory "
+        f"{peak / 2**30:.2f} GiB; launches per step {expect}")
+    log(f"  loss / flow / dpo / contrastive per step: "
+        + "; ".join(" / ".join(f"{x:.4f}" for x in row) for row in terms)
+        + (f"; FactorCL max |param change| {moved:.3e}" if con else ""))
+    if not np.isfinite(terms).all():
+        raise RuntimeError(f"{label}: a non-finite term {terms}")
+    if con and not (np.all(terms[:, 3] != 0.0) and moved > 0):
+        raise RuntimeError(f"{label}: contrastive {terms[:, 3]} or FactorCL "
+                           f"moved {moved}")
+
+    def step():
+        loss, _ = trainer.train_step(batch)
+        if not torch.isfinite(loss):
+            raise RuntimeError(f"{label} profile: non-finite loss")
+
+    phase_profile(torch, label, step, SM90_FWD[1:] + SM90_BWD)
+
+
+# --------------------------------------------------------------- phase 19
+
+def phase_reflow(torch, frames, root: str):
+    """Reflow at full width: the teacher (v2a_default(), seed 0) draws
+    REFLOW_BATCH x REFLOW_LATENTS pairs with its 25-step sway CFG sampler
+    (K1 24 x 48 times a batch), the student (the teacher's weights) takes
+    REFLOW_STEPS distill steps (K3-K5 48 times each); the student goes to
+    disk with save_model, into a serving pipeline (phase 5's) with
+    load_weights, and samples a 10 s clip with generate(fewstep=2). Returns
+    the pipeline."""
+    import numpy as np
+
+    from v2ap_torch import config as C
+    from v2ap_torch.models.cfm import CFM
+    from v2ap_torch.ops.flash_attention import (launch_counts,
+                                                reset_launch_counts)
+    from v2ap_torch.training.distill import (ReflowConfig, ReflowDistiller,
+                                             make_pair_sampler)
+    from v2ap_torch.utils.checkpoint import save_model
+    from v2ap_torch.utils.device import seeded_init
+
+    cfg = C.v2a_default()
+    mc = cfg.model
+    dev = torch.device("cuda")
+
+    def build():
+        with seeded_init(0, dev):
+            return CFM(mc, cfg.conditioning, device=dev,
+                       with_video2roll=mc.video2roll)
+
+    teacher = build().eval().requires_grad_(False)
+    student = build()
+    student.load_state_dict(teacher.state_dict())
+    rcfg = ReflowConfig()
+    pairs = make_pair_sampler(teacher, rcfg)
+    distiller = ReflowDistiller(student, rcfg)
+    b, n = REFLOW_BATCH, REFLOW_LATENTS
+    rng = np.random.default_rng(0)
+    ctx = torch.zeros(b, 1, mc.dim_context, device=dev)
+    ctx_mask = torch.ones(b, 1, dtype=torch.bool, device=dev)
+    mask = torch.ones(b, n, dtype=torch.bool, device=dev)
+    roll = torch.zeros(b, n, mc.notes, device=dev)
+    lens = torch.full((b,), n, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    per = mc.depth * 4
+    pair_expect = dict.fromkeys(launch_counts, 0)
+    # the sway schedule's teacher_steps times, teacher_steps - 1 evaluations
+    pair_expect["flash_attention_packed"] = (rcfg.teacher_steps - 1) * per
+    step_expect = dict.fromkeys(launch_counts, 0)
+    step_expect.update(flash_attention_lse=per, flash_attention_bwd_dq=per,
+                       flash_attention_bwd_dkv=per)
+    pair_s, step_s, losses = [], [], []
+    for _ in range(REFLOW_STEPS):
+        text = torch.from_numpy(rng.normal(size=(b, n, mc.dim_text)).astype(
+            np.float32)).to(dev)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        x0, x1 = pairs(text, roll, ctx, ctx_mask, mask, generator=gen)
+        torch.cuda.synchronize()
+        pair_s.append(time.perf_counter() - t0)
+        counts = dict(launch_counts)
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        loss = distiller.distill_step(x0, x1, lens=lens, text_embed=text,
+                                      context=ctx, context_mask=ctx_mask)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        losses.append(loss.item())
+        if counts != pair_expect or dict(launch_counts) != step_expect:
+            raise RuntimeError(f"reflow: pair launches {counts} (expected "
+                               f"{pair_expect}), step {dict(launch_counts)} "
+                               f"(expected {step_expect})")
+        if not (torch.isfinite(x1).all() and np.isfinite(losses[-1])):
+            raise RuntimeError("reflow: non-finite pair or loss")
+    log(f"  pairs {b} x {n} ({rcfg.teacher_steps} sway steps, CFG "
+        f"{rcfg.cfg_strength}): "
+        f"{', '.join(f'{t:.3f}' for t in pair_s)} s a batch (K1 "
+        f"{pair_expect['flash_attention_packed']} a batch); distill steps "
+        f"{', '.join(f'{t:.3f}' for t in step_s)} s (K3-K5 {per} each), "
+        f"losses {', '.join(f'{x:.4f}' for x in losses)}; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    path = os.path.join(root, "reflow")
+    t0 = time.perf_counter()
+    save_model(path, student, step=distiller.step)
+    save_s = time.perf_counter() - t0
+    del teacher, student, distiller, pairs
+    torch.cuda.empty_cache()
+    pipe = full_pipeline(torch, "V2A", frame_stride=1)
+    t0 = time.perf_counter()
+    loaded = pipe.load_weights(path)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    walls = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        wav, sr = pipe.generate(None, fewstep=2, seed=0,
+                                frames_cache=[(frames, CLIP_S, 1)])
+        walls.append(time.perf_counter() - t0)
+    log(f"  student saved in {save_s:.2f} s, load_weights -> {loaded} in "
+        f"{load_s:.2f} s; generate(fewstep=2): {wav.shape[0]} samples at "
+        f"{sr} Hz, walls {walls[0]:.3f} s (captures) and {walls[1]:.3f} s")
+    if loaded != ["cfm"] or wav.shape[0] != int(CLIP_S * sr) or \
+            not np.isfinite(wav).all():
+        raise RuntimeError(f"reflow: load_weights {loaded} or a bad "
+                           f"few-step waveform")
+    return pipe
+
+
+# --------------------------------------------------------------- phase 20
+
+def phase_reference(torch, pipe, frames, root: str) -> None:
+    """The reference's checkpoint layout at full width: a synthetic
+    crossatt3 ``.pt`` (every key and shape of ``reference_manifest``,
+    gaussian values of std REF_SCALE from seed 0) under ``root``;
+    ``python -m v2ap_torch.convert`` writes ``root/converted/cfm``; a
+    strict load leaves no key; the q rows of a self-attention are the
+    state dict's, permuted to the half-split rotary pairs; the serving
+    pipeline's ``load_weights`` takes the converted CFM and generates a
+    finite 10 s clip; the ``.pt`` is removed. Then a crossatt6 ``.pt``'s
+    state dict into a seeded crossatt6 CFM on the card: only the FactorCL
+    tower's keys left, ``to_frames`` and ``proj_frames`` zero."""
+    import numpy as np
+
+    from v2ap_torch import config as C
+    from v2ap_torch.convert import build_cfm
+    from v2ap_torch.models.cfm import CFM
+    from v2ap_torch.utils.device import seeded_init
+    from v2ap_torch.utils.reference_ckpt import (
+        _rope_permute, load_cfm_from_reference_state_dict,
+        load_reference_checkpoint)
+    from v2ap_torch.utils.reference_manifest import reference_manifest
+
+    mc = C.v2a_default().model
+
+    def synthetic(variant: str, seed: int) -> dict:
+        g = torch.Generator().manual_seed(seed)
+        return {k: torch.randn(shape, generator=g) * REF_SCALE
+                for k, shape in reference_manifest(mc, variant).items()}
+
+    t0 = time.perf_counter()
+    sd = synthetic("crossatt3", 0)
+    pt = os.path.join(root, "crossatt3.pt")
+    torch.save({"model_state_dict": sd}, pt)
+    size = os.path.getsize(pt)
+    log(f"  synthetic crossatt3 .pt: {len(sd)} keys, "
+        f"{sum(v.numel() for v in sd.values()) / 1e6:.1f} M values, "
+        f"{size / 2**30:.2f} GiB, written in {time.perf_counter() - t0:.2f} s")
+    out = os.path.join(root, "converted")
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "v2ap_torch.convert",
+                          "--cfm-ckpt", pt, "--out", out], cwd=ROOT,
+                         capture_output=True, text=True, timeout=600)
+    convert_s = time.perf_counter() - t0
+    log(f"  python -m v2ap_torch.convert: exit {res.returncode} in "
+        f"{convert_s:.2f} s: {res.stdout.strip()[-200:]}")
+    if res.returncode != 0:
+        raise RuntimeError(f"convert failed: {res.stderr[-2000:]}")
+    cfm = build_cfm(51)
+    t0 = time.perf_counter()
+    left = load_reference_checkpoint(pt, cfm, strict=True)
+    strict_s = time.perf_counter() - t0
+    q = sd["transformer.layers.0.0.3.to_q.weight"]
+    inner = mc.heads * mc.dim_head
+    want_q = _rope_permute(q, mc.heads, mc.dim_head, mc.dim_head)
+    qkv = cfm.transformer.audio_blocks[0].attn.to_qkv.weight.detach()
+    rows_ok = (torch.equal(qkv[:inner], want_q) and torch.equal(qkv[1], q[2])
+               and torch.equal(qkv[mc.dim_head // 2], q[1]))
+    log(f"  strict load on the host in {strict_s:.2f} s: {len(left)} keys "
+        f"left; layer 0's q rows are the state dict's in half-split order "
+        f"(row 1 = row 2, row {mc.dim_head // 2} = row 1): {rows_ok}")
+    if left or not rows_ok:
+        raise RuntimeError(f"reference: strict load left {left[:5]} or the "
+                           f"q rows are not the permuted state dict's")
+    del cfm
+    t0 = time.perf_counter()
+    loaded = pipe.load_weights(out)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    served = pipe.cfm.transformer.audio_blocks[0].attn.to_qkv.weight
+    served_ok = torch.equal(served[:inner].cpu(), want_q.to(served.dtype))
+    t0 = time.perf_counter()
+    wav, sr = pipe.generate(None, steps=25, cfg_strength=2.0, seed=0,
+                            frames_cache=[(frames, CLIP_S, 1)])
+    gen_s = time.perf_counter() - t0
+    os.remove(pt)
+    log(f"  load_weights -> {loaded} in {load_s:.2f} s (served q rows "
+        f"{served.dtype}, equal to the permuted state dict's: {served_ok}); "
+        f"V2A generate {gen_s:.3f} s (captures): {wav.shape[0]} samples, "
+        f"finite {bool(np.isfinite(wav).all())}; .pt removed "
+        f"{not os.path.exists(pt)}")
+    if loaded != ["cfm"] or not served_ok or os.path.exists(pt) or \
+            wav.shape[0] != int(CLIP_S * sr) or not np.isfinite(wav).all():
+        raise RuntimeError("reference: load_weights or generate failed")
+    cfg6 = C.variant_preset("crossatt6")
+    sd6 = synthetic("crossatt6", 1)
+    with seeded_init(0, torch.device("cuda")):
+        cfm6 = CFM(cfg6.model, cfg6.conditioning, device="cuda")
+    ccs = [cc for cc in cfm6.transformer.cross_conditions
+           if cc.cond_audio_to_others]
+    with torch.no_grad():        # the fusions start at zero: make them not
+        for w in [cc.to_frames.weight for cc in ccs] + [
+                cfm6.proj_frames.weight, cfm6.proj_frames.bias]:
+            w.fill_(1.0)
+    before = (all(cc.to_frames.weight.abs().sum() > 0 for cc in ccs)
+              and cfm6.proj_frames.weight.abs().sum() > 0)
+    t0 = time.perf_counter()
+    left = load_cfm_from_reference_state_dict(sd6, cfm6, strict=True)
+    torch.cuda.synchronize()
+    load6_s = time.perf_counter() - t0
+    inert = (all(not cc.to_frames.weight.any() for cc in ccs)
+             and not cfm6.proj_frames.weight.any()
+             and not cfm6.proj_frames.bias.any())
+    others = [k for k in left
+              if not k.startswith("transformer.contrastive_loss.")]
+    log(f"  crossatt6 state dict ({len(sd6)} keys) into a seeded crossatt6 "
+        f"CFM on the card in {load6_s:.2f} s: {len(left)} FactorCL keys "
+        f"left, {len(others)} others; to_frames ({len(ccs)} layers) and "
+        f"proj_frames set nonzero before {bool(before)}, zero after "
+        f"{inert}")
+    if others or not left or not before or not inert:
+        raise RuntimeError("reference: the crossatt6 load is wrong")
+    del cfm6, sd6
+    torch.cuda.empty_cache()
+
+
 # ------------------------------------------------------------------ main
 
 def main() -> int:
@@ -2182,7 +2571,7 @@ def main() -> int:
         "error", message="flex_attention called without torch.compile")
     t_start = time.perf_counter()
 
-    log(f"[1/17] build — card: {card_line()}")
+    log(f"[1/20] build — card: {card_line()}")
     log(f"  torch {torch.__version__} (CUDA {torch.version.cuda}), "
         f"{torch.cuda.get_device_name(0)}; f32 matmul and cuDNN TF32 off")
     t0 = time.perf_counter()
@@ -2192,18 +2581,18 @@ def main() -> int:
         f"{', '.join(src.name for src in fa._SOURCES)} in "
         f"{time.perf_counter() - t0:.2f} s")
 
-    log("[2/17] kernels vs plain versions (bf16 in, f32 reference)")
+    log("[2/20] kernels vs plain versions (bf16 in, f32 reference)")
     kern = phase_kernels(torch)
     kern.update(phase_train_kernels(torch))
     log_bwd_more(torch)
-    log("[3/17] P1 probe: packed (b, n, h*d) vs (b, h, n, d) + transposes")
+    log("[3/20] P1 probe: packed (b, n, h*d) vs (b, h, n, d) + transposes")
     kern["P1"] = phase_probe(torch)
-    log("[4/17] small f32 config: card vs CPU")
+    log("[4/20] small f32 config: card vs CPU")
     phase_small(torch)
     import numpy as np
 
     frames = clip_frames()
-    log("[5/17] full-width V2A generate (frame stride 1, empty prompt; the "
+    log("[5/20] full-width V2A generate (frame stride 1, empty prompt; the "
         "sampler as a captured program)")
     pipe = full_pipeline(torch, "V2A", frame_stride=1)
 
@@ -2213,7 +2602,7 @@ def main() -> int:
 
     phase_generate(torch, pipe, "V2A generate", generate_v2a,
                    generate_expect(pipe, len(frames)))
-    log("[6/17] V2A generate profile")
+    log("[6/20] V2A generate profile")
 
     def profiled(gen, check=None):
         def run():
@@ -2227,17 +2616,17 @@ def main() -> int:
     gen_counts = phase_profile(torch, "generate", profiled(generate_v2a),
                                SM90_FWD, generate_expect(pipe, len(frames)),
                                k1_expect(pipe))
-    log("[7/17] full-width sampler: captured programs vs eager, same inputs")
+    log("[7/20] full-width sampler: captured programs vs eager, same inputs")
     phase_captured(torch, pipe, frames)
-    log(f"[8/17] generate_batch: {BATCH} x 10 s clips, frames handed in")
+    log(f"[8/20] generate_batch: {BATCH} x 10 s clips, frames handed in")
     phase_generate_batch(torch, pipe, frames)
-    log(f"[9/17] generate_long: a {LONG_S:.0f} s clip in one batched call")
+    log(f"[9/20] generate_long: a {LONG_S:.0f} s clip in one batched call")
     phase_generate_long(torch, pipe)
-    log(f"[10/17] HTTP server: {BATCH} concurrent POST /v2a")
+    log(f"[10/20] HTTP server: {BATCH} concurrent POST /v2a")
     phase_http(torch, pipe)
     del pipe
     torch.cuda.empty_cache()
-    log("[11/17] full-width V2P generate with a prompt (v2a_default(): frame "
+    log("[11/20] full-width V2P generate with a prompt (v2a_default(): frame "
         "stride 3, strip stride 2; FLAN-T5-large, Video2Roll)")
     pipe = full_pipeline(torch, "V2P")
     strips = np.random.default_rng(1).integers(
@@ -2257,20 +2646,20 @@ def main() -> int:
     roll = pipe.last_roll
     log(f"  roll {tuple(roll.shape)}: min {roll.min().item():.4f}, max "
         f"{roll.max().item():.4f}, mean {roll.mean().item():.4f}")
-    log("[12/17] V2P generate profile")
+    log("[12/20] V2P generate profile")
     phase_profile(torch, "V2P generate", profiled(generate_v2p, check_roll),
                   SM90_FWD, generate_expect(pipe, len(frames)),
                   k1_expect(pipe))
     del pipe, roll
     torch.cuda.empty_cache()
-    log("[13/17] small train: tiny_test() card vs CPU, then "
+    log("[13/20] small train: tiny_test() card vs CPU, then "
         f"{TINY_STEPS} steps")
     phase_small_train(torch)
-    log("[14/17] full-width V2A train step, then with remat full and dots")
+    log("[14/20] full-width V2A train step, then with remat full and dots")
     trainer, batch = full_trainer(torch)
     train_counts = phase_train(torch, trainer, batch)
     phase_train_remat(torch, trainer, batch, train_counts)
-    log("[15/17] train-step profile")
+    log("[15/20] train-step profile")
 
     def train_once():
         loss, _ = trainer.train_step(batch)
@@ -2282,13 +2671,50 @@ def main() -> int:
     torch.cuda.empty_cache()
     root = tempfile.mkdtemp(prefix="v2ap_chip_smoke_")
     try:
-        log("[16/17] train from corpora: TrainingPipeline(v2a_default()), "
+        log("[16/20] train from corpora: TrainingPipeline(v2a_default()), "
             f"remat dots, EMA, batch {TRAIN_BATCH} x {TRAIN_LATENTS}")
         tp, batcher = phase_corpus_train(torch, root)
-        log("[17/17] resume, save the EMA CFM, load_weights, generate")
+        log("[17/20] resume, save the EMA CFM, load_weights, generate")
         held = {"pipe": tp, "batcher": batcher}
         del tp, batcher
         phase_resume_and_serve(torch, held, root, frames)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    from v2ap_torch import config as C
+
+    log(f"[18a/20] DPO at full width: crossatt3, TrainConfig(dpo=True), "
+        f"dropout 0.1, no remat, batch {TRAIN_BATCH} x {TRAIN_LATENTS} with "
+        f"rows 6 and 7 a pair")
+    trainer, batch = full_trainer(torch, train_cfg=C.TrainConfig(dpo=True),
+                                  pair=True)
+    phase_dpo(torch, "DPO train step", trainer, batch)
+    del trainer, batch
+    torch.cuda.empty_cache()
+    log(f"[18b/20] crossatt6 (FactorCL) with DPO under remat dots, batch "
+        f"{TRAIN_BATCH} x {TRAIN_LATENTS}")
+    six = C.variant_preset("crossatt6")
+    six = six.replace(model=dataclasses.replace(six.model, remat=True,
+                                                remat_policy="dots"))
+    trainer, batch = full_trainer(
+        torch, cfg=six, train_cfg=dataclasses.replace(six.train, dpo=True),
+        pair=True)
+    phase_dpo(torch, "crossatt6 DPO + FactorCL step (remat dots)", trainer,
+              batch)
+    del trainer, batch
+    torch.cuda.empty_cache()
+    root = tempfile.mkdtemp(prefix="v2ap_chip_smoke_")
+    try:
+        log(f"[19/20] reflow: pairs from the full-width teacher, "
+            f"{REFLOW_STEPS} distill steps, save_model, load_weights, "
+            f"generate(fewstep=2)")
+        pipe = phase_reflow(torch, frames, root)
+        log("[20/20] the reference layout: a full-width synthetic crossatt3 "
+            ".pt, python -m v2ap_torch.convert, load_weights, generate; "
+            "crossatt6")
+        phase_reference(torch, pipe, frames, root)
+        del pipe
+        torch.cuda.empty_cache()
     finally:
         shutil.rmtree(root, ignore_errors=True)
 

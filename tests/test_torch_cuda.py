@@ -786,3 +786,177 @@ def test_checkpoint_round_trip_on_cuda(cuda, tmp_path):
     assert a["opt"]["count"] == b["opt"]["count"] == 2
     loss, _ = fresh.train_step(batch)
     assert torch.isfinite(loss)
+
+
+# the card's bf16 DPO + FactorCL step against the CPU's f32 one, per tensor;
+# the limits are set from the card's readings (see the test's docstring)
+DPO_GRAD_REL = 0.25
+DPO_UPDATE_REL = 1e-3
+
+
+def _rms(t) -> float:
+    return t.detach().float().cpu().pow(2).mean().sqrt().item()
+
+
+def _dpo_factorcl_readings(device) -> dict:
+    """One ``Trainer`` step with DPO and FactorCL at learning rate 1e-2
+    (Adam's first update -1e-4 * sign(g) after the warm-up's 0.01 factor)
+    on ``device`` in bf16 and on the CPU in f32, from the same weights,
+    EMA shadow (set apart from the model, so the reference scores differ)
+    and draws; and the CPU step once more without its DPO term. Returns
+    the loss terms, the global gradient norms, the card's launch counts,
+    and per tensor of the CFM ("cfm.<name>") and FactorCL ("fcl.<name>"):
+
+      * ``grad``: RMS of the card's minus the CPU's (clipped) gradient over
+        the CPU gradient's RMS, floored at 1e-3 of the module's largest
+        (a gradient that is 0, or cancels to rounding noise, is held to
+        that floor); ``grad_without_dpo`` the same for the CPU step
+        without DPO;
+      * ``update``, ``zero_update``, ``flipped_update``: the relative RMS
+        of the card's update (after minus before), a zero one and the
+        negated CPU update against the CPU's, over the elements whose CPU
+        gradient exceeds a tenth of its tensor's RMS and where the card's
+        has the same sign within half of it (there Adam's first update,
+        -lr * sign(g) less the weight decay, must agree; None where no
+        element qualifies);
+
+    and the card's EMA shadow against decay * before + (1 - decay) * after
+    (relative RMS per tensor)."""
+    import dataclasses
+
+    from v2ap_torch import config as C
+    from v2ap_torch.models.cfm import CFM, draw_loss_randoms
+    from v2ap_torch.training import Trainer
+
+    base = C.tiny_test()
+    cfg = dataclasses.replace(base.model, dropout=0.0, depth=2, text_depth=2)
+    tcfg = C.TrainConfig(learning_rate=1e-2, warmup_steps=2, ema_decay=0.9,
+                         dpo=True, contrastive=True)
+    torch.manual_seed(0)
+    cpu = Trainer(CFM(cfg, base.conditioning, device="cpu"), tcfg)
+    card = Trainer(CFM(dataclasses.replace(cfg, dtype="bfloat16"),
+                       base.conditioning, device=device), tcfg)
+    no_dpo = Trainer(CFM(cfg, base.conditioning, device="cpu"),
+                     dataclasses.replace(tcfg, dpo=False))
+    for t in (card, no_dpo):
+        t.model.load_state_dict(cpu.model.state_dict())
+        t.fcl.load_state_dict(cpu.fcl.state_dict())
+    with torch.no_grad():
+        for name, s in cpu.ema.shadow.items():
+            s.add_(torch.randn_like(s) * 0.01)
+            card.ema.shadow[name].copy_(s)
+    shadow = {k: s.clone() for k, s in card.ema.shadow.items()}
+
+    def params(t):
+        return {m: dict(mod.named_parameters())
+                for m, mod in (("cfm", t.model), ("fcl", t.fcl))}
+
+    before = {m: {k: p.detach().clone() for k, p in ps.items()}
+              for m, ps in params(cpu).items()}
+    b, n, nc = 8, 40, 6
+    rng = np.random.default_rng(6)
+    r = lambda *s: torch.from_numpy(rng.normal(size=s).astype(np.float32))
+    batch = {"latents": r(b, n, cfg.num_channels),
+             "lens": torch.tensor([n, n - 9] + [n] * (b - 2)),
+             "text_embed": r(b, n, cfg.dim_text),
+             "context": r(b, nc, cfg.dim_context),
+             "context_mask": torch.arange(nc)[None] < torch.tensor(
+                 [[3]] + [[nc]] * (b - 1))}
+    draws = draw_loss_randoms(b, n, cfg.num_channels,
+                              base.conditioning.frac_lengths_mask,
+                              generator=torch.Generator().manual_seed(2))
+    ft = torch.tensor(17)
+    fa.reset_launch_counts()
+    loss_g, bk_g = card.train_step(batch, draws=draws._replace(
+        **{f: getattr(draws, f).to(device) for f in draws._fields}),
+        feature_t=ft)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    counts = dict(fa.launch_counts)
+    loss_c, bk_c = cpu.train_step(batch, draws=draws, feature_t=ft)
+    no_dpo.train_step(batch, draws=draws, feature_t=ft)
+
+    got, want, alt = params(card), params(cpu), params(no_dpo)
+    tensors = {}
+    for m, ps in want.items():
+        floor = 1e-3 * max(_rms(p.grad) for p in ps.values())
+        for name, p in ps.items():
+            g = p.grad
+            g_card = got[m][name].grad.detach().float().cpu()
+            den = max(_rms(g), floor)
+            big = g.abs() > 0.1 * _rms(g)
+            agree = big & (g_card.sign() == g.sign()) & (
+                (g_card - g).abs() < 0.5 * g.abs())
+            upd = (p.detach() - before[m][name])[agree]
+            card_upd = (got[m][name].detach().float().cpu()
+                        - before[m][name])[agree]
+            rel = lambda x: (_rms(x - upd) / _rms(upd) if agree.any()
+                             else None)
+            tensors[f"{m}.{name}"] = dict(
+                grad=_rms(g_card - g) / den,
+                grad_without_dpo=_rms(alt[m][name].grad - g) / den,
+                update=rel(card_upd), zero_update=rel(torch.zeros_like(upd)),
+                flipped_update=rel(-upd))
+    ema = {k: _rms(s - (0.9 * shadow[k] + 0.1 * got["cfm"][k].detach()))
+           / _rms(s) for k, s in card.ema.shadow.items()}
+    return dict(counts=counts, depth=cfg.depth,
+                terms={k: (float(g), float(c)) for k, g, c in (
+                    ("loss", loss_g, loss_c), ("flow", bk_g.flow, bk_c.flow),
+                    ("dpo", bk_g.dpo, bk_c.dpo),
+                    ("contrastive", bk_g.contrastive, bk_c.contrastive),
+                    ("grad_norm", card.last_grad_norm, cpu.last_grad_norm))},
+                tensors=tensors, ema=ema)
+
+
+def test_dpo_factorcl_step_in_bf16_tracks_the_cpu(cuda):
+    """One ``Trainer`` step with DPO and FactorCL (EMA shadow apart from the
+    model, 8 rows, the pair in the last two, dropout 0) in bf16 on the card
+    against the same step in f32 on the CPU, from the same weights and
+    draws (``_dpo_factorcl_readings``). The DPO reference forward runs
+    without autograd, so K1 launches once per attention beside the
+    policy's K3, K4 and K5. Held per tensor of the CFM and FactorCL:
+
+      * the clipped gradients within ``DPO_GRAD_REL`` relative RMS: this
+        checks the bf16 backward of the DPO and FactorCL path. On an H100
+        the readings ran to 0.14: a cross-attention gate bias whose DPO
+        and flow gradients cancel to a ninth of either, then FactorCL's
+        heads and the text stream it reaches (up to 0.11), whose CLUB
+        bound is a difference of nearly equal scores (the contrastive term
+        itself moves by 1.2% in bf16); the rest of the CFM 4e-3 to 2.2e-2.
+        The same step without its DPO term reads 0.56 to 9 on every CFM
+        tensor that has a gradient, so the check sees the term;
+      * Adam's update within ``DPO_UPDATE_REL`` where the two gradients
+        agree (the readings ran to 9.4e-5, the f32 rounding of p + 1e-4 at
+        |p| ~ 1); a zero update reads 1 and a sign-flipped one 2;
+      * the card's EMA shadow equal to decay * before + (1 - decay) *
+        after within 1e-6 (readings to 3e-8);
+
+    and the loss terms and the global gradient norm within 2e-2 (a bf16
+    forward)."""
+    rd = _dpo_factorcl_readings(cuda)
+    per_step = 4 * rd["depth"]
+    assert rd["counts"] == {
+        **dict.fromkeys(rd["counts"], 0),
+        "flash_attention_packed": per_step, "flash_attention_lse": per_step,
+        "flash_attention_bwd_dq": per_step, "flash_attention_bwd_dkv": per_step}
+    for key in ("loss", "flow", "dpo", "grad_norm"):
+        got, want = rd["terms"][key]
+        assert abs(got - want) <= 2e-2 * abs(want), key
+    got, want = rd["terms"]["contrastive"]
+    assert abs(got - want) <= 2e-2 and got != 0.0
+    tensors = rd["tensors"]
+    bad = {k: v["grad"] for k, v in tensors.items()
+           if not v["grad"] < DPO_GRAD_REL}
+    assert not bad, bad
+    without = [v["grad_without_dpo"] for k, v in tensors.items()
+               if k.startswith("cfm.") and v["update"] is not None]
+    assert float(np.median(without)) > DPO_GRAD_REL
+    updated = {k: v for k, v in tensors.items() if v["update"] is not None}
+    assert len(updated) > len(tensors) // 2
+    bad = {k: v["update"] for k, v in updated.items()
+           if not v["update"] < DPO_UPDATE_REL}
+    assert not bad, bad
+    for v in updated.values():
+        assert min(v["zero_update"], v["flipped_update"]) > DPO_UPDATE_REL
+    bad = {k: v for k, v in rd["ema"].items() if not v < 1e-6}
+    assert not bad, bad

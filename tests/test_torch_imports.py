@@ -119,3 +119,29 @@ def test_entry_points_parse_their_arguments(module):
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert "--tiny" in out.stdout and "--cpu" in out.stdout
+
+
+def test_preference_and_reference_sources_are_checked():
+    """The static check and the import walk cover the rest of training and
+    the reference layout: DPO, FactorCL, reflow distillation, the loader
+    and manifests of the reference's checkpoints and the two entry points."""
+    checked = {p.relative_to(ROOT).as_posix()
+               for p in (ROOT / "v2ap_torch").rglob("*.py")}
+    assert {"v2ap_torch/training/dpo.py",
+            "v2ap_torch/training/contrastive.py",
+            "v2ap_torch/training/distill.py",
+            "v2ap_torch/utils/reference_ckpt.py",
+            "v2ap_torch/utils/reference_manifest.py",
+            "v2ap_torch/convert.py",
+            "v2ap_torch/distill.py"} <= checked
+
+
+@pytest.mark.parametrize("module,flag", [("v2ap_torch.distill", "--ckpt"),
+                                         ("v2ap_torch.convert", "--cfm-ckpt")])
+def test_conversion_and_distill_entry_points_parse_their_arguments(module,
+                                                                   flag):
+    """``python -m`` on each starts without JAX and prints its usage."""
+    out = subprocess.run([sys.executable, "-m", module, "--help"], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert flag in out.stdout and "--tiny" in out.stdout

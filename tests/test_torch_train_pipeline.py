@@ -367,7 +367,7 @@ def test_train_cli_config_and_remat(tmp_path):
     path.write_text(j_config.variant_preset("crossatt3_2").to_json())
     defaults = dict(variant="crossatt3", config=None, tiny=False,
                     no_remat=False, remat_policy="dots", grad_accum=None,
-                    batch_size=None)
+                    batch_size=None, dpo=False, contrastive=False)
     parse = lambda *a: t_train.build_config(
         type("Args", (), {**defaults, **dict(a)})())
     cfg = parse(("config", str(path)), ("grad_accum", 2))
@@ -386,13 +386,51 @@ def test_train_cli_config_and_remat(tmp_path):
 
 
 @pytest.mark.parametrize("args", [
-    ["--variant", "crossatt"], ["--variant", "crossatt6"], ["--dpo"],
-    ["--contrastive"], ["--video-encoder", "dinov2"], ["--host-id", "0"],
-    ["--num-hosts", "2"], ["--no-mesh"]])
+    ["--video-encoder", "dinov2"], ["--host-id", "0"], ["--num-hosts", "2"],
+    ["--no-mesh"]])
 def test_train_cli_unported_options_raise(args, tmp_path):
     with pytest.raises(NotImplementedError):
         t_train.main(["--corpora-root", str(tmp_path), "--tiny", "--device",
                       "cpu", *args])
+
+
+@pytest.mark.parametrize("args", [
+    ["--variant", "crossatt"], ["--variant", "crossatt6"], ["--dpo"],
+    ["--contrastive"], ["--dpo", "--contrastive", "--variant", "crossatt6"]],
+    ids=["crossatt", "crossatt6", "dpo", "contrastive", "dpo-crossatt6"])
+def test_train_cli_two_stream_dpo_contrastive(args, tmp_path, media):
+    """The two-stream variants, DPO and FactorCL train 2 steps through
+    ``--tiny --device cpu`` at the default batch of 8 (the contrastive
+    gate open) on the corpus plus ``pairs.scp`` (a*/b* wav pairs); the
+    metrics logged at the last step hold finite losses, and nonzero ``dpo`` / ``contrastive`` when
+    they are on."""
+    root = str(tmp_path / "corpus")
+    _corpus(root, media)
+    rng = np.random.default_rng(51)
+    pairs = tmp_path / "pairs"
+    pairs.mkdir()
+    with open(os.path.join(root, "pairs.scp"), "w") as f:
+        for i in range(2):
+            for side in "ab":
+                path = str(pairs / f"{side}{i}.wav")
+                write_wav(path, (rng.normal(size=12_000) * 0.2
+                                 ).astype(np.float32))
+                f.write(f"{path}\tpair {i}\n")
+    work = tmp_path / "run"
+    assert t_train.main(["--corpora-root", root, "--tiny", "--device", "cpu",
+                         "--steps", "2", "--work-dir", str(work),
+                         *args]) == 0
+    recs = [json.loads(line)
+            for line in open(work / "logs" / "metrics.jsonl")]
+    assert [r["step"] for r in recs] == [2]             # the last step
+    dpo = "--dpo" in args
+    con = "--contrastive" in args or "crossatt6" in args
+    for r in recs:
+        assert np.isfinite(r["loss"]) and np.isfinite(r["flow"])
+        assert ("dpo" in r) == dpo and ("contrastive" in r) == con
+        for key in ("dpo", "contrastive"):
+            if key in r:
+                assert np.isfinite(r[key]) and r[key] != 0.0, (key, r)
 
 
 def test_config_presets_match_jax():

@@ -450,15 +450,25 @@ def test_trainer_run_steps_and_calls_back():
 
 
 def test_unported_options_raise():
-    """DPO and FactorCL are not ported; the bf16 first moment and remat are
-    (tests/test_torch_training_v2p.py) and build."""
-    with pytest.raises(NotImplementedError):
-        t_trainer.make_train_step(t_config.TrainConfig(dpo=True))
-    with pytest.raises(NotImplementedError):
-        t_trainer.make_train_step(t_config.TrainConfig(contrastive=True))
+    """Every training option is ported and builds: DPO and FactorCL
+    (tests/test_torch_preference.py), the bf16 first moment and remat
+    (tests/test_torch_training_v2p.py). A DPO step without the reference
+    parameters, or a FactorCL step without FactorCL, raises."""
+    cfg = t_config.TrainConfig(dpo=True, contrastive=True, grad_accum=2)
+    step = t_trainer.make_train_step(cfg)
     t_trainer.make_tx(t_config.TrainConfig(mu_bf16=True), [])
     _, tcfg = model_cfgs(remat=True)
-    assert t_cfm.CFM(tcfg, device="cpu").transformer.cfg.remat
+    model = t_cfm.CFM(tcfg, device="cpu")
+    assert model.transformer.cfg.remat
+    trainer = t_trainer.Trainer(model, cfg)
+    assert trainer.ema is not None and trainer.fcl is not None
+    batch = {k: T(v) for k, v in _batch(np.random.default_rng(21),
+                                         tcfg).items()}
+    with pytest.raises(ValueError, match="reference"):
+        step(model, trainer.optimizer, batch, fcl=trainer.fcl,
+             fcl_opt=trainer.fcl_opt)
+    with pytest.raises(ValueError, match="fcl"):
+        step(model, trainer.optimizer, batch, ref=trainer.ema.shadow)
 
 
 def test_trainer_refuses_missing_cuda():

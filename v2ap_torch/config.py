@@ -93,6 +93,15 @@ class SamplerConfig:
     method: str = "euler"            # euler | midpoint | heun
 
 
+def fewstep_sampler(steps: int = 2) -> SamplerConfig:
+    """Sampler settings for a reflow-distilled student
+    (``training.distill``): ``steps`` uniform Euler steps without CFG (the
+    guidance is in the pairs) and without sway (the straightened flow wants
+    uniform timesteps); ``V2APipeline.generate(fewstep=steps)`` samples
+    with it."""
+    return SamplerConfig(steps=steps, cfg_strength=0.0, sway_sampling=False)
+
+
 @dataclass(frozen=True)
 class ConditioningConfig:
     """Frozen encoder stack (reference: e2_tts_crossatt3.py:1411-1523)."""
@@ -146,11 +155,11 @@ class TrainConfig:
     ema_decay: float = 0.999
     use_ema: bool = False
     switch_ema_every: int = 0                  # >0: TrainingPipeline.fit copies EMA -> model every N steps
-    # DPO preference optimization: not ported (True raises)
+    # DPO preference optimization against the EMA shadow (turns EMA on)
     dpo: bool = False
     dpo_beta: float = 1.0
     velocity_consistency_weight: float = -1e-5
-    # FactorCL contrastive alignment: not ported (True raises)
+    # FactorCL contrastive alignment (the crossatt6 variant)
     contrastive: bool = False
     contrastive_weight: float = 1.0
     contrastive_layer: int = 1

@@ -72,6 +72,8 @@ class CFMOutput(NamedTuple):
     breakdown: LossBreakdown
     # per-sample span-masked flow loss (b,): the DPO scores
     per_sample_flow: Optional[torch.Tensor] = None
+    # (audio, CLIP-stream) hiddens at ``collect_hidden_layer``: FactorCL's
+    hiddens: Optional[tuple] = None
 
 
 class LossDraws(NamedTuple):
@@ -158,9 +160,12 @@ class CFM(nn.Module):
         context: Optional[torch.Tensor],        # (b, nc, dim_context)
         context_mask: Optional[torch.Tensor],   # (b, nc)
         deterministic: bool = True,
-    ) -> torch.Tensor:
+        collect_hidden_layer: Optional[int] = None,
+    ):
         """One transformer evaluation -> predicted flow (b, n, C), float32.
-        ``deterministic=False`` applies the transformer's dropouts."""
+        ``deterministic=False`` applies the transformer's dropouts.
+        ``collect_hidden_layer`` (1-based) returns ``(pred, hiddens)``: the
+        audio and CLIP-stream hiddens of that layer, for FactorCL."""
         if cond is not None and self.cfg.concat_cond:
             h = self.proj_in(torch.cat([cond, x], dim=-1))
         else:
@@ -173,7 +178,11 @@ class CFM(nn.Module):
         out = self.transformer(
             h, times=times, mask=mask, text_embed=text_embed,
             frames_embed=self.proj_frames(frames_embed), context=context,
-            context_mask=context_mask, deterministic=deterministic)
+            context_mask=context_mask, deterministic=deterministic,
+            collect_hidden_layer=collect_hidden_layer)
+        if collect_hidden_layer is not None:
+            out, hiddens = out
+            return self.to_pred(out).float(), hiddens
         return self.to_pred(out).float()
 
     # ------------------------------------------------------------- perception
@@ -358,6 +367,7 @@ class CFM(nn.Module):
         midi_loss_weight: float = 10.0,
         train_video_encoder: bool = True,
         use_midi_gt: bool = False,
+        collect_hidden_layer: Optional[int] = None,
     ) -> CFMOutput:
         """Flow-matching training objective: span mask, x0 and t,
         w = (1-t) x0 + t x1 against the flow x1 - x0, per-sample dropout of
@@ -372,7 +382,8 @@ class CFM(nn.Module):
         adds ``midi_loss_weight`` times itself to the total;
         ``train_video_encoder=False`` feeds the ground truth instead and
         adds no MIDI loss, ``use_midi_gt`` feeds the ground truth while
-        still training Video2Roll."""
+        still training Video2Roll. ``collect_hidden_layer`` puts that
+        layer's (audio, CLIP-stream) hiddens in ``CFMOutput.hiddens``."""
         cc = self.cond_cfg
         b, n, c = x1.shape
         dev = x1.device
@@ -433,14 +444,25 @@ class CFM(nn.Module):
         pred = self.pred_head(
             w, cond, times=t, mask=mask, text_embed=text_in,
             frames_embed=frames_embed, context=ctx_in,
-            context_mask=context_mask, deterministic=val)
+            context_mask=context_mask, deterministic=val,
+            collect_hidden_layer=collect_hidden_layer)
+        hiddens = None
+        if collect_hidden_layer is not None:
+            pred, hiddens = pred
         per = (pred - flow) ** 2
         loss_flow = torch.where(span_mask[..., None], per, 0.0).sum() / \
             torch.clamp(span_mask.sum() * c, min=1)
         per_sample = (per.mean(-1) * span_mask).mean(-1)
         breakdown = LossBreakdown(loss_flow, loss_midi, pre, rec, f1, acc)
         return CFMOutput(loss_flow + loss_midi * midi_loss_weight, pred,
-                         x0 + pred, breakdown, per_sample_flow=per_sample)
+                         x0 + pred, breakdown, per_sample_flow=per_sample,
+                         hiddens=hiddens)
+
+    def forward(self, *args, **kwargs) -> CFMOutput:
+        """The training objective, ``loss``: a module call, so that
+        ``torch.func.functional_call`` can run it on other parameters (the
+        DPO reference scores under the EMA shadow)."""
+        return self.loss(*args, **kwargs)
 
 
 def roll_metrics(probs: torch.Tensor, gt: torch.Tensor, mask: torch.Tensor):

@@ -21,6 +21,9 @@ model's own generator, which checkpointing does not restore, so each
 layer's recompute sets it to its state at the layer's forward and puts it
 back after: the recomputed masks are the forward's. The attention kernels
 are not products to PyTorch, so a recompute launches them again.
+``collect_hidden_layer`` (FactorCL's tap) returns one layer's audio and
+CLIP-stream hiddens, after its text block and before the cross-condition
+fusion, as outputs of that (checkpointed) layer.
 """
 
 from __future__ import annotations
@@ -276,7 +279,13 @@ class TriStreamTransformer(nn.Module):
         context: torch.Tensor | None = None,        # (b, nc, dim_context)
         context_mask: torch.Tensor | None = None,   # (b, nc)
         deterministic: bool = True,
-    ) -> torch.Tensor:
+        collect_hidden_layer: int | None = None,    # 1-based; for FactorCL
+    ):
+        """The final-normed audio stream (b, n, dim). With
+        ``collect_hidden_layer`` set, ``(out, collected)``: the audio and
+        CLIP-stream hiddens (registers included) of that layer after its
+        text block and before the cross-condition fusion, or None where the
+        layer has no text block."""
         cfg = self.cfg
         b, n, _ = x.shape
         r = cfg.num_registers
@@ -312,6 +321,7 @@ class TriStreamTransformer(nn.Module):
         rot_frames = clamp(cfg.frames_dim_head)
 
         skips = []
+        collected = None
         all_gammas = self._fused_cond_gammas(cond) if cfg.fused_adaln else None
         use_remat = cfg.remat and torch.is_grad_enabled()
         generator = (next((m.generator for m in self.modules()
@@ -321,10 +331,15 @@ class TriStreamTransformer(nn.Module):
             layer = ind + 1
             skip = None if layer <= cfg.depth // 2 else skips.pop()
 
+            # FactorCL tap: the layer's (audio, CLIP-stream) hiddens,
+            # returned by the (checkpointed) layer itself
+            collect = collect_hidden_layer == layer and ind < cfg.text_depth
+
             def layer_fwd(x, text_embed, frames_embed, skip, cond, gammas,
-                          ind=ind):
+                          ind=ind, collect=collect):
                 """One tri-stream layer; also returns the post-fusion x,
-                the U-Net skip source."""
+                the U-Net skip source, and the tapped hiddens (or ())."""
+                tapped = ()
                 if ind < cfg.text_depth:
                     text_embed = self.text_blocks[ind](
                         text_embed, rotary=rot_text, mask=mask,
@@ -332,6 +347,8 @@ class TriStreamTransformer(nn.Module):
                     frames_embed = self.frames_blocks[ind](
                         frames_embed, rotary=rot_frames, mask=mask,
                         deterministic=deterministic)
+                    if collect:
+                        tapped = (x, text_embed)
                     x, text_embed, frames_embed = self.cross_conditions[ind](
                         x, text_embed, frames_embed)
                 x_mid = x
@@ -339,16 +356,21 @@ class TriStreamTransformer(nn.Module):
                     x, skip, cond=cond, rotary=rot_audio, mask=mask,
                     context=context, context_mask=context_mask,
                     deterministic=deterministic, gammas=gammas)
-                return x, text_embed, frames_embed, x_mid
+                return x, text_embed, frames_embed, x_mid, tapped
 
             args = (x, text_embed, frames_embed, skip, cond,
                     None if all_gammas is None else all_gammas[ind])
             if use_remat:
-                x, text_embed, frames_embed, x_mid = remat(
+                x, text_embed, frames_embed, x_mid, tapped = remat(
                     layer_fwd, *args, policy=cfg.remat_policy,
                     generator=generator)
             else:
-                x, text_embed, frames_embed, x_mid = layer_fwd(*args)
+                x, text_embed, frames_embed, x_mid, tapped = layer_fwd(*args)
             if layer <= cfg.depth // 2:
                 skips.append(x_mid)
-        return self.final_norm(x[:, r:])
+            if collect:
+                collected = tapped
+        out = self.final_norm(x[:, r:])
+        if collect_hidden_layer is not None:
+            return out, collected
+        return out

@@ -47,7 +47,7 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from v2ap_torch.config import SamplerConfig, V2APConfig
+from v2ap_torch.config import SamplerConfig, V2APConfig, fewstep_sampler
 from v2ap_torch.data import video_io
 from v2ap_torch.evaluation.int8_gate import read_gate_default
 from v2ap_torch.models.cfm import CFM
@@ -527,8 +527,7 @@ class V2APipeline:
         """The 25-step sway CFG sampler, or ``fewstep`` uniform Euler steps
         without CFG (the distilled-student mode)."""
         if fewstep:
-            return SamplerConfig(steps=fewstep, cfg_strength=0.0,
-                                 sway_sampling=False)
+            return fewstep_sampler(fewstep)
         return SamplerConfig(steps=steps, cfg_strength=cfg_strength,
                              sway_sampling=True)
 

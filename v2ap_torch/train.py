@@ -10,36 +10,37 @@
     # everything from a config file (V2APConfig JSON, either package's)
     python -m v2ap_torch.train --corpora-root /data/scps --config cfg.json
 
+    # preference optimization on <root>/pairs.scp (a*/b* winner / loser
+    # files) and FactorCL, the variant-6 model
+    python -m v2ap_torch.train --corpora-root /data/scps --dpo \
+        --variant crossatt6
+
     # the CPU-runnable miniature
     python -m v2ap_torch.train --corpora-root /tmp/c --tiny --device cpu
 
 Counterpart of ``scripts/train.py``: the corpus mix
-(``manifests.default_corpora`` under ``--corpora-root``), the host
-``TrainBatcher`` and the ``TrainingPipeline``, which resumes from and
-checkpoints to ``--work-dir/ckpts``. Remat is on with the ``dots`` policy
-unless ``--no-remat`` or ``--tiny``, as in JAX. Not ported, and refused:
-the two-stream variants (``crossatt``, ``crossatt6``), ``--dpo``,
-``--contrastive``, video encoders other than ``clip_vit``, and the
-multi-host options (``--host-id``, ``--num-hosts``, ``--no-mesh``), which
-belong to parallelism.
+(``manifests.default_corpora`` under ``--corpora-root``, and with ``--dpo``
+the preference-pair corpus ``<root>/pairs.scp``), the host ``TrainBatcher``
+(with ``--dpo`` every micro-batch ends with a pair) and the
+``TrainingPipeline``, which resumes from and checkpoints to
+``--work-dir/ckpts``. Remat is on with the ``dots`` policy unless
+``--no-remat`` or ``--tiny``, as in JAX. Not ported, and refused: video
+encoders other than ``clip_vit`` and the multi-host options
+(``--host-id``, ``--num-hosts``, ``--no-mesh``), which belong to
+parallelism.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import sys
-
-PORTED_VARIANTS = ("crossatt3", "crossatt3_2")
 
 
 def build_config(args):
     from v2ap_torch import config as cfgmod
 
-    if args.variant not in PORTED_VARIANTS:
-        raise NotImplementedError(
-            f"--variant {args.variant}: only {PORTED_VARIANTS} are ported "
-            f"(the two-stream models are not)")
     if args.config:
         with open(args.config) as f:
             cfg = cfgmod.V2APConfig.from_json(f.read())
@@ -57,6 +58,10 @@ def build_config(args):
     model_kw, train_kw = {}, {}
     if not args.no_remat and not args.tiny:
         model_kw.update(remat=True, remat_policy=args.remat_policy)
+    if args.dpo:
+        train_kw["dpo"] = True
+    if args.contrastive:
+        train_kw["contrastive"] = True
     if args.grad_accum is not None:
         train_kw["grad_accum"] = args.grad_accum
     if args.batch_size is not None:
@@ -75,12 +80,16 @@ def main(argv=None) -> int:
                     help="V2APConfig JSON file (V2APConfig.to_json); the "
                          "flags below override its values")
     ap.add_argument("--variant", default="crossatt3",
-                    help="crossatt3 (the shipped V2A + V2P model) or "
-                         "crossatt3_2 (88 keys)")
+                    help="crossatt (no piano-roll stream), crossatt6 (with "
+                         "FactorCL), crossatt3 (the shipped V2A + V2P "
+                         "model) or crossatt3_2 (88 keys)")
     ap.add_argument("--video-encoder", default=None,
                     help="only clip_vit is ported")
-    ap.add_argument("--dpo", action="store_true", help="not ported")
-    ap.add_argument("--contrastive", action="store_true", help="not ported")
+    ap.add_argument("--dpo", action="store_true",
+                    help="preference optimization: <corpora-root>/pairs.scp "
+                         "lists a*/b* winner / loser files of one clip")
+    ap.add_argument("--contrastive", action="store_true",
+                    help="the FactorCL audio <-> video contrastive loss")
     ap.add_argument("--grad-accum", type=int, default=None)
     ap.add_argument("--steps", type=int, default=100_000)
     ap.add_argument("--batch-size", type=int, default=None)
@@ -106,16 +115,15 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
 
     unported = [flag for flag, on in (
-        ("--dpo", args.dpo), ("--contrastive", args.contrastive),
         ("--host-id", args.host_id is not None),
         ("--num-hosts", args.num_hosts is not None),
         ("--no-mesh", args.no_mesh),
         (f"--video-encoder {args.video_encoder}",
          args.video_encoder not in (None, "clip_vit"))) if on]
     if unported:
-        raise NotImplementedError(f"{', '.join(unported)}: not ported (DPO, "
-                                  f"FactorCL, other video towers and "
-                                  f"parallelism come later)")
+        raise NotImplementedError(f"{', '.join(unported)}: not ported "
+                                  f"(other video towers and parallelism "
+                                  f"come later)")
 
     from v2ap_torch.data.dataset import TrainBatcher
     from v2ap_torch.data.manifests import (CorpusSpec, default_corpora,
@@ -123,12 +131,19 @@ def main(argv=None) -> int:
     from v2ap_torch.training.pipeline import TrainingPipeline
 
     cfg = build_config(args)
-    samples = load_corpora(default_corpora(args.corpora_root))
+    specs = default_corpora(args.corpora_root)
+    if cfg.train.dpo:
+        # the preference pairs: a*/b* files of one clip (winner / loser)
+        specs.append(CorpusSpec("preference_pairs",
+                                os.path.join(args.corpora_root, "pairs.scp"),
+                                is_video=True, preference_pairs=True))
+    samples = load_corpora(specs)
     if not samples:
         print(f"no samples found under {args.corpora_root}", file=sys.stderr)
         return 2
     batcher = TrainBatcher(samples, cfg.data,
                            batch_size=cfg.train.batch_size, seed=args.seed,
+                           dpo=cfg.train.dpo,
                            micro_batches=cfg.train.grad_accum)
     eval_batcher = None
     if args.eval_scp:

@@ -122,7 +122,9 @@ class TrainingPipeline:
         """Train until step ``num_steps``, resuming from the latest
         checkpoint; the loss's draws come from the trainer's generator
         seeded ``seed + start`` (JAX's ``key(seed + start)``). Every
-        ``log_every`` steps: metrics and a heartbeat; every
+        ``log_every`` steps and at the last: metrics (with ``dpo`` and
+        ``contrastive`` when they are on) and a heartbeat (JAX's skips the
+        last unless ``log_every`` divides it); every
         ``switch_ema_every``: switch-EMA; every ``save_step``: a checkpoint
         and, with ``eval_batcher``, the val loss / F1 and target / pred
         latent figures. Returns the final step."""
@@ -134,10 +136,14 @@ class TrainingPipeline:
             loss, breakdown = self.trainer.train_step(
                 self.device_batch(next(it)))
             step = self.trainer.step
-            if step % log_every == 0:
-                self.metrics.log(step, loss=float(loss),
-                                 flow=float(breakdown.flow),
-                                 midi=float(breakdown.midi))
+            if step % log_every == 0 or step == num_steps:
+                scalars = dict(loss=float(loss), flow=float(breakdown.flow),
+                               midi=float(breakdown.midi))
+                if self.cfg.train.dpo:
+                    scalars["dpo"] = float(breakdown.dpo)
+                if self.cfg.train.contrastive:
+                    scalars["contrastive"] = float(breakdown.contrastive)
+                self.metrics.log(step, **scalars)
                 self.watchdog.beat(step, loss=float(loss))
             se = self.cfg.train.switch_ema_every
             if se and step % se == 0 and self.trainer.ema is not None:

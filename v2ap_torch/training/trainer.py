@@ -13,11 +13,12 @@ parameter took no part in the loss (optax still decays its weight). With
 ``mu_bf16`` the first moment is stored in bf16 and the update is optax's
 arithmetic on its float32 value (``torch.optim.AdamW`` cannot do that),
 else ``torch.optim.AdamW`` runs. The step runs eagerly and updates the
-model in place; remat is the model's (``ModelConfig.remat``). DPO and
-FactorCL are not ported and raise. ``Trainer.state_dict`` /
-``load_state_dict`` carry the exact training state (parameters, buffers,
-the model's dropout generator, the optimizer's moments and count, the EMA
-shadow, the step) for ``v2ap_torch.utils.checkpoint``.
+model in place; remat is the model's (``ModelConfig.remat``). DPO (the
+EMA shadow as the reference model) and FactorCL fold into the same step.
+``Trainer.state_dict`` / ``load_state_dict`` carry the exact training
+state (parameters, buffers, the model's dropout generator, the optimizer's
+moments and count, the EMA shadow, FactorCL and its optimizer, the step)
+for ``v2ap_torch.utils.checkpoint``.
 """
 
 from __future__ import annotations
@@ -29,7 +30,12 @@ import torch
 from torch import nn
 
 from v2ap_torch.config import TrainConfig
-from v2ap_torch.models.cfm import CFM, LossBreakdown, LossDraws
+from v2ap_torch.models.cfm import (CFM, LossBreakdown, LossDraws,
+                                   draw_loss_randoms)
+from v2ap_torch.training.contrastive import (FactorCL, FactorCLAdamW,
+                                             sample_contrastive_features)
+from v2ap_torch.training.dpo import dpo_pair_loss
+from v2ap_torch.utils.device import seeded_init
 
 
 def _linear_schedule(init: float, end: float, steps: int) -> Callable:
@@ -71,8 +77,9 @@ class _AdamWBf16Mu:
     u = (mu / (1 - b1^t)) / (sqrt(nu / (1 - b2^t)) + eps) + wd p,
     p += -lr u; mu is then stored rounded to bf16, nu in float32."""
 
-    def __init__(self, params: Sequence[nn.Parameter]):
+    def __init__(self, params: Sequence[nn.Parameter], weight_decay: float):
         self.params = params
+        self.weight_decay = weight_decay
         self.mu = [torch.zeros_like(p, dtype=torch.bfloat16) for p in params]
         self.nu = [torch.zeros_like(p) for p in params]
 
@@ -98,7 +105,7 @@ class _AdamWBf16Mu:
         upd = torch._foreach_div(mu, c1)
         torch._foreach_div_(upd, den)
         torch._foreach_add_(upd, torch._foreach_mul(self.params,
-                                                    WEIGHT_DECAY))
+                                                    self.weight_decay))
         torch._foreach_mul_(upd, float(-np.float32(lr)))
         torch._foreach_add_(self.params, upd)
         for dst, src in zip(self.mu, mu):
@@ -115,18 +122,21 @@ class _AdamWBf16Mu:
 
 class ClippedAdamW:
     """optax's clip_by_global_norm then adamw over ``params`` (the first
-    moment in bf16 with ``cfg.mu_bf16``); ``step()`` returns the global
-    gradient norm before the clip (a device tensor)."""
+    moment in bf16 with ``cfg.mu_bf16``) with ``cfg``'s schedule and clip;
+    ``step()`` returns the global gradient norm before the clip (a device
+    tensor). ``weight_decay`` is the trainer's 0.01 unless given (reflow
+    distillation keeps optax's default, 1e-4)."""
 
-    def __init__(self, params: Iterable[nn.Parameter], cfg: TrainConfig):
+    def __init__(self, params: Iterable[nn.Parameter], cfg: TrainConfig, *,
+                 weight_decay: float = WEIGHT_DECAY):
         self.params = list(params)
         self.schedule = make_lr_schedule(cfg)
         self.grad_clip = cfg.grad_clip
         self.count = 0
-        self.adamw = (_AdamWBf16Mu(self.params) if cfg.mu_bf16 else
-                      torch.optim.AdamW(self.params, lr=self.schedule(0),
-                                        betas=(B1, B2), eps=EPS,
-                                        weight_decay=WEIGHT_DECAY))
+        self.adamw = (_AdamWBf16Mu(self.params, weight_decay) if cfg.mu_bf16
+                      else torch.optim.AdamW(self.params, lr=self.schedule(0),
+                                             betas=(B1, B2), eps=EPS,
+                                             weight_decay=weight_decay))
 
     def zero_grad(self) -> None:
         for p in self.params:
@@ -187,17 +197,24 @@ class EMA:
 
 
 def _loss(model: CFM, batch: dict, *, generator, draws, midi_loss_weight,
-          val: bool = False, times=None):
+          val: bool = False, times=None, collect_hidden_layer=None,
+          params: Optional[dict] = None):
     """``model.loss`` on a batch dict; with ``frames`` in it (a V2P batch)
-    also its ``midis``, as JAX's ``has_frames``."""
+    also its ``midis``, as JAX's ``has_frames``. With ``params`` the model
+    runs on those parameters instead of its own (``functional_call``)."""
     has_frames = batch.get("frames") is not None
-    return model.loss(
-        batch["latents"], lens=batch["lens"], text_embed=batch["text_embed"],
+    kwargs = dict(
+        lens=batch["lens"], text_embed=batch["text_embed"],
         context=batch.get("context"), context_mask=batch.get("context_mask"),
         generator=generator, draws=draws, times=times, val=val,
         frames=batch["frames"] if has_frames else None,
         midis=batch.get("midis") if has_frames else None,
-        midi_loss_weight=midi_loss_weight)
+        midi_loss_weight=midi_loss_weight,
+        collect_hidden_layer=collect_hidden_layer)
+    if params is not None:
+        return torch.func.functional_call(model, params,
+                                          (batch["latents"],), kwargs)
+    return model.loss(batch["latents"], **kwargs)
 
 
 def _micro(batch: dict, i: int, accum: int) -> dict:
@@ -206,41 +223,115 @@ def _micro(batch: dict, i: int, accum: int) -> dict:
             for k, v in batch.items()}
 
 
+@torch.no_grad()
+def _ref_scores(model: CFM, ref: dict, batch: dict, draws: LossDraws,
+                midi_loss_weight: float) -> torch.Tensor:
+    """The DPO reference's per-sample scores: the loss of ``model`` run on
+    the parameters ``ref`` (the EMA shadow) at the policy's ``draws``. The
+    model's dropout generator is put back to its state before the call, so
+    that the policy's forward draws the same dropout masks, as JAX's shadow
+    (a clone of the model's RNG state, advanced once a step like the
+    model's) does."""
+    gen = model.dropout_generator
+    state = gen.get_state() if gen is not None else None
+    try:
+        out = _loss(model, batch, generator=None, draws=draws,
+                    midi_loss_weight=midi_loss_weight, params=ref)
+    finally:
+        if gen is not None:
+            gen.set_state(state)
+    return out.per_sample_flow
+
+
 def make_train_step(train_cfg: TrainConfig):
     """Build the train step ``step(model, optimizer, batch, *, generator,
-    draws=None) -> (loss, breakdown, grad_norm)``. The batch dict carries
-    latents (b, n, C), lens (b,), text_embed (b, n, dt), context (b, nc, dc)
-    and context_mask (b, nc), and for V2P frames (b, t, H, W) in [0, 1] and
+    draws=None, ref=None, fcl=None, fcl_opt=None, feature_t=None) ->
+    (loss, breakdown, grad_norm)``. The batch dict carries latents
+    (b, n, C), lens (b,), text_embed (b, n, dt), context (b, nc, dc) and
+    context_mask (b, nc), and for V2P frames (b, t, H, W) in [0, 1] and
     midis (b, n, notes). With ``grad_accum > 1`` the batch splits into
     micro-batches along axis 0 and their gradients are averaged; ``draws``
-    is then one ``LossDraws`` per micro-batch."""
-    if train_cfg.dpo:
-        raise NotImplementedError("DPO preference training is not ported")
-    if train_cfg.contrastive:
-        raise NotImplementedError("FactorCL contrastive training is not ported")
+    (and ``feature_t``) are then one per micro-batch.
+
+    ``TrainConfig.dpo`` and ``TrainConfig.contrastive`` fold the preference
+    and FactorCL objectives into the same step, as JAX's:
+      * DPO: rows [-2] / [-1] of each micro-batch are the winner / loser
+        of a preference pair (``TrainBatcher(dpo=True, micro_batches=
+        accum)``); the reference scores come from the model run on
+        ``ref`` (the EMA shadow's parameters) at the same draws, without
+        autograd, and ``dpo_pair_loss`` at scale ``-dpo_beta`` joins the
+        loss;
+      * contrastive: the layer-``contrastive_layer`` (audio, CLIP-stream)
+        hiddens of rows 2..8 at timestep ``feature_t`` (drawn from
+        ``generator`` when None) feed ``fcl``'s CLUB bound and learning
+        loss, times ``contrastive_weight``, when the micro-batch has at
+        least 8 rows. One backward reaches the CFM (through the hiddens)
+        and FactorCL; ``optimizer`` clips and steps the CFM's gradients,
+        ``fcl_opt`` FactorCL's."""
     accum = max(1, train_cfg.grad_accum)
+    use_dpo, use_con = train_cfg.dpo, train_cfg.contrastive
+    collect = train_cfg.contrastive_layer if use_con else None
 
     def train_step(model: CFM, optimizer: ClippedAdamW, batch: dict, *,
                    generator: Optional[torch.Generator] = None,
-                   draws: LossDraws | Sequence[LossDraws] | None = None):
+                   draws: LossDraws | Sequence[LossDraws] | None = None,
+                   ref: Optional[dict] = None, fcl=None, fcl_opt=None,
+                   feature_t=None):
         b = batch["latents"].shape[0]
         if b % accum:
             raise ValueError(f"batch size {b} not divisible by grad_accum "
                              f"{accum}")
+        if use_dpo and ref is None:
+            raise ValueError("TrainConfig.dpo needs the reference parameters "
+                             "(ref=, the EMA shadow)")
+        if use_con and (fcl is None or fcl_opt is None):
+            raise ValueError("TrainConfig.contrastive needs fcl and fcl_opt")
         optimizer.zero_grad()
+        if use_con:
+            fcl_opt.zero_grad()
         loss_sum, bk_sum = 0.0, None
         for i in range(accum):
             mb = batch if accum == 1 else _micro(batch, i, accum)
             d = draws if accum == 1 or draws is None else draws[i]
+            if d is None and use_dpo:
+                # one set of draws for the policy and the reference
+                x1 = mb["latents"]
+                d = draw_loss_randoms(
+                    *x1.shape, model.cond_cfg.frac_lengths_mask,
+                    generator=generator, device=x1.device)
+            ref_per = (_ref_scores(model, ref, mb, d,
+                                   train_cfg.midi_loss_weight)
+                       if use_dpo else None)
             out = _loss(model, mb, generator=generator, draws=d,
-                        midi_loss_weight=train_cfg.midi_loss_weight)
-            (out.loss / accum).backward()
+                        midi_loss_weight=train_cfg.midi_loss_weight,
+                        collect_hidden_layer=collect)
+            total, bk = out.loss, out.breakdown
+            if use_con and mb["latents"].shape[0] >= 8:
+                ft = (feature_t if accum == 1 or feature_t is None
+                      else feature_t[i])
+                fa, fb, labels = sample_contrastive_features(
+                    out.hiddens[0], out.hiddens[1], model.cfg.num_registers,
+                    ft, generator=generator)
+                loss_con = fcl(fa, fb, labels) + fcl.learning_loss(
+                    fa, fb, labels)
+                total = total + train_cfg.contrastive_weight * loss_con
+                bk = bk._replace(contrastive=loss_con)
+            if use_dpo:
+                per = out.per_sample_flow
+                loss_dpo = dpo_pair_loss(per[-2], per[-1], ref_per[-2],
+                                         ref_per[-1],
+                                         scale=-train_cfg.dpo_beta)
+                total = total + loss_dpo
+                bk = bk._replace(dpo=loss_dpo)
+            (total / accum).backward()
             bk = LossBreakdown(*(x.detach() if isinstance(x, torch.Tensor)
-                                 else x for x in out.breakdown))
-            loss_sum = loss_sum + out.loss.detach()
+                                 else x for x in bk))
+            loss_sum = loss_sum + total.detach()
             bk_sum = bk if bk_sum is None else LossBreakdown(
                 *(a + c for a, c in zip(bk_sum, bk)))
         grad_norm = optimizer.step()
+        if use_con:
+            fcl_opt.step()
         return (loss_sum / accum, LossBreakdown(*(a / accum for a in bk_sum)),
                 grad_norm)
 
@@ -270,7 +361,11 @@ class Trainer:
     """Host-side orchestration: train / eval steps, EMA and switch-EMA. The
     loss's random draws come from ``self.generator``, a ``torch.Generator``
     on the model's device seeded from ``seed``; ``last_grad_norm`` holds the
-    last step's global gradient norm (before the clip)."""
+    last step's global gradient norm (before the clip). ``TrainConfig.dpo``
+    turns EMA on (the shadow is the DPO reference model);
+    ``TrainConfig.contrastive`` builds ``fcl`` (FactorCL over the model's
+    audio and CLIP-stream widths, initialised from seed 0 on the model's
+    device) and its optimizer ``fcl_opt`` (JAX's ``optax.adamw(lr)``)."""
 
     def __init__(self, model: CFM, train_cfg: TrainConfig | None = None, *,
                  seed: int = 0):
@@ -279,9 +374,16 @@ class Trainer:
         self._train_step = make_train_step(self.cfg)
         self._eval_step = make_eval_step(self.cfg)
         self.optimizer = make_tx(self.cfg, model.parameters())
-        self.ema = (EMA(model, self.cfg.ema_decay) if self.cfg.use_ema
-                    else None)
+        self.ema = (EMA(model, self.cfg.ema_decay)
+                    if self.cfg.use_ema or self.cfg.dpo else None)
         self.device = next(model.parameters()).device
+        self.fcl = self.fcl_opt = None
+        if self.cfg.contrastive:
+            with seeded_init(0, self.device):
+                self.fcl = FactorCL(model.cfg.dim, model.cfg.dim_text,
+                                    device=self.device)
+            self.fcl_opt = FactorCLAdamW(self.fcl.parameters(),
+                                         self.cfg.learning_rate)
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
         self.step = 0
@@ -291,10 +393,16 @@ class Trainer:
         return {k: v.to(self.device) if isinstance(v, torch.Tensor) else v
                 for k, v in batch.items()}
 
-    def train_step(self, batch: dict, *, draws=None) -> tuple:
+    def train_step(self, batch: dict, *, draws=None,
+                   feature_t=None) -> tuple:
+        """One step; ``draws`` (``LossDraws``, one per micro-batch) and
+        ``feature_t`` (FactorCL's timestep) are drawn from ``generator``
+        when None."""
         loss, breakdown, self.last_grad_norm = self._train_step(
             self.model, self.optimizer, self._on_device(batch),
-            generator=self.generator, draws=draws)
+            generator=self.generator, draws=draws,
+            ref=self.ema.shadow if self.cfg.dpo else None, fcl=self.fcl,
+            fcl_opt=self.fcl_opt, feature_t=feature_t)
         if self.ema is not None:
             self.ema.update(self.model)
         self.step += 1
@@ -317,13 +425,17 @@ class Trainer:
 
     def state_dict(self) -> dict:
         """The exact training state: the model's parameters and buffers and
-        its dropout generator's state, the optimizer's, the EMA shadow, the
+        its dropout generator's state, the optimizer's, the EMA shadow,
+        FactorCL and its optimizer (which JAX's checkpoint leaves out), the
         step. The tensors are the live ones (no copies)."""
         gen = self.model.dropout_generator
         return {"model": self.model.state_dict(),
                 "rng": gen.get_state() if gen is not None else None,
                 "opt": self.optimizer.state_dict(),
                 "ema": self.ema.shadow if self.ema is not None else None,
+                "fcl": self.fcl.state_dict() if self.fcl is not None else None,
+                "fcl_opt": (self.fcl_opt.state_dict()
+                            if self.fcl_opt is not None else None),
                 "step": self.step}
 
     @torch.no_grad()
@@ -335,6 +447,9 @@ class Trainer:
         if self.ema is not None and state["ema"] is not None:
             for name, s in self.ema.shadow.items():
                 s.copy_(state["ema"][name])
+        if self.fcl is not None and state.get("fcl") is not None:
+            self.fcl.load_state_dict(state["fcl"])
+            self.fcl_opt.load_state_dict(state["fcl_opt"])
         self.step = int(state["step"])
 
     def run(self, batches: Iterator[dict], *, num_steps: int,

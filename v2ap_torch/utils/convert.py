@@ -4,8 +4,8 @@
 dotted paths and numpy arrays — its ``nnx.Param`` leaves plus the time
 embedding's fixed Fourier projection (a plain ``nnx.Variable``) — and fills
 the port's ``CFM`` (Video2Roll included), ``EncodecModel`` (encoder,
-decoder and the quantizer's codebooks), ``CLIPVisionModel`` or
-``T5Encoder`` in place. The port mirrors the JAX module tree, so a path
+decoder and the quantizer's codebooks), ``CLIPVisionModel``,
+``T5Encoder`` or ``training.contrastive.FactorCL`` in place. The port mirrors the JAX module tree, so a path
 maps to the module of the same path; only the leaf layout changes:
 
   * ``Linear`` kernel (in, out)                 -> weight (out, in)
