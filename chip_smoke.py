@@ -192,7 +192,26 @@ Phases, each of which fails the run (exit 1, no result line) if it fails:
                permuted q rows, ``load_weights`` and one V2A generate; the
                ``.pt`` removed; a crossatt6 state dict into a seeded
                crossatt6 CFM leaves only FactorCL's keys and zeroes
-               ``to_frames`` and ``proj_frames``. Load seconds printed.
+               ``to_frames`` and ``proj_frames``. Load seconds printed;
+  21. evaluate — PANN Cnn14 (``pann_16k()``, 527 classes) and CLAP
+               (``clap_htsat_unfused()``) from seeded weights on the card
+               and on the CPU, same weights, a seeded 10 s clip and a
+               caption: embedding, logits, audio and text features within
+               EVAL_REL_RMS, the similarity within EVAL_SIM_ATOL; ms per
+               clip on the card (CUDA events, median of EVAL_REPS). Then
+               ``V2APConfig()`` (the CLIs' configuration) over a seeded
+               manifest of EVAL_CLIPS absent .mp4 rows: ``run_batch_eval``
+               in this process with the decoded frames handed in (K2 48 x
+               (tower chunks) per clip by the counters, nothing else from
+               the host; the tower primes the feature caches), after a V2P
+               generate that primes the piano row's features and roll;
+               then ``python -m v2ap_torch.evaluate --steps 25 --ref-dir
+               --clap`` and ``python -m v2ap_torch.inference_v2p`` (the
+               positional form, a saved CFM as its checkpoint) as their own
+               processes from those caches: both exit 0, every row
+               succeeded, FAD / IS / KL finite, a CLAP score in [-1, 1] per
+               clip, 240 000 finite samples a wav; walls, realtime factors
+               and the metrics' seconds printed.
 
 The line before the last is a JSON object with one entry per kernel (K1-K5
 and P1; the launches of K1/K2 from the profiled V2A generate, K1's counted
@@ -2542,6 +2561,328 @@ def phase_reference(torch, pipe, frames, root: str) -> None:
     torch.cuda.empty_cache()
 
 
+# --------------------------------------------------------------- phase 21
+
+EVAL_CLIPS = 4                     # rows of the eval manifest
+EVAL_STEPS = 25
+EVAL_REPS = 5                      # timed evaluator calls (median)
+EVAL_REL_RMS = 1e-3                # evaluators card vs CPU, f32
+EVAL_SIM_ATOL = 1e-4               # CLAP similarity card vs CPU
+EVAL_SAME_REL_RMS = 1e-3           # a CLI's wav vs this process's, same clip
+EVAL_CAPTION = "a dog barks while rain falls on a tin roof"
+
+
+def events_ms(torch, fn, reps: int = EVAL_REPS) -> list:
+    """``fn()`` timed ``reps`` times by CUDA events after one warm-up call,
+    each time in ms."""
+    fn()
+    out = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        out.append(start.elapsed_time(end))
+    return out
+
+
+def phase_evaluators(torch) -> None:
+    """PANN Cnn14 (``pann_16k()``, 527 classes) and CLAP
+    (``clap_htsat_unfused()``) at full width from seeded weights, on the
+    card and on the CPU from the same weights, over a seeded 10 s 24 kHz
+    clip (resampled on the host to 16 and 48 kHz) and EVAL_CAPTION: the
+    embedding and logits, the audio and text features within EVAL_REL_RMS
+    relative RMS, the similarity within EVAL_SIM_ATOL; then the card's ms
+    per clip (CUDA events, median of EVAL_REPS): Cnn14's joint pass from
+    the 16 kHz waveform, CLAP from the 48 kHz waveform (log-mel on the
+    card, bicubic resize to 1024 frames, both towers)."""
+    import numpy as np
+
+    from v2ap_torch.data.audio_io import resample
+    from v2ap_torch.evaluation.clap_scorer import _fallback_tokenize
+    from v2ap_torch.evaluation.pann import Cnn14, pann_16k
+    from v2ap_torch.models.clap import ClapModel, clap_htsat_unfused, clap_logmel
+    from v2ap_torch.utils.device import seeded_init
+
+    cuda = torch.device("cuda")
+    wav = (np.random.default_rng(21).normal(size=(1, int(CLIP_S * 24_000)))
+           * 0.1).astype(np.float32)
+    with seeded_init(0, cuda):
+        card = Cnn14(pann_16k(), device=cuda).eval()
+    cpu = Cnn14(pann_16k(), device="cpu").eval()
+    cpu.load_state_dict(card.state_dict())
+    w16 = torch.from_numpy(resample(wav, 24_000, 16_000))
+    w16_card = w16.to(cuda)
+
+    def joint(model, w):
+        emb = model(w)
+        return emb, model.fc_audioset(emb)
+
+    with torch.inference_mode():
+        e_card, l_card = joint(card, w16_card)
+        e_cpu, l_cpu = joint(cpu, w16)
+        ms = events_ms(torch, lambda: joint(card, w16_card))
+    errs = (rel_rms(e_card.cpu(), e_cpu), rel_rms(l_card.cpu(), l_cpu))
+    log(f"  Cnn14 (pann_16k, 527 classes) card vs CPU over a 10 s clip: "
+        f"embedding {tuple(e_card.shape)} rel-RMS {errs[0]:.3e}, logits "
+        f"{tuple(l_card.shape)} {errs[1]:.3e} (tol {EVAL_REL_RMS}); ms per "
+        f"clip on the card {', '.join(f'{m:.3f}' for m in ms)}, median "
+        f"{float(np.median(ms)):.3f}")
+    if e_card.shape != (1, 2048) or l_card.shape != (1, 527) or \
+            max(errs) > EVAL_REL_RMS:
+        raise RuntimeError(f"evaluate: Cnn14 card vs CPU {errs}")
+    del card, cpu, e_card, l_card
+    torch.cuda.empty_cache()
+
+    a_cfg, t_cfg = clap_htsat_unfused()
+    with seeded_init(0, cuda):
+        card = ClapModel(a_cfg, t_cfg, device=cuda).eval()
+    cpu = ClapModel(a_cfg, t_cfg, device="cpu").eval()
+    cpu.load_state_dict(card.state_dict())
+    w48 = torch.from_numpy(resample(wav, 24_000, 48_000))
+    w48_card = w48.to(cuda)
+    ids, mask = (torch.from_numpy(x).long() for x in
+                 _fallback_tokenize([EVAL_CAPTION], t_cfg.vocab_size))
+    ids_card, mask_card = ids.to(cuda), mask.to(cuda)
+    tmax = a_cfg.spec_size * a_cfg.freq_ratio
+
+    def features(model, w, i, m):
+        feats = clap_logmel(w, n_mels=a_cfg.num_mel_bins)[:, :, :tmax]
+        return (feats.shape, model.get_audio_features(feats),
+                model.get_text_features(i, m))
+
+    with torch.inference_mode():
+        shape, a_card, t_card = features(card, w48_card, ids_card, mask_card)
+        _, a_cpu, t_cpu = features(cpu, w48, ids, mask)
+        ms = events_ms(torch, lambda: features(card, w48_card, ids_card,
+                                               mask_card))
+    s_card = float((a_card * t_card).sum().item())
+    s_cpu = float((a_cpu * t_cpu).sum().item())
+    errs = (rel_rms(a_card.cpu(), a_cpu), rel_rms(t_card.cpu(), t_cpu))
+    log(f"  CLAP (htsat-unfused) card vs CPU: log-mel {tuple(shape)} resized "
+        f"to {tmax} frames; audio features rel-RMS {errs[0]:.3e}, text "
+        f"features {errs[1]:.3e} (tol {EVAL_REL_RMS}); similarity card "
+        f"{s_card:.6f}, CPU {s_cpu:.6f} (|diff| {abs(s_card - s_cpu):.2e}, "
+        f"tol {EVAL_SIM_ATOL}); ms per clip on the card "
+        f"{', '.join(f'{m:.3f}' for m in ms)}, median "
+        f"{float(np.median(ms)):.3f}")
+    if tuple(shape) != (1, 1, 1001, 64) or max(errs) > EVAL_REL_RMS or \
+            abs(s_card - s_cpu) > EVAL_SIM_ATOL:
+        raise RuntimeError(f"evaluate: CLAP card vs CPU {errs}, "
+                           f"{s_card} vs {s_cpu}")
+    del card, cpu
+    torch.cuda.empty_cache()
+
+
+def eval_corpus(root: str) -> tuple:
+    """EVAL_CLIPS rows of absent .mp4 videos with captions in ``eval.scp``,
+    one piano row in ``piano.scp``, and ``refs/``: seeded 10 s 24 kHz wavs
+    with the eval rows' basenames. Returns (eval scp, piano scp, ref dir,
+    {video path: seeded frames}, the piano video's strips, {video path:
+    caption})."""
+    import numpy as np
+
+    from v2ap_torch.data.audio_io import write_wav
+
+    rng = np.random.default_rng(22)
+    t = int(CLIP_S * FPS)
+    refs = os.path.join(root, "refs")
+    os.makedirs(os.path.join(root, "videos"))   # the caches go beside them
+    videos, rows = {}, []
+    for i in range(EVAL_CLIPS + 1):
+        stem = f"clip{i}" if i < EVAL_CLIPS else "piano0"
+        path = os.path.join(root, "videos", stem + ".mp4")
+        videos[path] = rng.integers(0, 256, (t, 224, 224, 3), dtype=np.uint8)
+        rows.append((path, f"{EVAL_CAPTION} {i}"))
+        if i < EVAL_CLIPS:
+            write_wav(os.path.join(refs, stem + ".wav"),
+                      (rng.normal(size=int(CLIP_S * 24_000))
+                       * rng.uniform(0.05, 0.2)).astype(np.float32))
+    strips = rng.integers(0, 256, (t, 100, 900), dtype=np.uint8)
+    scps = []
+    for name, part in (("eval.scp", rows[:EVAL_CLIPS]),
+                       ("piano.scp", rows[EVAL_CLIPS:])):
+        scps.append(os.path.join(root, name))
+        with open(scps[-1], "w") as f:
+            f.writelines(f"{p}\t{c}\n" for p, c in part)
+    return scps[0], scps[1], refs, videos, strips, dict(rows)
+
+
+def check_wavs(torch, out: str, same: dict) -> None:
+    """Every generated wav: 240 000 finite samples at 24 kHz, within
+    EVAL_SAME_REL_RMS of the wav that the pipeline in this process made
+    for the same clip, prompt and seed from the decoded frames (``same``:
+    stem -> that waveform, read back from its 16-bit file). A CLI that missed a cache would have generated
+    without the clip's features (zeros), audibly another waveform."""
+    import numpy as np
+
+    from v2ap_torch.data.audio_io import read_wav
+
+    errs = {}
+    for stem, want in same.items():
+        wav, sr = read_wav(os.path.join(out, stem + ".wav"))
+        if sr != 24_000 or wav.shape != (1, int(CLIP_S * 24_000)) or \
+                not np.isfinite(wav).all():
+            raise RuntimeError(f"evaluate: {stem}.wav {wav.shape} at {sr}")
+        errs[stem] = rel_rms(torch.from_numpy(wav[0]), torch.from_numpy(want))
+    log(f"  the CLI's wavs against this process's (rel-RMS, 16-bit files): "
+        f"{', '.join(f'{k} {v:.2e}' for k, v in errs.items())} (tol "
+        f"{EVAL_SAME_REL_RMS})")
+    if max(errs.values()) > EVAL_SAME_REL_RMS:
+        raise RuntimeError(f"evaluate: the CLI's audio differs from the "
+                           f"in-process audio of the same clips: {errs}")
+
+
+def run_cli(args: list, label: str) -> float:
+    """``python -m <args>`` from the repository root; returns its wall."""
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", *args], cwd=ROOT,
+                         capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    log(f"  python -m {args[0]}: exit {res.returncode} in {wall:.2f} s")
+    if res.returncode != 0:
+        raise RuntimeError(f"{label} failed: {res.stdout[-1500:]}\n"
+                           f"{res.stderr[-3000:]}")
+    return wall
+
+
+def phase_eval(torch, root: str) -> None:
+    """The batch evaluation path over the seeded manifest (``eval_corpus``)
+    at the CLIs' configuration, ``V2APConfig()`` (frame stride 3, strip
+    stride 2, feature caches on), bf16 towers, seed 0.
+
+    In this process first, ``run_batch_eval`` over the EVAL_CLIPS rows with
+    each clip's decoded frames handed to ``generate`` (no cv2 here) and
+    the launch counters zeroed just before each clip's generate and read
+    just after: K2 48 x (tower chunks), no other kernel from the host (as
+    phase 5), after one V2P generate of the piano row from its frames and
+    strips (with a prompt: it captures the sampler program the prompted
+    clips replay) which writes that row's features and roll (at strip
+    stride 2 the roll cache serves). The tower writes each clip's feature
+    cache beside its video. The pipeline's CFM is saved as the checkpoint
+    the V2P CLI names.
+
+    Then the CLIs as their own processes, reading those caches: ``python
+    -m v2ap_torch.evaluate --steps 25 --ref-dir refs --clap`` and ``python
+    -m v2ap_torch.inference_v2p <ckpt> 0 piano.scp 0 1 <out> --steps 25``.
+    Both must exit 0 with every row succeeded; FAD, IS and both KLs
+    finite, a finite CLAP score in [-1, 1] per clip; 240 000 finite
+    samples in every wav, within EVAL_SAME_REL_RMS of what this process
+    made for the same clip, prompt and seed, both as 16-bit files (so the
+    caches served), with the CLIs' TF32 switches (PyTorch's defaults)."""
+    import numpy as np
+
+    from v2ap_torch import config as C
+    from v2ap_torch.data.audio_io import read_wav, write_wav
+    from v2ap_torch.ops.flash_attention import (launch_counts,
+                                                reset_launch_counts)
+    from v2ap_torch.pipelines.batch_eval import run_batch_eval
+    from v2ap_torch.pipelines.generate import V2APipeline
+    from v2ap_torch.utils.checkpoint import save_model
+
+    scp, piano_scp, refs, videos, strips, captions = eval_corpus(root)
+    # the CLIs run with PyTorch's default TF32 switches (cuDNN's on, for
+    # EnCodec's f32 convolutions); this process takes them until the CLIs
+    # have run, so that their wavs can be held to this process's
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        t0 = time.perf_counter()
+        pipe = V2APipeline(C.V2APConfig(), seed=0, device="cuda",
+                           quantize_towers=False)
+        log(f"  built the CLIs' pipeline (V2APConfig(): frame stride "
+            f"{pipe.frame_stride}, strip stride {pipe.strip_stride}) in "
+            f"{time.perf_counter() - t0:.2f} s")
+        expect = generate_expect(pipe, int(CLIP_S * FPS))
+        # the piano row first, with the V2P CLI's prompt and seed: it also
+        # captures the sampler program that the prompted clips below replay
+        piano = next(p for p in videos if "piano" in p)
+        t0 = time.perf_counter()
+        piano_wav, _ = pipe.generate(
+            piano, "the sound of " + captions[piano], steps=EVAL_STEPS,
+            piano=True, seed=0, frames_cache=[(videos[piano], CLIP_S, 1)],
+            strips_cache=[(strips, CLIP_S)])
+        if not np.isfinite(piano_wav).all():
+            raise RuntimeError("evaluate: the piano row's priming generate")
+        log(f"  the piano row's V2P generate (writes its features and roll): "
+            f"{time.perf_counter() - t0:.2f} s with the sampler's capture")
+        counts = []
+
+        class DecodedClips:
+            """``run_batch_eval``'s pipeline: each video's frames handed in."""
+
+            def generate(self, path, prompt, **kw):
+                torch.cuda.synchronize()
+                reset_launch_counts()
+                out = pipe.generate(path, prompt, frames_cache=[
+                    (videos[path], CLIP_S, 1)], **kw)
+                counts.append(dict(launch_counts))
+                return out
+
+        # the evaluate CLI's arguments: the caption as the prompt, seed 0 + i
+        inproc = os.path.join(root, "inproc")
+        summary = run_batch_eval(DecodedClips(), scp, inproc, steps=EVAL_STEPS)
+        log(f"  run_batch_eval in this process, {EVAL_CLIPS} clips: {summary}; "
+            f"launches by the wrappers per clip {counts} (expected {expect})")
+        if summary["succeeded"] != EVAL_CLIPS or summary["failed"] or \
+                len(counts) != EVAL_CLIPS or any(c != expect for c in counts):
+            raise RuntimeError(f"evaluate: in-process batch eval {summary}, "
+                               f"launches {counts}")
+        ckpt = os.path.join(root, "ckpt")
+        t0 = time.perf_counter()
+        save_model(os.path.join(ckpt, "cfm"), pipe.cfm)
+        log(f"  saved the CFM for the V2P CLI in {time.perf_counter() - t0:.2f} s")
+        del pipe
+        torch.cuda.empty_cache()
+
+        out = os.path.join(root, "eval_out")
+        wall = run_cli(["v2ap_torch.evaluate", "--scp", scp, "--out", out,
+                        "--steps", str(EVAL_STEPS), "--ref-dir", refs, "--clap"],
+                       "python -m v2ap_torch.evaluate")
+        with open(os.path.join(out, "summary.json")) as f:
+            s = json.load(f)
+        clap = [r["clap"] for r in s.get("clap_scores", [])]
+        log(f"  evaluate: wall {wall:.2f} s (its own process), "
+            f"{s['succeeded']}/{s['clips']} clips, realtime factor "
+            f"{s['realtime_factor']} (generate walls), FAD {s.get('fad')}, IS "
+            f"{s.get('is_mean')} +- {s.get('is_std')}, KL softmax "
+            f"{s.get('kl_softmax')}, sigmoid {s.get('kl_sigmoid')}, metrics "
+            f"{s.get('metrics_seconds')} s, CLAP {clap} (mean "
+            f"{s.get('clap_mean')})")
+        finite = all(np.isfinite(s.get(k, np.nan)) for k in
+                     ("fad", "is_mean", "kl_softmax", "kl_sigmoid"))
+        if s["succeeded"] != EVAL_CLIPS or s["failed"] or not finite or \
+                len(clap) != EVAL_CLIPS or \
+                not all(np.isfinite(c) and -1.0 <= c <= 1.0 for c in clap):
+            raise RuntimeError(f"evaluate: the CLI's summary {s}")
+        check_wavs(torch, out, {
+            f"clip{i}": read_wav(os.path.join(inproc, f"clip{i}.wav"))[0][0]
+            for i in range(EVAL_CLIPS)})
+
+        out = os.path.join(root, "v2p_out")
+        wall = run_cli(["v2ap_torch.inference_v2p", ckpt, "0", piano_scp, "0",
+                        "1", out, "--steps", str(EVAL_STEPS)],
+                       "python -m v2ap_torch.inference_v2p")
+        with open(os.path.join(out, "summary.json")) as f:
+            s = json.load(f)
+        log(f"  inference_v2p (positional form): wall {wall:.2f} s (its own "
+            f"process), {s['succeeded']}/{s['clips']} clips, realtime factor "
+            f"{s['realtime_factor']}")
+        if s["succeeded"] != 1 or s["failed"]:
+            raise RuntimeError(f"evaluate: the V2P CLI's summary {s}")
+        write_wav(os.path.join(inproc, "piano0.wav"), piano_wav)
+        check_wavs(torch, out, {
+            "piano0": read_wav(os.path.join(inproc, "piano0.wav"))[0][0]})
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+
+
 # ------------------------------------------------------------------ main
 
 def main() -> int:
@@ -2571,7 +2912,7 @@ def main() -> int:
         "error", message="flex_attention called without torch.compile")
     t_start = time.perf_counter()
 
-    log(f"[1/20] build — card: {card_line()}")
+    log(f"[1/21] build — card: {card_line()}")
     log(f"  torch {torch.__version__} (CUDA {torch.version.cuda}), "
         f"{torch.cuda.get_device_name(0)}; f32 matmul and cuDNN TF32 off")
     t0 = time.perf_counter()
@@ -2581,18 +2922,18 @@ def main() -> int:
         f"{', '.join(src.name for src in fa._SOURCES)} in "
         f"{time.perf_counter() - t0:.2f} s")
 
-    log("[2/20] kernels vs plain versions (bf16 in, f32 reference)")
+    log("[2/21] kernels vs plain versions (bf16 in, f32 reference)")
     kern = phase_kernels(torch)
     kern.update(phase_train_kernels(torch))
     log_bwd_more(torch)
-    log("[3/20] P1 probe: packed (b, n, h*d) vs (b, h, n, d) + transposes")
+    log("[3/21] P1 probe: packed (b, n, h*d) vs (b, h, n, d) + transposes")
     kern["P1"] = phase_probe(torch)
-    log("[4/20] small f32 config: card vs CPU")
+    log("[4/21] small f32 config: card vs CPU")
     phase_small(torch)
     import numpy as np
 
     frames = clip_frames()
-    log("[5/20] full-width V2A generate (frame stride 1, empty prompt; the "
+    log("[5/21] full-width V2A generate (frame stride 1, empty prompt; the "
         "sampler as a captured program)")
     pipe = full_pipeline(torch, "V2A", frame_stride=1)
 
@@ -2602,7 +2943,7 @@ def main() -> int:
 
     phase_generate(torch, pipe, "V2A generate", generate_v2a,
                    generate_expect(pipe, len(frames)))
-    log("[6/20] V2A generate profile")
+    log("[6/21] V2A generate profile")
 
     def profiled(gen, check=None):
         def run():
@@ -2616,17 +2957,17 @@ def main() -> int:
     gen_counts = phase_profile(torch, "generate", profiled(generate_v2a),
                                SM90_FWD, generate_expect(pipe, len(frames)),
                                k1_expect(pipe))
-    log("[7/20] full-width sampler: captured programs vs eager, same inputs")
+    log("[7/21] full-width sampler: captured programs vs eager, same inputs")
     phase_captured(torch, pipe, frames)
-    log(f"[8/20] generate_batch: {BATCH} x 10 s clips, frames handed in")
+    log(f"[8/21] generate_batch: {BATCH} x 10 s clips, frames handed in")
     phase_generate_batch(torch, pipe, frames)
-    log(f"[9/20] generate_long: a {LONG_S:.0f} s clip in one batched call")
+    log(f"[9/21] generate_long: a {LONG_S:.0f} s clip in one batched call")
     phase_generate_long(torch, pipe)
-    log(f"[10/20] HTTP server: {BATCH} concurrent POST /v2a")
+    log(f"[10/21] HTTP server: {BATCH} concurrent POST /v2a")
     phase_http(torch, pipe)
     del pipe
     torch.cuda.empty_cache()
-    log("[11/20] full-width V2P generate with a prompt (v2a_default(): frame "
+    log("[11/21] full-width V2P generate with a prompt (v2a_default(): frame "
         "stride 3, strip stride 2; FLAN-T5-large, Video2Roll)")
     pipe = full_pipeline(torch, "V2P")
     strips = np.random.default_rng(1).integers(
@@ -2646,20 +2987,20 @@ def main() -> int:
     roll = pipe.last_roll
     log(f"  roll {tuple(roll.shape)}: min {roll.min().item():.4f}, max "
         f"{roll.max().item():.4f}, mean {roll.mean().item():.4f}")
-    log("[12/20] V2P generate profile")
+    log("[12/21] V2P generate profile")
     phase_profile(torch, "V2P generate", profiled(generate_v2p, check_roll),
                   SM90_FWD, generate_expect(pipe, len(frames)),
                   k1_expect(pipe))
     del pipe, roll
     torch.cuda.empty_cache()
-    log("[13/20] small train: tiny_test() card vs CPU, then "
+    log("[13/21] small train: tiny_test() card vs CPU, then "
         f"{TINY_STEPS} steps")
     phase_small_train(torch)
-    log("[14/20] full-width V2A train step, then with remat full and dots")
+    log("[14/21] full-width V2A train step, then with remat full and dots")
     trainer, batch = full_trainer(torch)
     train_counts = phase_train(torch, trainer, batch)
     phase_train_remat(torch, trainer, batch, train_counts)
-    log("[15/20] train-step profile")
+    log("[15/21] train-step profile")
 
     def train_once():
         loss, _ = trainer.train_step(batch)
@@ -2671,10 +3012,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     root = tempfile.mkdtemp(prefix="v2ap_chip_smoke_")
     try:
-        log("[16/20] train from corpora: TrainingPipeline(v2a_default()), "
+        log("[16/21] train from corpora: TrainingPipeline(v2a_default()), "
             f"remat dots, EMA, batch {TRAIN_BATCH} x {TRAIN_LATENTS}")
         tp, batcher = phase_corpus_train(torch, root)
-        log("[17/20] resume, save the EMA CFM, load_weights, generate")
+        log("[17/21] resume, save the EMA CFM, load_weights, generate")
         held = {"pipe": tp, "batcher": batcher}
         del tp, batcher
         phase_resume_and_serve(torch, held, root, frames)
@@ -2683,7 +3024,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     from v2ap_torch import config as C
 
-    log(f"[18a/20] DPO at full width: crossatt3, TrainConfig(dpo=True), "
+    log(f"[18a/21] DPO at full width: crossatt3, TrainConfig(dpo=True), "
         f"dropout 0.1, no remat, batch {TRAIN_BATCH} x {TRAIN_LATENTS} with "
         f"rows 6 and 7 a pair")
     trainer, batch = full_trainer(torch, train_cfg=C.TrainConfig(dpo=True),
@@ -2691,7 +3032,7 @@ def main() -> int:
     phase_dpo(torch, "DPO train step", trainer, batch)
     del trainer, batch
     torch.cuda.empty_cache()
-    log(f"[18b/20] crossatt6 (FactorCL) with DPO under remat dots, batch "
+    log(f"[18b/21] crossatt6 (FactorCL) with DPO under remat dots, batch "
         f"{TRAIN_BATCH} x {TRAIN_LATENTS}")
     six = C.variant_preset("crossatt6")
     six = six.replace(model=dataclasses.replace(six.model, remat=True,
@@ -2705,11 +3046,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     root = tempfile.mkdtemp(prefix="v2ap_chip_smoke_")
     try:
-        log(f"[19/20] reflow: pairs from the full-width teacher, "
+        log(f"[19/21] reflow: pairs from the full-width teacher, "
             f"{REFLOW_STEPS} distill steps, save_model, load_weights, "
             f"generate(fewstep=2)")
         pipe = phase_reflow(torch, frames, root)
-        log("[20/20] the reference layout: a full-width synthetic crossatt3 "
+        log("[20/21] the reference layout: a full-width synthetic crossatt3 "
             ".pt, python -m v2ap_torch.convert, load_weights, generate; "
             "crossatt6")
         phase_reference(torch, pipe, frames, root)
@@ -2717,6 +3058,18 @@ def main() -> int:
         torch.cuda.empty_cache()
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    log("[21/21] evaluate: Cnn14 and CLAP card vs CPU; run_batch_eval, python "
+        "-m v2ap_torch.evaluate (FAD, IS, KL, CLAP) and python -m "
+        "v2ap_torch.inference_v2p from primed caches")
+    phase_evaluators(torch)
+    root = tempfile.mkdtemp(prefix="v2ap_chip_smoke_")
+    try:
+        t0 = time.perf_counter()
+        phase_eval(torch, root)
+        log(f"  phase 21's batch evaluation: {time.perf_counter() - t0:.2f} s")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
 
     main_case = {"K1": "K1 self-attn (2, 800, 16x64)",
                  "K2": "K2 ViT-bigG (64, 16, 257, 104)",

@@ -960,3 +960,68 @@ def test_dpo_factorcl_step_in_bf16_tracks_the_cpu(cuda):
         assert min(v["zero_update"], v["flipped_update"]) > DPO_UPDATE_REL
     bad = {k: v for k, v in rd["ema"].items() if not v < 1e-6}
     assert not bad, bad
+
+
+# ------------------------------------------------------------- evaluators
+
+def _rel_rms(a: torch.Tensor, b: torch.Tensor) -> float:
+    a, b = a.double().cpu(), b.double().cpu()
+    return float((a - b).pow(2).mean().sqrt() / b.pow(2).mean().sqrt())
+
+
+def _no_tf32(monkeypatch):
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+
+
+def test_cnn14_on_the_card_tracks_the_cpu(cuda, monkeypatch):
+    """The full-width Cnn14 (pann_16k, 527 classes), seeded, on the card
+    and on the CPU from the same weights: embedding and logits of a 2 s
+    clip within 1e-3 relative RMS (f32 convolutions by cuDNN, TF32 off)."""
+    from v2ap_torch.evaluation.pann import Cnn14, pann_16k
+
+    _no_tf32(monkeypatch)
+    torch.manual_seed(0)
+    cpu = Cnn14(pann_16k(), device="cpu").eval()
+    card = Cnn14(pann_16k(), device=cuda).eval()
+    card.load_state_dict(cpu.state_dict())
+    wav = torch.from_numpy((np.random.default_rng(0).normal(size=(1, 32_000))
+                            * 0.1).astype(np.float32))
+    with torch.no_grad():
+        e_cpu, e_card = cpu(wav), card(wav.to(cuda))
+        l_cpu, l_card = cpu.logits(wav), card.logits(wav.to(cuda))
+    assert e_card.shape == (1, 2048) and l_card.shape == (1, 527)
+    assert _rel_rms(e_card, e_cpu) < 1e-3
+    assert _rel_rms(l_card, l_cpu) < 1e-3
+
+
+def test_clap_on_the_card_tracks_the_cpu(cuda, monkeypatch):
+    """clap_htsat_unfused(), seeded, on the card and on the CPU from the
+    same weights: the audio features of a 10 s clip (1001 frames, resized
+    to 1024), the text features of a padded caption within 1e-3 relative
+    RMS, their similarity within 1e-4."""
+    from v2ap_torch.evaluation.clap_scorer import _fallback_tokenize
+    from v2ap_torch.models.clap import ClapModel, clap_htsat_unfused, clap_logmel
+
+    _no_tf32(monkeypatch)
+    a, t = clap_htsat_unfused()
+    torch.manual_seed(0)
+    cpu = ClapModel(a, t, device="cpu").eval()
+    card = ClapModel(a, t, device=cuda).eval()
+    card.load_state_dict(cpu.state_dict())
+    wav = (np.random.default_rng(1).normal(size=(1, 480_000)) * 0.1
+           ).astype(np.float32)
+    feats = clap_logmel(wav)
+    assert feats.shape == (1, 1, 1001, 64)
+    ids, mask = (torch.from_numpy(x).long() for x in
+                 _fallback_tokenize(["a dog barks in the rain"], t.vocab_size))
+    with torch.no_grad():
+        fa_cpu = cpu.get_audio_features(feats)
+        fa_card = card.get_audio_features(feats.to(cuda))
+        ft_cpu = cpu.get_text_features(ids, mask)
+        ft_card = card.get_text_features(ids.to(cuda), mask.to(cuda))
+    assert _rel_rms(fa_card, fa_cpu) < 1e-3
+    assert _rel_rms(ft_card, ft_cpu) < 1e-3
+    s_cpu = (fa_cpu * ft_cpu).sum(-1)
+    s_card = (fa_card * ft_card).sum(-1).cpu()
+    assert abs(float(s_card - s_cpu)) < 1e-4

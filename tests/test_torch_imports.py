@@ -145,3 +145,34 @@ def test_conversion_and_distill_entry_points_parse_their_arguments(module,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert flag in out.stdout and "--tiny" in out.stdout
+
+
+def test_evaluation_sources_are_checked():
+    """The static check and the import walk cover the evaluation slice:
+    the log-mel ops, the metrics, PANN Cnn14, CLAP and its scorer and
+    filter registry, batch evaluation and the three batch CLIs."""
+    checked = {p.relative_to(ROOT).as_posix()
+               for p in (ROOT / "v2ap_torch").rglob("*.py")}
+    assert {"v2ap_torch/ops/melspec.py",
+            "v2ap_torch/evaluation/metrics.py",
+            "v2ap_torch/evaluation/pann.py",
+            "v2ap_torch/evaluation/clap_scorer.py",
+            "v2ap_torch/models/clap.py",
+            "v2ap_torch/data/clap_filter.py",
+            "v2ap_torch/pipelines/batch_eval.py",
+            "v2ap_torch/inference_v2a.py",
+            "v2ap_torch/inference_v2p.py",
+            "v2ap_torch/evaluate.py"} <= checked
+
+
+@pytest.mark.parametrize("module,flag", [
+    ("v2ap_torch.inference_v2a", "--scp"),
+    ("v2ap_torch.inference_v2p", "--piano"),
+    ("v2ap_torch.evaluate", "--ref-dir")])
+def test_batch_entry_points_parse_their_arguments(module, flag):
+    """``python -m`` on each batch CLI starts without JAX and prints its
+    usage, ``--device`` among the options."""
+    out = subprocess.run([sys.executable, "-m", module, "--help"], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert flag in out.stdout and "--device" in out.stdout

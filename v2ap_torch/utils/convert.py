@@ -5,7 +5,8 @@ dotted paths and numpy arrays — its ``nnx.Param`` leaves plus the time
 embedding's fixed Fourier projection (a plain ``nnx.Variable``) — and fills
 the port's ``CFM`` (Video2Roll included), ``EncodecModel`` (encoder,
 decoder and the quantizer's codebooks), ``CLIPVisionModel``,
-``T5Encoder`` or ``training.contrastive.FactorCL`` in place. The port mirrors the JAX module tree, so a path
+``T5Encoder``, ``training.contrastive.FactorCL``, the evaluators' ``Cnn14``
+or ``ClapModel`` in place. The port mirrors the JAX module tree, so a path
 maps to the module of the same path; only the leaf layout changes:
 
   * ``Linear`` kernel (in, out)                 -> weight (out, in)
@@ -19,7 +20,12 @@ maps to the module of the same path; only the leaf layout changes:
   * ``ResidualLSTM`` w_ih.i / w_hh.i / b_ih.i / b_hh.i -> lstm.*_l{i}
 
 A key the port has no place for, any shape mismatch, and any port tensor
-left unfilled raise.
+left unfilled raise. Fixed tables that the port rebuilds itself and does not
+save (non-persistent buffers: CLAP's Swin ``rel_index`` and shifted-window
+``attn_mask``, plain ``nnx.Variable``s in JAX) are not copied: a JAX value
+given for one must equal the port's own, else it raises, and one left out
+is not missing. Every parameter, the Swin ``bias_table`` included, must be
+given.
 """
 
 from __future__ import annotations
@@ -68,10 +74,32 @@ def _target(module: nn.Module, key: str):
     return prefix + leaf, lambda a: a
 
 
+def copy_state(dst: torch.Tensor, sd: dict, key: str) -> None:
+    """``sd[key]`` (a tensor or an array) into ``dst`` in place, in
+    ``dst``'s dtype; a shape that does not fit raises. The state-dict
+    readers of published checkpoints (PANN, CLAP) take their values so."""
+    v = sd[key]
+    v = torch.as_tensor(v.detach() if hasattr(v, "detach") else np.asarray(v))
+    if tuple(v.shape) != tuple(dst.shape):
+        raise ValueError(f"{key}: shape {tuple(v.shape)} does not fit "
+                         f"{tuple(dst.shape)}")
+    with torch.no_grad():
+        dst.copy_(v)
+
+
+def _fixed_tables(module: nn.Module) -> set:
+    """Dotted names of the non-persistent buffers under ``module``."""
+    return {f"{prefix}.{name}" if prefix else name
+            for prefix, mod in module.named_modules()
+            for name in mod._non_persistent_buffers_set
+            if getattr(mod, name, None) is not None}
+
+
 def load_jax_params(module: nn.Module, flat: dict) -> None:
     """Copy ``flat`` (dotted JAX path -> array) into ``module`` in place."""
     tensors = dict(module.named_parameters())
     tensors.update(module.named_buffers())
+    fixed = _fixed_tables(module)
     filled, unused = set(), []
     for key, arr in flat.items():
         try:
@@ -87,11 +115,17 @@ def load_jax_params(module: nn.Module, flat: dict) -> None:
         if tuple(value.shape) != tuple(dst.shape):
             raise ValueError(f"{key}: shape {value.shape} does not fit "
                              f"{name} {tuple(dst.shape)}")
+        if name in fixed:
+            if not np.array_equal(value, dst.cpu().numpy()):
+                raise ValueError(f"{key}: differs from the port's own fixed "
+                                 f"table {name}")
+            filled.add(name)
+            continue
         with torch.no_grad():
             dst.copy_(torch.from_numpy(value))
         filled.add(name)
     if unused:
         raise KeyError(f"JAX keys with no place in the port: {sorted(unused)}")
-    missing = sorted(set(tensors) - filled)
+    missing = sorted(set(tensors) - filled - fixed)
     if missing:
         raise KeyError(f"port tensors not filled: {missing}")
