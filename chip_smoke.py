@@ -20,7 +20,10 @@ Phases, each of which fails the run (exit 1, no result line) if it fails:
                8, 782x16 with 4-16 keys valid); K3 (forward with lse), K4 (dq) and K5
                (dk, dv) at the training shapes, with logits of std 40, with
                a fully masked batch element (exactly zero gradient) and in
-               f32; K4 and K5 also at d = 104, ViT-bigG's (64, 257,
+               f32; K2 also at CLIP ViT-L/336's (64, 16, 577, 64) (577
+               tokens, the last 64-row tile ragged), timed as the others,
+               with batch element 1 fully masked and in f32; K4 and K5
+               also at d = 104, ViT-bigG's (64, 257,
                16x104), checked and timed (graph) with softclamp 50 and
                without, and at (8, 782, 16x64) without softclamp (timed);
                kernel times two ways: CUDA events over 20 calls
@@ -212,11 +215,56 @@ Phases, each of which fails the run (exit 1, no result line) if it fails:
                succeeded, FAD / IS / KL finite, a CLAP score in [-1, 1] per
                clip, 240 000 finite samples a wav; walls, realtime factors
                and the metrics' seconds printed.
+  22. towers — the other video encoders. Small: a "mixed" pipeline of four
+               small f32 towers (``tower_small_configs``: CLIP-like at head
+               dims 32 and 64, quick GELU for the ViT-L one, the tiny
+               DINOv2 and ConvNeXt) on the card and on the CPU, same
+               weights: each tower's features of the same frames within
+               SMALL_REL_RMS, K2 run for both CLIP towers; DINOv2-giant's
+               bf16 attention layer card vs CPU within 2^-8. Full width:
+               v2a_default() with ``video_encoder="mixed"`` and
+               dim_text_raw 4608 (ViT-bigG 224px, ViT-L/14-336 336px,
+               ConvNeXt-XXLarge 256px, DINOv2-giant 224px, bf16, random
+               weights from seed 0), frame stride 1, phase 5's frames
+               through ``frames_cache`` (resized per tower on the card), an
+               empty prompt, 25 steps: a warm-up and TOWER_RUNS timed
+               generates (every wall, ``video_encode_s`` by tower, the
+               realtime factor, peak memory), K2 (48 + 24) x 4 chunks per
+               run and no other wrapper, finite audio of the clip's length;
+               then the same at 1280x720 frames (a warm-up and one
+               timed generate: every tower resizes on the card), and one
+               ``clip_vit2`` generate: K2 24 x 4;
+  23. Audeo  — float32, TF32 off (printed beside every time). Card against
+               CPU from the same weights: one ``Video2RollTrainer`` step
+               at batch 2 of 5 x 100 x 900 windows (loss, logits, every
+               BatchNorm running statistic) and one ``Roll2MidiTrainer``
+               step on 2 x 16 x 24 windows with every dropout rate 0 (the
+               G losses, G's statistics; the D loss against float64 at the
+               card's updated G), all within SMALL_REL_RMS; each gradient
+               tensor of the card and of the CPU against a float64 copy on
+               the card, and the card's against the CPU's, within
+               GRAD_MAX; the card's parameters must be Adam's first update
+               of its own gradients (within 1e-6).
+               Full width: ``Video2RollTrainer`` at batch V2R_BATCH, a
+               warm-up and AUDEO_STEPS timed steps; ``Roll2MidiTrainer``
+               plain and enhance at batch R2M_BATCH x 51 x 100, a warm-up
+               and R2M_FALL_STEPS timed steps on one batch, whose
+               reconstruction loss must fall (median, windows per second,
+               peak memory); then ``video2roll_infer_chunks`` over
+               AUDEO_STRIPS seeded strips (5 npz chunks), ``roll2midi_infer``
+               (4 chunks: the odd last one dropped), ``MidiSynth``,
+               ``write_midi_file`` and ``evaluate_rolls`` against a seeded
+               ground truth: finite, binary rolls, a parseable MIDI file,
+               walls printed.
+
+Each phase header line carries the seconds since the start of the run.
 
 The line before the last is a JSON object with one entry per kernel (K1-K5
 and P1; the launches of K1/K2 from the profiled V2A generate, K1's counted
 in its trace (the replayed sampler program), K2's by its wrapper, of K3-K5
-from one train step, of P1 from one new-path probe call); the
+from one train step, of P1 from one new-path probe call) and a second K2
+entry for its case at CLIP ViT-L/336's shape (the launches of phase 22's
+clip_vit2 generate), each naming its ``case``; the
 last is {"ok": true, "device": {...}}. Without CUDA, or without the repo
 around it, the script exits non-zero and prints no result.
 """
@@ -277,6 +325,7 @@ HTTP_WINDOW_MS = 2000.0            # the batcher's window for the HTTP phase
 MIXED_WAVES = (1, 3, 2, 4)         # concurrent POSTs a wave, mixed traffic
 MIXED_DURATIONS = (5.0, 20.0, 5.0)  # seconds, through the server's batcher
 PROBE_SHAPE = (24, 768, 16, 64)    # the P1 probe's defaults: b, n, h, d
+K2_CLIP_L = "K2 CLIP ViT-L/336 (64, 16, 577, 64)"
 PROBE_REPS = 20
 # ten words: with the end token, PROMPT_TOKENS of the tokenizer's 64 tokens
 PROMPT = "a gentle piano melody over soft rain on a window"
@@ -305,7 +354,13 @@ CUDA_CORE_MS = {"K1 self-attn (2, 800, 16x64)": 0.4405,
           "P1 probe (24, 768, 16x64)": 3.7544}
 
 
+T_START = time.perf_counter()
+
+
 def log(*args) -> None:
+    if args and str(args[0]).startswith("["):      # a phase header
+        args = (f"{args[0]} (t = {time.perf_counter() - T_START:.1f} s)",
+                *args[1:])
     print(*args, flush=True)
 
 
@@ -460,10 +515,12 @@ def kernel_cases(torch):
                   f"16x64), context 4-{TRAIN_CONTEXT} valid", "K1",
                   rnd(tb, n, 1024), *kv.chunk(2, dim=-1), ctx_mask,
                   dict(heads=16)))
-    for label, nb in (("K2 ViT-bigG (64, 16, 257, 104)", 64),
-                      ("K2 ViT-bigG stride-3 tail chunk (20, 16, 257, 104)",
-                       84 - 64)):
-        q, k, v = (rnd(nb, 257, 1664).unflatten(-1, (16, 104)).transpose(1, 2)
+    for label, nb, n, dh in (
+            ("K2 ViT-bigG (64, 16, 257, 104)", 64, 257, 104),
+            ("K2 ViT-bigG stride-3 tail chunk (20, 16, 257, 104)", 84 - 64,
+             257, 104),
+            (K2_CLIP_L, 64, 577, 64)):
+        q, k, v = (rnd(nb, n, 16 * dh).unflatten(-1, (16, dh)).transpose(1, 2)
                    for _ in range(3))
         cases.append((label, "K2", q, k, v, None, {}))
 
@@ -495,19 +552,19 @@ def kernel_cases(torch):
                         scale=64 ** -0.5).transpose(1, 2).flatten(2)
             shape = (q.shape[0], h, q.shape[1], k.shape[1], 64)
         else:
-            scale = 104 ** -0.5
+            scale = q.shape[-1] ** -0.5
 
-            def run(q=q, k=k, v=v):
+            def run(q=q, k=k, v=v, scale=scale):
                 return fa.flash_attention(q, k, v, scale=scale)
 
-            def plain(q=q, k=k, v=v):
+            def plain(q=q, k=k, v=v, scale=scale):
                 return fa.attention_reference(q, k, v, scale=scale)
 
-            def ref32(q=q, k=k, v=v):
+            def ref32(q=q, k=k, v=v, scale=scale):
                 return fa.attention_reference(q.float(), k.float(), v.float(),
                                               scale=scale)
 
-            def library(q=q, k=k, v=v):
+            def library(q=q, k=k, v=v, scale=scale):
                 return torch.nn.functional.scaled_dot_product_attention(
                     q, k, v, scale=scale)
 
@@ -596,8 +653,44 @@ def phase_kernels(torch) -> dict:
                                      library_ms=lib_ms, bound_ms=bound_ms,
                                      bound_by=bound_by)
         entry["max_abs_err"] = max(entry["max_abs_err"], err)
+    results["K2_CLIP_L"] = dict(
+        cases={K2_CLIP_L: results["K2"]["cases"][K2_CLIP_L]},
+        max_abs_err=k2_clip_l_edges(torch))
     log_host_cost(torch)
     return results
+
+
+def k2_clip_l_edges(torch) -> float:
+    """K2 at CLIP ViT-L/336's (64, 16, 577, 64) beyond the timed case: a
+    key mask with batch element 1 fully masked (bf16), and float32 (the
+    CUDA-core kernel), each against the plain version in float32 (bf16
+    2^-7, f32 1e-4, times max(1, max|ref|)). Returns the largest error."""
+    from v2ap_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    q, k, v = (torch.randn(64, 577, 1024, generator=gen, device="cuda")
+               .unflatten(-1, (16, 64)).transpose(1, 2) for _ in range(3))
+    dead = torch.ones(64, 577, dtype=torch.bool, device="cuda")
+    dead[1] = False
+    worst = 0.0
+    for label, dtype, mask, rtol in (
+            ("K2 CLIP-L, element 1 fully masked (bf16)", torch.bfloat16, dead,
+             KERNEL_RTOL),
+            ("K2 CLIP-L f32", torch.float32, None, F32_RTOL)):
+        qq, kk, vv = (t.to(dtype) for t in (q, k, v))
+        out = fa.flash_attention(qq, kk, vv, mask, scale=0.125)
+        ref = fa.attention_reference(qq.float(), kk.float(), vv.float(),
+                                     mask, scale=0.125)
+        torch.cuda.synchronize()
+        top = ref.abs().max().item()
+        tol = rtol * max(1.0, top)
+        err = (out.float() - ref).abs().max().item()
+        log(f"  {label}: max|ref| {top:.3f}, max_abs_err {err:.3e} (tol "
+            f"{tol:.3e}) {'ok' if err <= tol else 'FAIL'}")
+        if not (torch.isfinite(out).all() and err <= tol):
+            raise RuntimeError(f"{label}: kernel disagrees with plain version")
+        worst = max(worst, err)
+    return worst
 
 
 def log_host_cost(torch) -> None:
@@ -2883,6 +2976,540 @@ def phase_eval(torch, root: str) -> None:
          torch.backends.cudnn.allow_tf32) = tf32
 
 
+# -------------------------------------------------------------- phase 22
+
+TOWER_RUNS = 3                     # timed mixed-mode generates (median)
+HD_FRAME = (720, 1280)             # (h, w) of the mixed generate's 720p frames
+TOWER_CHUNKS = math.ceil(CLIP_S * FPS / 64)   # 64-frame tower chunks
+
+
+def tower_small_configs():
+    """Small f32 configs of the four towers whose attention head dims K2
+    takes (the port's ``clip_tiny_test`` has head dim 8, which no kernel
+    is built for): ViT-bigG-like (exact GELU, d 32), the quick-GELU ViT-L
+    miniature (d 64), ``dinov2_tiny_test`` and ``convnext_tiny_test``."""
+    from v2ap_torch.models.clip_vit import CLIPVisionConfig
+    from v2ap_torch.models.convnext import convnext_tiny_test
+    from v2ap_torch.models.dinov2 import dinov2_tiny_test
+
+    return {"clip_vit": CLIPVisionConfig(
+                hidden_size=64, intermediate_size=128, num_layers=2,
+                num_heads=2, image_size=28, patch_size=14, projection_dim=16,
+                dtype="float32"),
+            "clip_vit2": CLIPVisionConfig(
+                hidden_size=128, intermediate_size=256, num_layers=2,
+                num_heads=2, image_size=42, patch_size=14, projection_dim=12,
+                hidden_act="quick_gelu", dtype="float32"),
+            "clip_convnext": convnext_tiny_test(),
+            "dinov2": dinov2_tiny_test()}
+
+
+def phase_towers_small(torch) -> None:
+    """A mixed-mode pipeline of the four small f32 towers on the card and
+    on the CPU, same weights: each tower's features of the same 28x28
+    frames (resized to 42 and 32 px on each device) within SMALL_REL_RMS;
+    K2 must have run for the two CLIP towers."""
+    from v2ap_torch import config as C
+    from v2ap_torch.ops.flash_attention import (launch_counts,
+                                                reset_launch_counts)
+    from v2ap_torch.pipelines.generate import V2APipeline
+
+    towers = tower_small_configs()
+    base = C.tiny_tower_test()
+    cfg = base.replace(
+        model=dataclasses.replace(base.model, dim_text_raw=84),
+        conditioning=dataclasses.replace(base.conditioning,
+                                         video_encoder="mixed",
+                                         frame_stride=1, feature_cache=False))
+    pipes = [V2APipeline(cfg, seed=2, device=dev, tower_configs=towers,
+                         quantize_towers=False) for dev in ("cuda", "cpu")]
+    for a, b in zip(pipes[0].towers, pipes[1].towers):
+        b.model.load_state_dict(a.model.state_dict())
+    frames = __import__("numpy").random.default_rng(3).integers(
+        0, 256, (12, 28, 28, 3), dtype="uint8")
+    reset_launch_counts()
+    feats = [p.encode_video_frames_clip(None, 96,
+                                        frames_cache=[(frames, 1.0, 1)])[0]
+             for p in pipes]
+    torch.cuda.synchronize()
+    counts = dict(launch_counts)
+    start = 0
+    for tower in pipes[0].towers:
+        end = start + tower.embed_dim
+        g, c = feats[0][:, start:end].cpu(), feats[1][:, start:end]
+        start = end
+        err = rel_rms(g, c)
+        log(f"  small f32 {tower.name} ({tower.model.cfg.image_size}px, "
+            f"{tower.embed_dim}-d): rel-RMS card vs CPU {err:.2e} (tol "
+            f"{SMALL_REL_RMS})")
+        if not (torch.isfinite(g).all() and err <= SMALL_REL_RMS):
+            raise RuntimeError(f"towers small: {tower.name} disagrees")
+    want = sum(towers[n].num_layers for n in ("clip_vit", "clip_vit2"))
+    if counts["flash_attention"] != want:
+        raise RuntimeError(f"towers small: K2 launched "
+                           f"{counts['flash_attention']} times, not {want}")
+    dinov2_bf16_attention(torch)
+
+
+def dinov2_bf16_attention(torch) -> None:
+    """DINOv2-giant's attention layer (1536 wide, 24 heads of 64) in bf16 on
+    257 tokens: the card's tensor-core products (float32 accumulation and
+    result) against the CPU's widened float32 ones, same weights, within
+    2^-8 rel-RMS (one bf16 rounding of the products and the output)."""
+    from v2ap_torch.models.dinov2 import Dinov2Attention, dinov2_giant
+
+    cfg = dinov2_giant()
+    cpu = Dinov2Attention(cfg, dtype=torch.bfloat16, device="cpu")
+    card = Dinov2Attention(cfg, dtype=torch.bfloat16, device="cuda")
+    card.load_state_dict(cpu.state_dict())
+    x = torch.randn(4, 257, cfg.hidden_size,
+                    generator=torch.Generator().manual_seed(4)).bfloat16()
+    with torch.no_grad():
+        err = rel_rms(card(x.cuda()).float().cpu(), cpu(x).float())
+    log(f"  DINOv2-giant bf16 attention (4, 257, 1536): rel-RMS card vs CPU "
+        f"{err:.2e} (tol {2.0 ** -8:.2e})")
+    if not err <= 2.0 ** -8:
+        raise RuntimeError("towers small: DINOv2 bf16 attention disagrees")
+
+
+def tower_pipeline(torch, mode: str, raw: int):
+    """v2a_default() with video encoder ``mode`` (``raw``-d features into
+    ``proj_text``), frame stride 1, no feature caches, seed 0 on the card,
+    bf16 towers."""
+    from v2ap_torch import config as C
+    from v2ap_torch.pipelines.generate import V2APipeline
+
+    base = C.v2a_default()
+    cfg = base.replace(
+        model=dataclasses.replace(base.model, dim_text_raw=raw),
+        conditioning=dataclasses.replace(base.conditioning, video_encoder=mode,
+                                         frame_stride=1, feature_cache=False))
+    t0 = time.perf_counter()
+    pipe = V2APipeline(cfg, seed=0, device="cuda", quantize_towers=False)
+    torch.cuda.synchronize()
+    sizes = ", ".join(
+        f"{t.name} {sum(p.numel() for p in t.model.parameters()) / 1e6:.1f} M "
+        f"bf16 at {t.model.cfg.image_size}px" for t in pipe.towers)
+    log(f"  build full-width {mode} pipeline: {time.perf_counter() - t0:.2f} "
+        f"s ({sizes}; video_embed_dim {pipe.video_embed_dim})")
+    return pipe
+
+
+def tower_generate(torch, pipe, frames, label: str, expect_k2: int,
+                   runs: int) -> int:
+    """One warm-up generate, then ``runs`` timed ones from ``frames``
+    (empty prompt, 25 steps), the launch counters zeroed before each and
+    read after: K2 ``expect_k2`` times and no other wrapper. Every wall,
+    each tower's seconds and the realtime factor printed. Returns K2's
+    launches of the last run."""
+    import numpy as np
+
+    from v2ap_torch.ops.flash_attention import (launch_counts,
+                                                reset_launch_counts)
+
+    def gen():
+        return pipe.generate(None, steps=25, cfg_strength=2.0, seed=0,
+                             frames_cache=[(frames, CLIP_S, 1)])
+
+    t0 = time.perf_counter()
+    gen()
+    torch.cuda.synchronize()
+    log(f"  {label}: warm-up generate {time.perf_counter() - t0:.3f} s")
+    torch.cuda.reset_peak_memory_stats()
+    expect = {**dict.fromkeys(launch_counts, 0), "flash_attention": expect_k2}
+    walls, towers = [], []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        wav, sr = gen()
+        walls.append(time.perf_counter() - t0)
+        counts = dict(launch_counts)
+        towers.append(dict(pipe.tower_seconds))
+        if wav.shape != (int(CLIP_S * sr),) or not np.isfinite(wav).all():
+            raise RuntimeError(f"{label}: bad waveform {wav.shape}")
+        if counts != expect:
+            raise RuntimeError(f"{label}: launch counts {counts} != {expect}")
+        log(f"  {label} run: wall {walls[-1]:.4f} s; stages (s) "
+            + ", ".join(f"{k} {v:.4f}" for k, v in pipe.last_timings.items())
+            + "; video_encode_s by tower (s) "
+            + ", ".join(f"{k} {v:.4f}" for k, v in towers[-1].items()))
+    wall = float(np.median(walls))
+    log(f"  {label} 10 s clip x{runs}: median wall {wall:.4f} s, realtime "
+        f"factor {CLIP_S / wall:.3f}x; median by tower (s) "
+        + ", ".join(f"{k} {np.median([t[k] for t in towers]):.4f}"
+                    for k in towers[0])
+        + f"; peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+        f"GiB; launches {counts}; waveform {wav.shape} finite")
+    return counts["flash_attention"]
+
+
+def phase_towers(torch, frames) -> int:
+    """Phase 22. Returns K2's launches in one clip_vit2 generate (CLIP-L
+    alone)."""
+    phase_towers_small(torch)
+    pipe = tower_pipeline(torch, "mixed", 4608)
+    tower_generate(torch, pipe, frames, "mixed (4 towers, 4608-d)",
+                   (48 + 24) * TOWER_CHUNKS, TOWER_RUNS)
+    # the same clip at a camera's resolution: every tower resizes on the card
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    hd = torch.randint(0, 256, (len(frames),) + HD_FRAME + (3,),
+                       generator=gen, device="cuda",
+                       dtype=torch.uint8).cpu().numpy()
+    tower_generate(torch, pipe, hd, f"mixed at {HD_FRAME[1]}x{HD_FRAME[0]}",
+                   (48 + 24) * TOWER_CHUNKS, 1)
+    del pipe, hd
+    torch.cuda.empty_cache()
+    pipe = tower_pipeline(torch, "clip_vit2", 768)
+    k2 = tower_generate(torch, pipe, frames, "clip_vit2 (ViT-L/336)",
+                        24 * TOWER_CHUNKS, 1)
+    del pipe
+    torch.cuda.empty_cache()
+    return k2
+
+
+# -------------------------------------------------------------- phase 23
+
+V2R_BATCH = 64                     # full-width Video2Roll training windows
+R2M_BATCH = 16                     # full-width Roll2Midi windows (51 x 100)
+AUDEO_STEPS = 5                    # timed Video2Roll steps after a warm-up
+R2M_FALL_STEPS = 10                # timed Roll2Midi steps on one batch after
+                                   # a warm-up: the reconstruction must fall
+AUDEO_STRIPS = 250                 # 10 s of 100 x 900 strips (5 chunks)
+
+
+def _tf32() -> str:
+    import torch
+
+    return (f"TF32 matmul {torch.backends.cuda.matmul.allow_tf32}, cuDNN "
+            f"{torch.backends.cudnn.allow_tf32}")
+
+
+def _pooled_rel(torch, a: dict, b: dict) -> float:
+    return rel_rms(torch.cat([a[k].detach().cpu().flatten() for k in a]),
+                   torch.cat([b[k].detach().cpu().flatten() for k in a]))
+
+
+def _check_close(label: str, got: float, tol: float,
+                 what: str = "rel-RMS card vs CPU") -> None:
+    log(f"  {label}: {what} {got:.2e} (tol {tol}) "
+        f"{'ok' if got <= tol else 'FAIL'}")
+    if not got <= tol:
+        raise RuntimeError(f"audeo: {label} disagrees")
+
+
+# a float32 gradient against the card's float64 one, on the card and on the
+# CPU, and the card's against the CPU's, per tensor. Through the
+# batch-statistics BatchNorms at batch 2, a ReLU or max-pool decision that
+# rounding flips moves every gradient upstream of it: Video2Roll's early
+# layers read up to 7.1e-3 here on the card, the CPU up to 4.5e-3 and JAX's
+# float32 up to 1.09e-2 in tests/test_torch_audeo.py, and which device
+# lands closer to float64 depends on the weights. A fault shared by the
+# card's float32 and float64 runs reads O(1) against the CPU.
+GRAD_MAX = 2e-2
+
+
+def _float64_copy(torch, model, **kw):
+    """A float64 copy of a port model on the card, dropout off, every layer
+    computing in float64 (its few float32 output casts round at 1e-7)."""
+    from v2ap_torch.ops.layers import Dropout
+
+    copy = type(model)(device="cuda", **kw)
+    copy.load_state_dict(model.state_dict())
+    copy.double()
+    for m in copy.modules():
+        if isinstance(getattr(m, "dtype", None), torch.dtype):
+            m.dtype = torch.float64
+        if isinstance(m, Dropout):
+            m.rate = 0.0
+    return copy
+
+
+def _exact_grads(torch, model, loss) -> dict:
+    model.zero_grad(set_to_none=True)
+    loss(model).backward()
+    return {k: p.grad for k, p in model.named_parameters()}
+
+
+def _step_card_vs_cpu(torch, label: str, card, cpu, before: dict, lr: float,
+                      exact: dict, cpu_grads: dict | None = None) -> None:
+    """After one trainer step from the same weights. Gradients, per tensor
+    in RMS relative to the float64 gradient's (at least 1e-3 of the
+    model's): the card's and the CPU's errors against the float64 gradient,
+    and the card against the CPU, each at most GRAD_MAX. ``cpu_grads``
+    replaces the CPU model's own gradients (D's, taken at the card's
+    fake). Parameters: the card's moved by
+    Adam's first update of its own gradients, -lr g / (|g| + 1e-8), within
+    1e-6 (Adam maps a gradient to +-lr wherever |g| >> 1e-8, so elements
+    whose gradient sits at rounding level move 2 lr apart between card and
+    CPU: counted and printed, not compared). Every running statistic per
+    tensor within SMALL_REL_RMS."""
+    gc = {k: p.grad for k, p in card.named_parameters()}
+    gcpu = cpu_grads or {k: p.grad for k, p in cpu.named_parameters()}
+
+    def rms(t):
+        return t.double().pow(2).mean().sqrt().item()
+
+    total = rms(torch.cat([g.flatten() for g in exact.values()]))
+    worst = {"card": (0.0, ""), "cpu": (0.0, ""), "direct": (0.0, "")}
+    bad = []
+    for k, g64 in exact.items():
+        scale = max(rms(g64), 1e-3 * total)
+        g_cpu = gcpu[k].to(g64.device).double()
+        err = {"card": rms(gc[k].double() - g64) / scale,
+               "cpu": rms(g_cpu - g64) / scale,
+               "direct": rms(gc[k].double() - g_cpu) / scale}
+        worst = {n: max(worst[n], (e, k)) for n, e in err.items()}
+        if not max(err.values()) <= GRAD_MAX:
+            bad.append(k)
+    log(f"  {label} gradients, worst tensors (tol {GRAD_MAX}): card vs "
+        f"float64 {worst['card'][0]:.2e} ({worst['card'][1]}), CPU vs "
+        f"float64 {worst['cpu'][0]:.2e} ({worst['cpu'][1]}), card vs CPU "
+        f"{worst['direct'][0]:.2e} ({worst['direct'][1]}); pooled card vs "
+        f"CPU {_pooled_rel(torch, gc, gcpu):.2e} "
+        f"{'ok' if not bad else 'FAIL ' + ', '.join(bad)}")
+    if bad:
+        raise RuntimeError(f"audeo: {label} gradients disagree")
+    moved, flips = 0.0, 0
+    cpu_params = dict(cpu.named_parameters())
+    for k, p in card.named_parameters():
+        g = gc[k].double()
+        want = before[k].double() - lr * g / (g.abs() + 1e-8)
+        moved = max(moved, (p.double() - want).abs().max().item())
+        flips += int(((p.detach().cpu() - cpu_params[k].detach()).abs()
+                      > lr / 10).sum())
+    log(f"  {label}: parameters vs Adam's update of the card's gradients "
+        f"max |err| {moved:.2e} (tol 1e-6); {flips} of "
+        f"{sum(p.numel() for p in gc.values())} parameters apart by more "
+        f"than lr/10 card vs CPU")
+    if not moved <= 1e-6:
+        raise RuntimeError(f"audeo: {label} is not Adam's update")
+    bufs = dict(cpu.named_buffers())
+    if bufs:
+        worst = max((rel_rms(b.cpu(), bufs[k]), k)
+                    for k, b in card.named_buffers())
+        _check_close(f"{label} running statistics (worst tensor, "
+                     f"{worst[1]})", worst[0], SMALL_REL_RMS)
+
+
+def phase_audeo_small(torch) -> None:
+    """One Video2RollTrainer step at batch 2 of real 5 x 100 x 900 windows
+    and one Roll2MidiTrainer step on 2 x 16 x 24 windows (every dropout
+    rate 0), card against CPU from the same weights, f32, TF32 off, each
+    gradient also against a float64 copy on the card."""
+    import numpy as np
+
+    from v2ap_torch.audeo import (Roll2MidiDiscriminator, Roll2MidiGenerator,
+                                  Roll2MidiTrainer, Video2RollTrainer)
+    from v2ap_torch.audeo.train import ADV_WEIGHT
+    from v2ap_torch.models.video2roll import Video2RollNet
+    from v2ap_torch.ops.layers import Dropout
+
+    log(f"  {_tf32()}")
+    rng = np.random.default_rng(7)
+    frames = rng.random((2, 5, 100, 900)).astype(np.float32)
+    labels = (rng.random((2, 51)) > 0.8).astype(np.float32)
+    torch.manual_seed(7)       # the same weights whatever ran before
+    nets = [Video2RollNet(device=d) for d in ("cuda", "cpu")]
+    nets[1].load_state_dict(nets[0].state_dict())
+    before = {k: p.detach().clone() for k, p in nets[0].named_parameters()}
+    f64, l64 = (torch.from_numpy(a).cuda().double() for a in (frames, labels))
+    exact = _exact_grads(
+        torch, _float64_copy(torch, nets[0]),
+        lambda m: torch.nn.functional.binary_cross_entropy_with_logits(
+            m(f64, train=True).double(), l64))
+    out = [Video2RollTrainer(n).step(frames, labels) for n in nets]
+    _check_close("Video2Roll step loss", rel_rms(out[0][0].cpu(), out[1][0]),
+                 SMALL_REL_RMS)
+    _check_close("Video2Roll step logits", rel_rms(out[0][1].cpu(),
+                                                   out[1][1]), SMALL_REL_RMS)
+    _step_card_vs_cpu(torch, "Video2Roll step", *nets, before, 1e-3, exact)
+
+    roll = rng.random((2, 16, 24, 1)).astype(np.float32)
+    gt = (roll > 0.7).astype(np.float32)
+    pairs = []
+    for dev in ("cuda", "cpu"):
+        gen = Roll2MidiGenerator(device=dev)
+        for m in gen.modules():
+            if isinstance(m, Dropout):
+                m.rate = 0.0
+        pairs.append((gen, Roll2MidiDiscriminator(height=16, width=24,
+                                                  device=dev)))
+    for a, b in zip(pairs[0], pairs[1]):
+        b.load_state_dict(a.state_dict())
+    before = [{k: p.detach().clone() for k, p in m.named_parameters()}
+              for m in pairs[0]]
+    g64 = _float64_copy(torch, pairs[0][0])
+    d64 = _float64_copy(torch, pairs[0][1], height=16, width=24)
+    r64, gt64 = (torch.from_numpy(a).cuda().double() for a in (roll, gt))
+
+    def g_loss(g):
+        fake = g(r64, train=True).double()
+        return (ADV_WEIGHT * (d64(fake) - 1.0).pow(2).mean()
+                + (1 - ADV_WEIGHT) * (fake - gt64).pow(2).mean())
+
+    g_exact = _exact_grads(torch, g64, g_loss)
+    d_cpu = Roll2MidiDiscriminator(height=16, width=24, device="cpu")
+    d_cpu.load_state_dict(pairs[1][1].state_dict())
+    losses = [Roll2MidiTrainer(g, d).step(roll, gt) for g, d in pairs]
+    # D's step reads each device's updated G, which Adam's +-lr moves apart:
+    # its float64 and CPU references take the card's updated G's fake
+    with torch.no_grad():
+        fake = pairs[0][0](torch.from_numpy(roll).cuda())
+    fake64 = fake.double()
+
+    def d_loss(d):
+        return 0.5 * ((d(gt64) - 1.0).pow(2).mean() + d(fake64).pow(2).mean())
+
+    d_exact = _exact_grads(torch, d64, d_loss)
+    gt_cpu, fake_cpu = torch.from_numpy(gt), fake.cpu()
+    (0.5 * ((d_cpu(gt_cpu) - 1.0).pow(2).mean()
+            + d_cpu(fake_cpu).pow(2).mean())).backward()
+    d_cpu_grads = {k: p.grad for k, p in d_cpu.named_parameters()}
+    g_terms = [0, 2, 3]
+    _check_close("Roll2Midi step G, adversarial and reconstruction losses",
+                 rel_rms(torch.tensor(losses[0])[g_terms],
+                         torch.tensor(losses[1])[g_terms]), SMALL_REL_RMS)
+    with torch.no_grad():
+        want = d_loss(d64).item()   # d64 still holds the initial D
+    _check_close(f"Roll2Midi step D loss (card {losses[0][1]:.6f}, CPU "
+                 f"{losses[1][1]:.6f}) vs float64 at the card's updated G",
+                 abs(losses[0][1] - want) / abs(want), SMALL_REL_RMS,
+                 "relative error")
+    _step_card_vs_cpu(torch, "Roll2Midi step, G", pairs[0][0], pairs[1][0],
+                      before[0], 5e-4, g_exact)
+    _step_card_vs_cpu(torch, "Roll2Midi step, D", pairs[0][1], pairs[1][1],
+                      before[1], 1e-3, d_exact, d_cpu_grads)
+
+
+def _timed_steps(torch, label: str, step, steps: int, windows: int) -> list:
+    """One warm-up ``step()``, then ``steps`` timed ones (synchronised).
+    Prints every time, the median, windows per second and peak memory.
+    Returns every step's result, the warm-up's first."""
+    import numpy as np
+
+    t0 = time.perf_counter()
+    results = [step()]
+    torch.cuda.synchronize()
+    log(f"  {label}: warm-up step {time.perf_counter() - t0:.3f} s")
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        results.append(step())
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    med = float(np.median(times))
+    log(f"  {label} x{steps} ({_tf32()}): step (s) "
+        f"{', '.join(f'{t:.4f}' for t in times)}; median {med:.4f} s, "
+        f"{windows / med:.1f} windows/s; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return results
+
+
+def phase_audeo(torch) -> None:
+    """Phase 23 (see the module docstring)."""
+    import numpy as np
+
+    from v2ap_torch.audeo import (MidiSynth, Roll2MidiDiscriminator,
+                                  Roll2MidiGenerator, Roll2MidiTrainer,
+                                  Video2RollTrainer, evaluate_rolls,
+                                  roll_to_notes, video2roll_infer_chunks,
+                                  write_midi_file)
+    from v2ap_torch.audeo.datasets import roll2midi_infer
+    from v2ap_torch.models.video2roll import Video2RollNet
+
+    phase_audeo_small(torch)
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    frames = torch.rand(V2R_BATCH, 5, 100, 900, generator=gen, device="cuda")
+    labels = (torch.rand(V2R_BATCH, 51, generator=gen, device="cuda")
+              > 0.8).float()
+    torch.manual_seed(0)
+    net = Video2RollNet(device="cuda")
+    trainer = Video2RollTrainer(net)
+    losses = _timed_steps(torch, f"Video2Roll train step, batch {V2R_BATCH} "
+                          f"x 5 x 100 x 900", lambda: trainer.step(
+                              frames, labels)[0], AUDEO_STEPS, V2R_BATCH)
+    if not all(torch.isfinite(x).item() for x in losses):
+        raise RuntimeError("audeo: non-finite Video2Roll loss")
+    log(f"  Video2Roll losses {', '.join(f'{x.item():.4f}' for x in losses)}")
+    del frames, labels, trainer
+
+    rng = np.random.default_rng(9)
+    roll = rng.random((R2M_BATCH, 51, 100, 1)).astype(np.float32)
+    gt = (roll > 0.7).astype(np.float32)
+    gens = {}
+    for enhance in (False, True):
+        name = "enhance" if enhance else "plain"
+        g = Roll2MidiGenerator(enhance=enhance, device="cuda")
+        tr = Roll2MidiTrainer(g, Roll2MidiDiscriminator(device="cuda"))
+        out = _timed_steps(torch, f"Roll2Midi {name} G + D step, batch "
+                           f"{R2M_BATCH} x 51 x 100", lambda: tr.step(
+                               roll, gt), R2M_FALL_STEPS, R2M_BATCH)
+        recs = [o[3] for o in out]
+        log(f"  Roll2Midi {name}: reconstruction loss over the warm-up and "
+            f"{R2M_FALL_STEPS} steps on one batch "
+            + ", ".join(f"{r:.5f}" for r in recs))
+        if not (np.isfinite([x for o in out for x in o]).all()
+                and recs[-1] < recs[0]):
+            raise RuntimeError(f"audeo: Roll2Midi {name} reconstruction did "
+                               f"not fall ({recs[0]:.5f} -> {recs[-1]:.5f})")
+        gens[name] = g
+
+    strips = np.random.default_rng(10).random(
+        (AUDEO_STRIPS, 100, 900)).astype(np.float32)
+    gt_roll = (np.random.default_rng(11).random((AUDEO_STRIPS, 88)) > 0.9
+               ).astype(np.int64)
+    net.eval()
+    walls = {}
+    root = tempfile.mkdtemp(prefix="v2ap_chip_smoke_audeo_")
+    try:
+        t0 = time.perf_counter()
+        chunks = video2roll_infer_chunks(net, strips,
+                                         out_dir=os.path.join(root, "roll"))
+        walls["video2roll_infer_chunks"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        midi = roll2midi_infer(gens["plain"], [c[2] for c in chunks],
+                               out_dir=os.path.join(root, "midi"))
+        walls["roll2midi_infer"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        synth = MidiSynth()
+        cleaned = synth.rolls_from_npz_dir(os.path.join(root, "midi"),
+                                           key="midi")
+        audio = synth.synthesize_roll(cleaned, min_key=0)
+        walls["MidiSynth"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        path = os.path.join(root, "clean.mid")
+        write_midi_file(path, roll_to_notes(cleaned, min_key=0))
+        walls["write_midi_file"] = time.perf_counter() - t0
+        with open(path, "rb") as f:
+            data = f.read()
+        t0 = time.perf_counter()
+        metrics = evaluate_rolls(cleaned, gt_roll[: len(cleaned)])
+        walls["evaluate_rolls"] = time.perf_counter() - t0
+        n_files = (len(os.listdir(os.path.join(root, "roll"))),
+                   len(os.listdir(os.path.join(root, "midi"))))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    rolls = np.concatenate([c[3] for c in chunks])
+    logits = np.concatenate([c[2] for c in chunks])
+    ok = (len(chunks) == 5 and n_files == (5, 4) and len(midi) == 4
+          and np.isfinite(logits).all() and np.isfinite(audio).all()
+          and set(np.unique(rolls)) <= {0, 1}
+          and set(np.unique(cleaned)) <= {0, 1}
+          and data[:4] == b"MThd" and data[14:18] == b"MTrk"
+          and all(np.isfinite(v) for v in metrics.as_dict().values()))
+    log(f"  Audeo offline path over {AUDEO_STRIPS} strips: {len(chunks)} "
+        f"roll chunks, {len(midi)} midi chunks (the odd last dropped), files "
+        f"{n_files}, roll on {rolls.mean():.3f}, cleaned on "
+        f"{cleaned.mean():.3f}, audio {audio.shape} finite, MIDI "
+        f"{len(data)} bytes; metrics {metrics.as_dict()}; walls (s) "
+        + ", ".join(f"{k} {v:.4f}" for k, v in walls.items()))
+    if not ok:
+        raise RuntimeError("audeo: the offline path's outputs are wrong")
+
+
 # ------------------------------------------------------------------ main
 
 def main() -> int:
@@ -2912,7 +3539,7 @@ def main() -> int:
         "error", message="flex_attention called without torch.compile")
     t_start = time.perf_counter()
 
-    log(f"[1/21] build — card: {card_line()}")
+    log(f"[1/23] build — card: {card_line()}")
     log(f"  torch {torch.__version__} (CUDA {torch.version.cuda}), "
         f"{torch.cuda.get_device_name(0)}; f32 matmul and cuDNN TF32 off")
     t0 = time.perf_counter()
@@ -2922,18 +3549,18 @@ def main() -> int:
         f"{', '.join(src.name for src in fa._SOURCES)} in "
         f"{time.perf_counter() - t0:.2f} s")
 
-    log("[2/21] kernels vs plain versions (bf16 in, f32 reference)")
+    log("[2/23] kernels vs plain versions (bf16 in, f32 reference)")
     kern = phase_kernels(torch)
     kern.update(phase_train_kernels(torch))
     log_bwd_more(torch)
-    log("[3/21] P1 probe: packed (b, n, h*d) vs (b, h, n, d) + transposes")
+    log("[3/23] P1 probe: packed (b, n, h*d) vs (b, h, n, d) + transposes")
     kern["P1"] = phase_probe(torch)
-    log("[4/21] small f32 config: card vs CPU")
+    log("[4/23] small f32 config: card vs CPU")
     phase_small(torch)
     import numpy as np
 
     frames = clip_frames()
-    log("[5/21] full-width V2A generate (frame stride 1, empty prompt; the "
+    log("[5/23] full-width V2A generate (frame stride 1, empty prompt; the "
         "sampler as a captured program)")
     pipe = full_pipeline(torch, "V2A", frame_stride=1)
 
@@ -2943,7 +3570,7 @@ def main() -> int:
 
     phase_generate(torch, pipe, "V2A generate", generate_v2a,
                    generate_expect(pipe, len(frames)))
-    log("[6/21] V2A generate profile")
+    log("[6/23] V2A generate profile")
 
     def profiled(gen, check=None):
         def run():
@@ -2957,17 +3584,17 @@ def main() -> int:
     gen_counts = phase_profile(torch, "generate", profiled(generate_v2a),
                                SM90_FWD, generate_expect(pipe, len(frames)),
                                k1_expect(pipe))
-    log("[7/21] full-width sampler: captured programs vs eager, same inputs")
+    log("[7/23] full-width sampler: captured programs vs eager, same inputs")
     phase_captured(torch, pipe, frames)
-    log(f"[8/21] generate_batch: {BATCH} x 10 s clips, frames handed in")
+    log(f"[8/23] generate_batch: {BATCH} x 10 s clips, frames handed in")
     phase_generate_batch(torch, pipe, frames)
-    log(f"[9/21] generate_long: a {LONG_S:.0f} s clip in one batched call")
+    log(f"[9/23] generate_long: a {LONG_S:.0f} s clip in one batched call")
     phase_generate_long(torch, pipe)
-    log(f"[10/21] HTTP server: {BATCH} concurrent POST /v2a")
+    log(f"[10/23] HTTP server: {BATCH} concurrent POST /v2a")
     phase_http(torch, pipe)
     del pipe
     torch.cuda.empty_cache()
-    log("[11/21] full-width V2P generate with a prompt (v2a_default(): frame "
+    log("[11/23] full-width V2P generate with a prompt (v2a_default(): frame "
         "stride 3, strip stride 2; FLAN-T5-large, Video2Roll)")
     pipe = full_pipeline(torch, "V2P")
     strips = np.random.default_rng(1).integers(
@@ -2987,20 +3614,20 @@ def main() -> int:
     roll = pipe.last_roll
     log(f"  roll {tuple(roll.shape)}: min {roll.min().item():.4f}, max "
         f"{roll.max().item():.4f}, mean {roll.mean().item():.4f}")
-    log("[12/21] V2P generate profile")
+    log("[12/23] V2P generate profile")
     phase_profile(torch, "V2P generate", profiled(generate_v2p, check_roll),
                   SM90_FWD, generate_expect(pipe, len(frames)),
                   k1_expect(pipe))
     del pipe, roll
     torch.cuda.empty_cache()
-    log("[13/21] small train: tiny_test() card vs CPU, then "
+    log("[13/23] small train: tiny_test() card vs CPU, then "
         f"{TINY_STEPS} steps")
     phase_small_train(torch)
-    log("[14/21] full-width V2A train step, then with remat full and dots")
+    log("[14/23] full-width V2A train step, then with remat full and dots")
     trainer, batch = full_trainer(torch)
     train_counts = phase_train(torch, trainer, batch)
     phase_train_remat(torch, trainer, batch, train_counts)
-    log("[15/21] train-step profile")
+    log("[15/23] train-step profile")
 
     def train_once():
         loss, _ = trainer.train_step(batch)
@@ -3012,10 +3639,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     root = tempfile.mkdtemp(prefix="v2ap_chip_smoke_")
     try:
-        log("[16/21] train from corpora: TrainingPipeline(v2a_default()), "
+        log("[16/23] train from corpora: TrainingPipeline(v2a_default()), "
             f"remat dots, EMA, batch {TRAIN_BATCH} x {TRAIN_LATENTS}")
         tp, batcher = phase_corpus_train(torch, root)
-        log("[17/21] resume, save the EMA CFM, load_weights, generate")
+        log("[17/23] resume, save the EMA CFM, load_weights, generate")
         held = {"pipe": tp, "batcher": batcher}
         del tp, batcher
         phase_resume_and_serve(torch, held, root, frames)
@@ -3024,7 +3651,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     from v2ap_torch import config as C
 
-    log(f"[18a/21] DPO at full width: crossatt3, TrainConfig(dpo=True), "
+    log(f"[18a/23] DPO at full width: crossatt3, TrainConfig(dpo=True), "
         f"dropout 0.1, no remat, batch {TRAIN_BATCH} x {TRAIN_LATENTS} with "
         f"rows 6 and 7 a pair")
     trainer, batch = full_trainer(torch, train_cfg=C.TrainConfig(dpo=True),
@@ -3032,7 +3659,7 @@ def main() -> int:
     phase_dpo(torch, "DPO train step", trainer, batch)
     del trainer, batch
     torch.cuda.empty_cache()
-    log(f"[18b/21] crossatt6 (FactorCL) with DPO under remat dots, batch "
+    log(f"[18b/23] crossatt6 (FactorCL) with DPO under remat dots, batch "
         f"{TRAIN_BATCH} x {TRAIN_LATENTS}")
     six = C.variant_preset("crossatt6")
     six = six.replace(model=dataclasses.replace(six.model, remat=True,
@@ -3046,11 +3673,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     root = tempfile.mkdtemp(prefix="v2ap_chip_smoke_")
     try:
-        log(f"[19/21] reflow: pairs from the full-width teacher, "
+        log(f"[19/23] reflow: pairs from the full-width teacher, "
             f"{REFLOW_STEPS} distill steps, save_model, load_weights, "
             f"generate(fewstep=2)")
         pipe = phase_reflow(torch, frames, root)
-        log("[20/21] the reference layout: a full-width synthetic crossatt3 "
+        log("[20/23] the reference layout: a full-width synthetic crossatt3 "
             ".pt, python -m v2ap_torch.convert, load_weights, generate; "
             "crossatt6")
         phase_reference(torch, pipe, frames, root)
@@ -3058,7 +3685,7 @@ def main() -> int:
         torch.cuda.empty_cache()
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    log("[21/21] evaluate: Cnn14 and CLAP card vs CPU; run_batch_eval, python "
+    log("[21/23] evaluate: Cnn14 and CLAP card vs CPU; run_batch_eval, python "
         "-m v2ap_torch.evaluate (FAD, IS, KL, CLAP) and python -m "
         "v2ap_torch.inference_v2p from primed caches")
     phase_evaluators(torch)
@@ -3069,6 +3696,19 @@ def main() -> int:
         log(f"  phase 21's batch evaluation: {time.perf_counter() - t0:.2f} s")
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    log("[22/23] the other video towers: small f32 card vs CPU; full-width "
+        "mixed (ViT-bigG + ViT-L/336 + ConvNeXt-XXLarge + DINOv2-giant, "
+        "4608-d) and clip_vit2 generates")
+    t0 = time.perf_counter()
+    k2_clip_l = phase_towers(torch, frames)
+    log(f"  phase 22: {time.perf_counter() - t0:.2f} s")
+    log("[23/23] Audeo: trainer steps card vs CPU; full-width Video2Roll and "
+        "Roll2Midi training; roll inference, Roll2Midi, synthesis, MIDI, "
+        "metrics")
+    t0 = time.perf_counter()
+    phase_audeo(torch)
+    log(f"  phase 23: {time.perf_counter() - t0:.2f} s")
     torch.cuda.empty_cache()
 
     main_case = {"K1": "K1 self-attn (2, 800, 16x64)",
@@ -3094,13 +3734,20 @@ def main() -> int:
                                               "flash_attention_bwd_dq",
                                               "flash_attention_bwd_dkv")},
               "flash_bnhd": kern["P1"]["launches"]}
+    # K2 a second time: its case at CLIP ViT-L/336's shape, the launches of
+    # one clip_vit2 generate (phase 22)
+    main_case["K2_CLIP_L"] = K2_CLIP_L
+    meta["K2_CLIP_L"] = meta["K2"]
+    launches = {**{kid: counts[name] for kid, (name, _, _) in meta.items()},
+                "K2_CLIP_L": k2_clip_l}
     entries = []
     for kid, (name, source, replaces) in meta.items():
         c = kern[kid]["cases"][main_case[kid]]
         entries.append({
-            "name": name, "route": "cuda",
+            "name": name, "case": main_case[kid], "route": "cuda",
             "source": f"v2ap_torch/csrc/{source}", "replaces": replaces,
-            "launches": counts[name], "max_abs_err": kern[kid]["max_abs_err"],
+            "launches": launches[kid],
+            "max_abs_err": kern[kid]["max_abs_err"],
             "ms": c["ms"], "graph_ms": c["graph_ms"], "plain_ms": c["plain_ms"],
             "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
             "library_ms": c["library_ms"]})

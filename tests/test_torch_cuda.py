@@ -75,6 +75,9 @@ CASES = [
     pytest.param((4, 16, 257, 257, 104, None, "none", 104 ** -0.5),
                  id="k2_bigg_d104"),
     pytest.param((2, 2, 63, 65, 104, 50.0, "ragged", None), id="edges_d104"),
+    # CLIP ViT-L/14-336: 577 tokens (9 x 64 + 1, the last row tile ragged)
+    pytest.param((4, 16, 577, 577, 64, None, "none", 64 ** -0.5),
+                 id="k2_clip_l_577_d64"),
 ]
 
 
@@ -1025,3 +1028,62 @@ def test_clap_on_the_card_tracks_the_cpu(cuda, monkeypatch):
     s_cpu = (fa_cpu * ft_cpu).sum(-1)
     s_card = (fa_card * ft_card).sum(-1).cpu()
     assert abs(float(s_card - s_cpu)) < 1e-4
+
+
+# ------------------------------------------------------------- Audeo
+
+def test_batchnorm_train_mode_on_the_card_tracks_the_cpu(cuda):
+    """``BatchNorm2d(train=True)`` (the Audeo trainers' mode) on the card and
+    on the CPU from the same statistics: the output within 1e-5, the running
+    mean and variance after two calls within 1e-6 (float64 sums on both)."""
+    from v2ap_torch.ops.layers import BatchNorm2d
+
+    gen = torch.Generator().manual_seed(0)
+    xs = [torch.randn(8, 16, 20, 30, generator=gen) * 3 + 2 for _ in range(2)]
+    cpu = BatchNorm2d(16, eps=0.8, device="cpu")
+    with torch.no_grad():
+        cpu.weight.normal_(generator=gen)
+        cpu.bias.normal_(generator=gen)
+    card = BatchNorm2d(16, eps=0.8, device=cuda)
+    card.load_state_dict(cpu.state_dict())
+    for x in xs:
+        want = cpu(x, train=True)
+        got = card(x.to(cuda), train=True)
+        assert (got.cpu() - want).abs().max().item() < 1e-5
+    for name in ("running_mean", "running_var"):
+        assert (card.get_buffer(name).cpu() - cpu.get_buffer(name)
+                ).abs().max().item() < 1e-6
+
+
+# ------------------------------------------------------------- towers
+
+def test_dinov2_bf16_attention_products_on_the_tensor_cores(cuda):
+    """DINOv2's two attention products in bf16 on the card (float32
+    accumulation and result, ``out_dtype``) against the same bf16 values
+    widened to float32 with TF32 off: within 1e-5 relative RMS (summation
+    order only); then a bf16 attention layer on the card against the CPU
+    from the same weights, within 2^-8 relative RMS (one bf16 rounding of
+    its products and output)."""
+    from v2ap_torch.models import dinov2 as t_dinov2
+
+    gen = torch.Generator().manual_seed(0)
+    a = torch.randn(2, 4, 257, 96, generator=gen).bfloat16().to(cuda)
+    b = torch.randn(2, 4, 96, 257, generator=gen).bfloat16().to(cuda)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        got = t_dinov2._matmul_f32(a, b)
+        want = torch.matmul(a.float(), b.float())
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    rel = lambda x, y: ((x.float() - y.float()).pow(2).mean().sqrt()
+                        / y.float().pow(2).mean().sqrt()).item()
+    assert rel(got, want) < 1e-5
+    cfg = t_dinov2.dinov2_tiny_test()
+    cpu = t_dinov2.Dinov2Attention(cfg, dtype=torch.bfloat16, device="cpu")
+    card = t_dinov2.Dinov2Attention(cfg, dtype=torch.bfloat16, device=cuda)
+    card.load_state_dict(cpu.state_dict())
+    x = torch.randn(3, 17, cfg.hidden_size, generator=gen).bfloat16()
+    with torch.no_grad():
+        assert rel(card(x.to(cuda)).cpu(), cpu(x)) < 2.0 ** -8

@@ -176,3 +176,37 @@ def test_batch_entry_points_parse_their_arguments(module, flag):
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert flag in out.stdout and "--device" in out.stdout
+
+
+def test_tower_and_audeo_sources_are_checked():
+    """The static check and the import walk cover the other video towers
+    and the Audeo piano subsystem, its own copy of the keyboard crop data
+    included."""
+    checked = {p.relative_to(ROOT).as_posix()
+               for p in (ROOT / "v2ap_torch").rglob("*.py")}
+    assert {"v2ap_torch/models/dinov2.py",
+            "v2ap_torch/models/convnext.py",
+            "v2ap_torch/models/video_towers.py",
+            "v2ap_torch/audeo/__init__.py",
+            "v2ap_torch/audeo/roll2midi.py",
+            "v2ap_torch/audeo/train.py",
+            "v2ap_torch/audeo/datasets.py",
+            "v2ap_torch/audeo/evaluate.py",
+            "v2ap_torch/audeo/synth.py",
+            "v2ap_torch/audeo/piano_coords.py"} <= checked
+    assert (ROOT / "v2ap_torch/audeo/piano_coords_data.json").is_file()
+
+
+@pytest.mark.parametrize("build", ["tower", "roll2midi", "video2roll"])
+def test_new_entry_points_refuse_missing_cuda(build):
+    """The towers and the Audeo networks are built on CUDA unless given
+    ``device="cpu"``; without a card they raise."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    from v2ap_torch.audeo.roll2midi import Roll2MidiGenerator
+    from v2ap_torch.models.dinov2 import Dinov2Model, dinov2_tiny_test
+    from v2ap_torch.models.video2roll import Video2RollNet
+    make = {"tower": lambda: Dinov2Model(dinov2_tiny_test()),
+            "roll2midi": Roll2MidiGenerator, "video2roll": Video2RollNet}
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make[build]()

@@ -312,21 +312,22 @@ def test_clip_matches_jax(clip):
 
 
 def test_clip_preprocess_matches_jax():
-    """Geometry: frames already at the tower's size pass through unchanged
-    (so the card's machine needs no PIL); other sizes resize and crop as
-    the JAX package does (exact uint8); normalisation to 1e-6."""
+    """Geometry (``crop_to_tower``): frames already at the tower's size
+    pass through unchanged; other sizes resize and crop as the JAX package
+    does (exact uint8); normalisation (``device_normalize``) to 1e-6."""
     rng = np.random.default_rng(10)
     square = rng.integers(0, 256, (2, 28, 28, 3), dtype=np.uint8)
-    out = t_clip.preprocess_frames(square, 28, normalize=False)
+    out = N(t_clip.crop_to_tower(torch.from_numpy(square), 28))
     np.testing.assert_array_equal(out, square)
     np.testing.assert_array_equal(
         out, j_clip.preprocess_frames(square, 28, normalize=False))
     wide = rng.integers(0, 256, (2, 30, 44, 3), dtype=np.uint8)
+    px = t_clip.crop_to_tower(torch.from_numpy(wide), 28)
     np.testing.assert_array_equal(
-        t_clip.preprocess_frames(wide, 28, normalize=False),
-        j_clip.preprocess_frames(wide, 28, normalize=False))
-    np.testing.assert_allclose(t_clip.preprocess_frames(wide, 28),
-                               j_clip.preprocess_frames(wide, 28), atol=1e-6)
+        N(px), j_clip.preprocess_frames(wide, 28, normalize=False))
+    np.testing.assert_allclose(
+        N(t_clip.device_normalize(px, t_clip.CLIP_MEAN, t_clip.CLIP_STD)),
+        j_clip.preprocess_frames(wide, 28), atol=1e-6)
     norm = t_clip.device_normalize(torch.from_numpy(square), t_clip.CLIP_MEAN,
                                    t_clip.CLIP_STD)
     np.testing.assert_allclose(

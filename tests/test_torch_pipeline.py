@@ -241,10 +241,23 @@ def test_pipeline_refuses_unported_conditioning(pipelines, change, kwargs):
     """Unported conditioning raises at construction. A frame stride above 1
     is ported: what it refuses is a frames_cache holding frames at a step
     that is neither 1 (full rate) nor the stride. The feature caches are
-    ported: such a pipeline builds, with the JAX package's cache tags."""
+    ported: such a pipeline builds, with the JAX package's cache tags. The
+    other towers are ported: the mixed mode builds the four towers (tiny
+    configs through ``tower_configs``), and only an unknown mode raises."""
     cfg = _cfg(t_config)
     cfg = cfg.replace(conditioning=dataclasses.replace(cfg.conditioning,
                                                        **change))
+    if "video_encoder" in change:
+        from tests.test_torch_towers import T_TOWERS
+        tp = _port_pipeline(cfg, tower_configs=T_TOWERS)
+        assert [t.name for t in tp.towers] == ["clip_vit", "clip_vit2",
+                                               "clip_convnext", "dinov2"]
+        assert tp.video_embed_dim == 16 + 12 + 24 + 32
+        bad = cfg.replace(conditioning=dataclasses.replace(
+            cfg.conditioning, video_encoder="clip_vit3"))
+        with pytest.raises(ValueError, match="not one of"):
+            _port_pipeline(bad)
+        return
     if "feature_cache" in change:
         tp = _port_pipeline(cfg)
         assert tp.cfg.conditioning.feature_cache

@@ -367,7 +367,8 @@ def test_train_cli_config_and_remat(tmp_path):
     path.write_text(j_config.variant_preset("crossatt3_2").to_json())
     defaults = dict(variant="crossatt3", config=None, tiny=False,
                     no_remat=False, remat_policy="dots", grad_accum=None,
-                    batch_size=None, dpo=False, contrastive=False)
+                    batch_size=None, dpo=False, contrastive=False,
+                    video_encoder=None)
     parse = lambda *a: t_train.build_config(
         type("Args", (), {**defaults, **dict(a)})())
     cfg = parse(("config", str(path)), ("grad_accum", 2))
@@ -385,9 +386,33 @@ def test_train_cli_config_and_remat(tmp_path):
     assert t_config.V2APConfig.from_json(t_cfg.to_json()) == t_cfg
 
 
+@pytest.mark.parametrize("mode", ["clip_vit", "clip_vit2", "clip_convnext",
+                                  "dinov2", "mixed"])
+def test_train_cli_video_encoder_matches_jax(mode):
+    """``--video-encoder`` sets the conditioning's tower(s), and "mixed" the
+    CFM's 4608-d ``proj_text``, as ``scripts/train.py``'s build_config
+    (loaded with importlib) sets them."""
+    import importlib.util
+    import pathlib
+
+    path = pathlib.Path(__file__).resolve().parents[1] / "scripts" / "train.py"
+    spec = importlib.util.spec_from_file_location("jax_train_script", path)
+    j_train = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(j_train)
+    args = type("Args", (), dict(
+        variant="crossatt3", config=None, tiny=False, no_remat=False,
+        remat_policy="dots", grad_accum=None, batch_size=None, dpo=False,
+        contrastive=False, video_encoder=mode))()
+    t_cfg, j_cfg = t_train.build_config(args), j_train.build_config(args)
+    assert t_cfg.conditioning.video_encoder == mode
+    assert t_cfg.model.dim_text_raw == (4608 if mode == "mixed" else None)
+    d = j_cfg.to_dict()
+    d.pop("mesh")
+    assert t_cfg.to_dict() == d
+
+
 @pytest.mark.parametrize("args", [
-    ["--video-encoder", "dinov2"], ["--host-id", "0"], ["--num-hosts", "2"],
-    ["--no-mesh"]])
+    ["--host-id", "0"], ["--num-hosts", "2"], ["--no-mesh"]])
 def test_train_cli_unported_options_raise(args, tmp_path):
     with pytest.raises(NotImplementedError):
         t_train.main(["--corpora-root", str(tmp_path), "--tiny", "--device",

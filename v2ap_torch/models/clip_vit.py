@@ -1,15 +1,18 @@
-"""CLIP vision tower with projection (ViT-bigG), pixels -> image embeds.
+"""CLIP vision tower with projection (ViT-bigG, ViT-L/14-336), pixels ->
+image embeds.
 
 Counterpart of ``v2ap_tpu/models/clip_vit.py``: conv patch embed (no bias),
-class token + position embeddings, pre-layernorm blocks, exact GELU, and the
-``visual_projection`` of the layer-normed class token. Every attention
-layer runs the hand-written flash kernel (``flash_attention``, K2) on its
-257 tokens and head dim 104 as they are; nothing is padded.
+class token + position embeddings, pre-layernorm blocks, exact GELU (bigG)
+or quick GELU (ViT-L), and the ``visual_projection`` of the layer-normed
+class token. Every attention layer runs the hand-written flash kernel
+(``flash_attention``, K2) on its tokens as they are: bigG's 257 at head
+dim 104, ViT-L/336's 577 at head dim 64; nothing is padded.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -42,6 +45,14 @@ class CLIPVisionConfig:
 def clip_vit_bigg() -> CLIPVisionConfig:
     """IP-Adapter SDXL image encoder (ViT-bigG-14, laion2b)."""
     return CLIPVisionConfig()
+
+
+def clip_vit_l_336() -> CLIPVisionConfig:
+    """openai/clip-vit-large-patch14-336 (the reference's clip_vit2 option)."""
+    return CLIPVisionConfig(hidden_size=1024, intermediate_size=4096,
+                            num_layers=24, num_heads=16, image_size=336,
+                            patch_size=14, projection_dim=768,
+                            hidden_act="quick_gelu")
 
 
 def clip_tiny_test() -> CLIPVisionConfig:
@@ -167,42 +178,100 @@ CLIP_MEAN = (0.48145466, 0.4578275, 0.40821073)
 CLIP_STD = (0.26862954, 0.26130258, 0.27577711)
 
 
-def preprocess_frames(frames: np.ndarray, image_size: int = 224, mean=None,
-                      std=None, normalize: bool = True) -> np.ndarray:
-    """uint8 RGB frames (t, H, W, 3) -> (t, S, S, 3), as CLIPImageProcessor:
-    resize the shortest edge (bicubic), center crop, rescale 1/255,
-    normalize. ``normalize=False`` returns uint8 geometry only.
+_PRECISION_BITS = 22       # Pillow's fixed point for 8-bit resampling
 
-    Frames already ``image_size`` square pass through unchanged (PIL's
-    resize to the same size returns an unchanged copy), so that path needs
-    no PIL; other sizes import PIL here.
-    """
-    mean = np.asarray(mean if mean is not None else CLIP_MEAN, np.float32)
-    std = np.asarray(std if std is not None else CLIP_STD, np.float32)
-    frames = np.asarray(frames)
-    if frames.shape[1:3] == (image_size, image_size):
-        out = frames.astype(np.uint8, copy=True)
-    else:
-        from PIL import Image
 
-        out = np.empty((len(frames), image_size, image_size, 3), np.uint8)
-        for i, frame in enumerate(frames):
-            img = Image.fromarray(frame)
-            w, h = img.size
-            short = min(w, h)
-            nw, nh = round(w * image_size / short), round(h * image_size / short)
-            img = img.resize((nw, nh), Image.BICUBIC)
-            left, top = (nw - image_size) // 2, (nh - image_size) // 2
-            out[i] = np.asarray(img.crop((left, top, left + image_size,
-                                          top + image_size)), np.uint8)
-    if not normalize:
-        return out
-    return (out.astype(np.float32) / 255.0 - mean) / std
+def _bicubic(x: float) -> float:
+    """Pillow's bicubic filter (a = -0.5)."""
+    x = abs(x)
+    if x < 1.0:
+        return (1.5 * x - 2.5) * x * x + 1.0
+    if x < 2.0:
+        return (((x - 5.0) * x + 8.0) * x - 4.0) * -0.5
+    return 0.0
+
+
+@functools.lru_cache(maxsize=64)
+def _resample_matrix(in_size: int, out_full: int, offset: int,
+                     n: int) -> np.ndarray:
+    """Pillow's fixed-point bicubic coefficients (Resample.c,
+    ``precompute_coeffs`` and ``normalize_coeffs_8bpc``) of output pixels
+    ``offset .. offset + n`` of a resize from ``in_size`` to ``out_full``,
+    as a read-only (n, in_size) int64 matrix, zero outside each pixel's
+    window; built once per geometry."""
+    scale = in_size / out_full
+    filterscale = max(scale, 1.0)
+    support = 2.0 * filterscale
+    mat = np.zeros((n, in_size), np.int64)
+    for i in range(n):
+        center = (offset + i + 0.5) * scale
+        xmin = max(int(center - support + 0.5), 0)
+        xmax = min(int(center + support + 0.5), in_size)
+        w = [_bicubic((x + xmin - center + 0.5) / filterscale)
+             for x in range(xmax - xmin)]
+        total = sum(w)
+        for x, wx in enumerate(w):
+            v = wx / total * (1 << _PRECISION_BITS)
+            mat[i, xmin + x] = int(v - 0.5 if v < 0 else v + 0.5)
+    mat.setflags(write=False)
+    return mat
+
+
+def _clip8(acc: torch.Tensor) -> torch.Tensor:
+    """Pillow's ``clip8`` on float64 sums of integers: (acc + 2^21) >> 22,
+    clipped to [0, 255] (exact: |acc| < 2^31)."""
+    half = float(1 << (_PRECISION_BITS - 1))
+    return torch.floor((acc + half) / float(1 << _PRECISION_BITS)).clamp_(
+        0.0, 255.0)
+
+
+# float64 bytes of frames that one horizontal pass converts at a time: a
+# 64-frame 1080p chunk would take 3.2 GB at once
+_F64_FRAME_BYTES = 1 << 29
+
+
+def resize_center_crop(frames: torch.Tensor, size: int) -> torch.Tensor:
+    """uint8 RGB (t, H, W, 3) -> (t, size, size, 3) uint8 on the frames'
+    device: the shortest edge resized to ``size`` (bicubic), then the
+    center crop, bit-equal to PIL's ``Image.resize(..., BICUBIC)`` +
+    ``crop`` (and to the JAX package's native resampler). Both passes, the
+    horizontal one first and rounded to uint8 as in PIL, are float64
+    products of integers below 2^31: exact on any device, in any summation
+    order. The frames go through in groups of at most 512 MiB of float64."""
+    t, h, w, _ = frames.shape
+    short = min(h, w)
+    nw, nh = round(w * size / short), round(h * size / short)
+    left, top = (nw - size) // 2, (nh - size) // 2
+    dev, f64 = frames.device, torch.float64
+    mh = torch.tensor(_resample_matrix(w, nw, left, size), dtype=f64,
+                      device=dev)
+    mv = torch.tensor(_resample_matrix(h, nh, top, size), dtype=f64,
+                      device=dev)
+    group = max(1, _F64_FRAME_BYTES // (h * w * 3 * 8))
+    out = []
+    for i in range(0, t, group):
+        # (g, h, 3, w) made contiguous in uint8, so the float64 copy is the
+        # only large one; rows of the product are pixels, columns outputs
+        x = frames[i: i + group].permute(0, 1, 3, 2).contiguous().to(f64)
+        tmp = _clip8(x @ mh.T)                              # (g, h, 3, size)
+        tmp = tmp.permute(0, 2, 3, 1).contiguous()          # (g, 3, size, h)
+        y = _clip8(tmp @ mv.T)                              # (g, 3, size, r)
+        out.append(y.permute(0, 3, 2, 1).to(torch.uint8))   # (g, r, size, 3)
+    return torch.cat(out).contiguous()
+
+
+def crop_to_tower(px: torch.Tensor, image_size: int) -> torch.Tensor:
+    """A tower's geometry on uint8 (t, H, W, 3) frames: unchanged when they
+    are ``image_size`` square already (PIL's resize to the same size is an
+    unchanged copy), else ``resize_center_crop``."""
+    if tuple(px.shape[1:3]) == (image_size, image_size):
+        return px
+    return resize_center_crop(px, image_size)
 
 
 def device_normalize(px: torch.Tensor, mean, std) -> torch.Tensor:
-    """uint8 pixels -> normalised float32 on px's device (the tower-side
-    counterpart of ``preprocess_frames(normalize=False)``)."""
+    """uint8 pixels -> normalised float32 on px's device: rescaled by 1/255,
+    then CLIPImageProcessor's (or the tower's) mean and std."""
     x = px.float() / 255.0
     mean = torch.as_tensor(mean, dtype=torch.float32, device=px.device)
     std = torch.as_tensor(std, dtype=torch.float32, device=px.device)

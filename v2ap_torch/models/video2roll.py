@@ -13,8 +13,8 @@ keyboard frames (5, 100, 900) -> ``num_classes`` key logits.
 
 The JAX package leaves these convolutions to XLA, outside Pallas, so here
 they are ``torch.nn.functional.conv2d``. Convolutions compute in the model's
-dtype; BatchNorm uses its running statistics and computes in float32, as
-``nnx.BatchNorm(use_running_average=True, dtype=float32)`` does.
+dtype; BatchNorm computes in float32, as ``nnx.BatchNorm(dtype=float32)``
+does, on its running statistics unless ``train=True``.
 """
 
 from __future__ import annotations
@@ -35,8 +35,8 @@ class ConvBN(nn.Module):
                            bias=use_bias, dtype=dtype, device=device)
         self.bn = BatchNorm2d(cout, device=device)
 
-    def forward(self, x):
-        return self.bn(self.conv(x))
+    def forward(self, x, train: bool = False):
+        return self.bn(self.conv(x), train)
 
 
 class BasicBlock(nn.Module):
@@ -49,10 +49,10 @@ class BasicBlock(nn.Module):
         self.down = (ConvBN(cin, cout, 1, stride, 0, **kw)
                      if (stride != 1 or cin != cout) else None)
 
-    def forward(self, x):
-        res = self.down(x) if self.down is not None else x
-        h = F.relu(self.cb1(x))
-        return F.relu(self.cb2(h) + res)
+    def forward(self, x, train: bool = False):
+        res = self.down(x, train) if self.down is not None else x
+        h = F.relu(self.cb1(x, train))
+        return F.relu(self.cb2(h, train) + res)
 
 
 class FTB(nn.Module):
@@ -67,9 +67,9 @@ class FTB(nn.Module):
         self.cb1 = ConvBN(cout, cout, 3, 1, 1, **kw)
         self.conv2 = Conv2d(cout, cout, 3, padding=1, bias=False, **kw)
 
-    def forward(self, x, avg: bool = True):
+    def forward(self, x, avg: bool = True, train: bool = False):
         x1 = self.conv0(x)
-        h = F.relu(self.cb1(x1))
+        h = F.relu(self.cb1(x1, train))
         h = self.conv2(h) + x1
         return F.avg_pool2d(h, 2, 2) if avg else F.avg_pool2d(h, 3, 1)
 
@@ -120,27 +120,29 @@ class Video2RollNet(nn.Module):
         self.conv2 = Conv2d(128, 128, 1, **kw)
         self.fc = Linear(128, num_classes, **kw)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
         """x: (b, frames=5, H, W) grayscale stack -> (b, num_classes) f32
-        logits."""
-        h = F.relu(self.stem(x.to(self.dtype)))
+        logits. ``train=True`` normalises with the batch statistics and
+        updates the running ones (the standalone Video2Roll trainer); the
+        CFM runs it on the running statistics, in training too."""
+        h = F.relu(self.stem(x.to(self.dtype), train))
         h = F.max_pool2d(F.pad(h, (1, 1, 1, 1), value=float("-inf")), 3, 2)
         for blk in self.layer1:
-            h = blk(h)
+            h = blk(h, train)
         x2 = h
         for blk in self.layer2:
-            x2 = blk(x2)
+            x2 = blk(x2, train)
         x3 = x2
         for blk in self.layer3:
-            x3 = blk(x3)
+            x3 = blk(x3, train)
         x4 = x3
         for blk in self.layer4:
-            x4 = blk(x4)
+            x4 = blk(x4, train)
 
-        x5 = F.relu(self.toplayer(x4))
-        x2_ = self.ftb2_2(self.ftb2_1(x2))
-        x3_ = self.ftb3(x3)
-        x4_ = self.ftb4(x4, avg=False)
+        x5 = F.relu(self.toplayer(x4, train))
+        x2_ = self.ftb2_2(self.ftb2_1(x2, train=train), train=train)
+        x3_ = self.ftb3(x3, train=train)
+        x4_ = self.ftb4(x4, avg=False, train=train)
 
         p4 = self.frb4(x4_, x5)
         p3 = self.frb3(x3_, p4)

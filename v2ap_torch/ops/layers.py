@@ -6,7 +6,8 @@ dtype that inputs and parameters are cast to before the op (so
 defaults; weights loaded from the JAX package replace them
 (``v2ap_torch.utils.convert``). ``Dropout`` is ``nnx.Dropout``;
 ``Conv2d`` and ``BatchNorm2d`` are ``nnx.Conv`` and ``nnx.BatchNorm`` in
-PyTorch's NCHW layout."""
+PyTorch's NCHW layout (``BatchNorm2d`` in
+training updates its running statistics as flax does)."""
 
 from __future__ import annotations
 
@@ -80,17 +81,20 @@ class LayerNorm(nn.Module):
 class Conv2d(nn.Module):
     """nnx.Conv over 2D inputs with explicit (symmetric) padding, in NCHW:
     input and weight cast to ``dtype``, output in ``dtype``; weight stored
-    (out, in, kh, kw) in float32."""
+    (out, in / groups, kh, kw) in float32. ``groups`` is nnx's
+    ``feature_group_count`` (``groups == in == out``: depthwise)."""
 
     def __init__(self, in_features: int, out_features: int, kernel: int, *,
                  stride: int = 1, padding: int = 0, bias: bool = True,
-                 dtype: torch.dtype = torch.float32, device=None):
+                 groups: int = 1, dtype: torch.dtype = torch.float32,
+                 device=None):
         super().__init__()
         self.dtype = dtype
-        self.stride, self.padding = stride, padding
-        self.weight = nn.Parameter(torch.empty(out_features, in_features,
-                                               kernel, kernel, device=device))
-        lecun_normal_(self.weight, in_features * kernel * kernel)
+        self.stride, self.padding, self.groups = stride, padding, groups
+        self.weight = nn.Parameter(torch.empty(
+            out_features, in_features // groups, kernel, kernel,
+            device=device))
+        lecun_normal_(self.weight, in_features // groups * kernel * kernel)
         self.bias = (nn.Parameter(torch.zeros(out_features, device=device))
                      if bias else None)
 
@@ -98,16 +102,25 @@ class Conv2d(nn.Module):
         dt = self.dtype
         bias = self.bias.to(dt) if self.bias is not None else None
         return F.conv2d(x.to(dt), self.weight.to(dt), bias, stride=self.stride,
-                        padding=self.padding)
+                        padding=self.padding, groups=self.groups)
 
 
 class BatchNorm2d(nn.Module):
-    """nnx.BatchNorm(use_running_average=True, dtype=f32) over the channels
-    of NCHW inputs: (x - mean) / sqrt(var + eps) * scale + bias from the
-    running statistics, computed and returned in float32. The statistics
-    are never updated, in training too (JAX's Video2Roll runs with
-    ``use_running_average`` there as well); scale and bias take
-    gradients."""
+    """nnx.BatchNorm(dtype=f32) over the channels of NCHW inputs, computed
+    and returned in float32 (float64 inputs stay float64, as flax promotes
+    to at least float32): (x - mean) * rsqrt(var + eps) * scale + bias.
+
+    ``train=False`` takes the running statistics (``use_running_average``).
+    ``train=True`` takes the batch's: the mean and the biased variance
+    E[x^2] - E[x]^2, clipped at 0, in float32 (flax's fast variance, its
+    two means accumulated in float64 and rounded to float32), and
+    moves the running statistics towards them as flax does, ``r = momentum
+    * r + (1 - momentum) * batch`` with flax's momentum 0.99 and that biased
+    variance (``F.batch_norm(training=True)`` would use momentum 0.1 and
+    the unbiased variance). The gradient flows through the batch
+    statistics, not into the running ones."""
+
+    MOMENTUM = 0.99                     # flax's default
 
     def __init__(self, num_features: int, eps: float = 1e-5, device=None):
         super().__init__()
@@ -119,10 +132,29 @@ class BatchNorm2d(nn.Module):
         self.register_buffer("running_var",
                              torch.ones(num_features, device=device))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.batch_norm(x.float(), self.running_mean.float(),
-                            self.running_var.float(), self.weight.float(),
-                            self.bias.float(), training=False, eps=self.eps)
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        dt = torch.promote_types(x.dtype, torch.float32)   # as flax: >= f32
+        x = x.to(dt)
+        if not train:
+            return F.batch_norm(x, self.running_mean.to(dt),
+                                self.running_var.to(dt), self.weight.to(dt),
+                                self.bias.to(dt), training=False,
+                                eps=self.eps)
+        # E[x] and E[x^2] summed in float64, then rounded: a float32 sum
+        # over b*h*w values loses the low bits that E[x^2] - E[x]^2 keeps
+        n = x.numel() // x.shape[1]
+        mean = (x.sum(dim=(0, 2, 3), dtype=torch.float64) / n).to(dt)
+        mean2 = ((x * x).sum(dim=(0, 2, 3), dtype=torch.float64) / n).to(dt)
+        var = (mean2 - mean * mean).clamp_min(0.0)
+        with torch.no_grad():
+            m = self.MOMENTUM
+            self.running_mean.copy_(m * self.running_mean.to(dt)
+                                    + (1.0 - m) * mean)
+            self.running_var.copy_(m * self.running_var.to(dt)
+                                   + (1.0 - m) * var)
+        mul = torch.rsqrt(var + self.eps) * self.weight.to(dt)
+        return ((x - mean[:, None, None]) * mul[:, None, None]
+                + self.bias.to(dt)[:, None, None])
 
 
 class Dropout(nn.Module):

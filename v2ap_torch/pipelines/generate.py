@@ -7,8 +7,13 @@ Counterpart of ``v2ap_tpu/pipelines/generate.py``:
           for V2P also grayscale keyboard strips, decoded in the same pass
           or handed in through ``strips_cache``; the tagged on-disk frame,
           strip and roll caches beside the video (the JAX package's files)
-  device: CLIP ViT-bigG over every ``frame_stride``-th frame, in chunks,
-          blended linearly to the latent rate                   [K2 kernel]
+  device: the video tower(s) of ``video_encoder`` over every
+          ``frame_stride``-th frame, in chunks (uint8 frames resized to
+          each tower's image size there, PIL-exact), blended linearly to
+          the latent rate: CLIP ViT-bigG (``clip_vit``) [K2 kernel], CLIP
+          ViT-L/14-336 (``clip_vit2``) [K2 kernel], ConvNeXt-XXLarge
+          (``clip_convnext``), DINOv2-giant (``dinov2``), or all four
+          concatenated per frame (``mixed``, 4608-d)
   device: FLAN-T5 over a non-empty prompt (plain PyTorch attention)
   device: Video2Roll over 5-strip windows, the strips blended from every
           ``strip_stride``-th one (V2P)
@@ -118,6 +123,7 @@ class V2APipeline:
     def __init__(self, cfg: V2APConfig | None = None, *, seed: int = 0,
                  device=None, tokenizer_path: Optional[str] = None,
                  t5_config=None, clip_config=None, encodec_config=None,
+                 tower_configs: Optional[dict] = None,
                  quantize_towers: Optional[bool] = None,
                  quantize_cfm: Optional[bool] = None,
                  trainable_cfm: bool = False):
@@ -174,9 +180,15 @@ class V2APipeline:
             self.codec = EncodecModel(encodec_config, device=self.device)
         with seeded_init(seed + 2, self.device):
             self.t5 = T5Encoder(self.t5_cfg, device=self.device)
+        # tower name -> config (tiny test configs); clip_config is the
+        # shorthand for ViT-bigG's
+        tower_configs = dict(tower_configs or {})
+        if clip_config is not None:
+            tower_configs.setdefault("clip_vit", clip_config)
         self.towers = build_video_towers(cond.video_encoder, seed=seed + 3,
-                                         clip_config=clip_config,
+                                         overrides=tower_configs,
                                          device=self.device)
+        self.video_embed_dim = sum(t.embed_dim for t in self.towers)
         self.clip = self.towers[0].model
         self.clip_cfg = self.clip.cfg
         # frozen encoders are stored bf16 when the model computes in bf16;
@@ -195,6 +207,8 @@ class V2APipeline:
         self.graphs = (CapturedPrograms() if self.device.type == "cuda"
                        else None)
         self.last_timings: dict = {}
+        # seconds of each tower's part of the last encode_video_frames_clip
+        self.tower_seconds: dict = {}
         self.last_roll: Optional[torch.Tensor] = None   # (n, notes), V2P
 
     # ------------------------------------------------------------------ io
@@ -323,22 +337,12 @@ class V2APipeline:
         mask = self._to_device(mask).bool()
         return self.t5(self._to_device(ids).long(), mask), mask
 
-    def _encode_tower(self, tower, video_path: Optional[str], chunk: int,
-                      frames_cache: list):
-        """One tower's embeddings of every ``frame_stride``-th frame (on the
-        device) and the clip's duration. With ``feature_cache`` on and a
-        video path, a cache file of this tower and tag beside the video
-        answers instead, and a computed result is written there. Decodes
-        the video into ``frames_cache`` unless it already holds (frames,
-        duration, step), with step 1 (full rate) or the frame stride."""
+    def _tower_frames(self, video_path: Optional[str], frames_cache: list):
+        """The frames the towers encode, every ``frame_stride``-th one, and
+        the clip's duration. Decodes the video into ``frames_cache`` unless
+        it already holds (frames, duration, step), with step 1 (full rate)
+        or the frame stride."""
         stride = self.frame_stride
-        cache = None
-        if self.cfg.conditioning.feature_cache and video_path is not None:
-            cache = video_io.clip_feature_cache_path(video_path, tower.name)
-            feats, duration = video_io.load_feature_cache(
-                cache, tag=self._tower_tag)
-            if feats is not None:
-                return _feature_tensor(feats, self.device), duration
         if not frames_cache:
             frames_cache.append(video_io.read_video_frames(video_path,
                                                            step=stride)
@@ -352,33 +356,69 @@ class V2APipeline:
                              f"{stride}th (its frame_stride)")
         if stride > 1 and step == 1:
             frames = frames[::stride]
-        px = tower.preprocess(frames)                 # uint8 geometry only
-        feats = torch.cat([tower.model(device_normalize(
-            self._to_device(px[i: i + chunk]), tower.mean, tower.std))
-            for i in range(0, len(px), chunk)])
-        if cache is not None:
-            # float32 holds a bf16 feature exactly, and both packages read it
-            video_io.save_feature_cache(cache, feats.float().cpu().numpy(),
-                                        duration, tag=self._tower_tag)
-        return feats, duration
+        return frames, duration
 
     @torch.inference_mode()
     def encode_video_frames_clip(self, video_path: Optional[str], length: int,
                                  chunk: Optional[int] = None,
                                  frames_cache=None):
         """Tower embeddings at the latent rate, zero-padded to ``length``
-        rows: ((length, dim) float32 on the device, duration). At frame
+        rows: ((length, video_embed_dim) float32 on the device, duration).
+        With ``feature_cache`` on and a video path, each tower's cache file
+        beside the video (of this tag) answers for it, and the towers it
+        does not answer write theirs. The others encode the frames of one
+        ``frames_cache`` (decoded once), each 64-frame chunk uploaded once
+        as uint8 and put through every tower's geometry and model on the
+        device. In "mixed" mode the embeddings are cut to the shortest and
+        concatenated per frame (1280 + 768 + 1024 + 1536 = 4608). At frame
         stride 1 each row takes its nearest frame; above 1 it blends the two
-        nearest encoded frames in float32."""
+        nearest encoded frames in float32. ``tower_seconds`` gets each
+        tower's seconds (its cache read, or its geometry and model)."""
         chunk = chunk or 64
         frames_cache = [] if frames_cache is None else frames_cache
-        feats, duration = self._encode_tower(self.towers[0], video_path, chunk,
-                                             frames_cache)
-        if feats is None:
-            return None, None
+        self.tower_seconds = {}
+        feats, caches, duration = {}, {}, None
+        if self.cfg.conditioning.feature_cache and video_path is not None:
+            for tower in self.towers:
+                t0 = time.perf_counter()
+                caches[tower.name] = video_io.clip_feature_cache_path(
+                    video_path, tower.name)
+                got, d = video_io.load_feature_cache(caches[tower.name],
+                                                     tag=self._tower_tag)
+                if got is not None:
+                    feats[tower.name] = _feature_tensor(got, self.device)
+                    duration = d
+                    self.tower_seconds[tower.name] = time.perf_counter() - t0
+        todo = [t for t in self.towers if t.name not in feats]
+        if todo:
+            frames, duration = self._tower_frames(video_path, frames_cache)
+            if frames is None:
+                return None, None
+            parts = {t.name: [] for t in todo}
+            seconds = dict.fromkeys(parts, 0.0)
+            for i in range(0, len(frames), chunk):
+                px = self._to_device(frames[i: i + chunk])
+                for tower in todo:
+                    t0 = time.perf_counter()
+                    parts[tower.name].append(tower.model(device_normalize(
+                        tower.preprocess(px), tower.mean, tower.std)))
+                    self._sync()
+                    seconds[tower.name] += time.perf_counter() - t0
+            for tower in todo:
+                feats[tower.name] = torch.cat(parts[tower.name])
+                if tower.name in caches:
+                    # float32 holds a bf16 feature exactly, and both
+                    # packages read it
+                    video_io.save_feature_cache(
+                        caches[tower.name],
+                        feats[tower.name].float().cpu().numpy(), duration,
+                        tag=self._tower_tag)
+            self.tower_seconds.update(seconds)
+        per_tower = [feats[t.name].float() for t in self.towers]
+        t = min(len(f) for f in per_tower)
+        feats = torch.cat([f[:t] for f in per_tower], dim=-1)
         cond = self.cfg.conditioning
         kw = dict(sample_rate=cond.sampling_rate, frame_size=cond.frame_size)
-        feats = feats.float()
         if self.frame_stride > 1:
             i0, i1, w = video_io.interp_weights_clip(len(feats), duration,
                                                      length, **kw)

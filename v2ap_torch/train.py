@@ -24,8 +24,9 @@ the preference-pair corpus ``<root>/pairs.scp``), the host ``TrainBatcher``
 (with ``--dpo`` every micro-batch ends with a pair) and the
 ``TrainingPipeline``, which resumes from and checkpoints to
 ``--work-dir/ckpts``. Remat is on with the ``dots`` policy unless
-``--no-remat`` or ``--tiny``, as in JAX. Not ported, and refused: video
-encoders other than ``clip_vit`` and the multi-host options
+``--no-remat`` or ``--tiny``, as in JAX. ``--video-encoder`` picks the
+video tower(s) (``mixed``: the four concatenated, 4608-d through the CFM's
+``proj_text``). Not ported, and refused: the multi-host options
 (``--host-id``, ``--num-hosts``, ``--no-mesh``), which belong to
 parallelism.
 """
@@ -55,9 +56,13 @@ def build_config(args):
     else:
         cfg = cfgmod.variant_preset(args.variant)
 
-    model_kw, train_kw = {}, {}
+    model_kw, train_kw, cond_kw = {}, {}, {}
     if not args.no_remat and not args.tiny:
         model_kw.update(remat=True, remat_policy=args.remat_policy)
+    if args.video_encoder:
+        cond_kw["video_encoder"] = args.video_encoder
+        if args.video_encoder == "mixed":
+            model_kw["dim_text_raw"] = 4608
     if args.dpo:
         train_kw["dpo"] = True
     if args.contrastive:
@@ -70,6 +75,9 @@ def build_config(args):
         cfg = cfg.replace(model=dataclasses.replace(cfg.model, **model_kw))
     if train_kw:
         cfg = cfg.replace(train=dataclasses.replace(cfg.train, **train_kw))
+    if cond_kw:
+        cfg = cfg.replace(conditioning=dataclasses.replace(cfg.conditioning,
+                                                           **cond_kw))
     return cfg
 
 
@@ -84,7 +92,8 @@ def main(argv=None) -> int:
                          "FactorCL), crossatt3 (the shipped V2A + V2P "
                          "model) or crossatt3_2 (88 keys)")
     ap.add_argument("--video-encoder", default=None,
-                    help="only clip_vit is ported")
+                    choices=("clip_vit", "clip_vit2", "clip_convnext",
+                             "dinov2", "mixed"))
     ap.add_argument("--dpo", action="store_true",
                     help="preference optimization: <corpora-root>/pairs.scp "
                          "lists a*/b* winner / loser files of one clip")
@@ -117,13 +126,10 @@ def main(argv=None) -> int:
     unported = [flag for flag, on in (
         ("--host-id", args.host_id is not None),
         ("--num-hosts", args.num_hosts is not None),
-        ("--no-mesh", args.no_mesh),
-        (f"--video-encoder {args.video_encoder}",
-         args.video_encoder not in (None, "clip_vit"))) if on]
+        ("--no-mesh", args.no_mesh)) if on]
     if unported:
         raise NotImplementedError(f"{', '.join(unported)}: not ported "
-                                  f"(other video towers and parallelism "
-                                  f"come later)")
+                                  f"(parallelism comes later)")
 
     from v2ap_torch.data.dataset import TrainBatcher
     from v2ap_torch.data.manifests import (CorpusSpec, default_corpora,

@@ -6,9 +6,10 @@ package's device mesh belongs to parallelism, not ported yet):
 
   host:   TrainBatcher (manifests, mixing, blacklists, 50 % video-prompt
           flip)
-  device: EnCodec encode (waveform -> latents), T5 contexts, CLIP features
-          (from the feature cache beside each video, else its frames
-          through the tower), keyboard strips (from the strip cache, else
+  device: EnCodec encode (waveform -> latents), T5 contexts, the video
+          tower features of ``video_encoder`` (each tower's from its
+          feature cache beside each video, else the frames through the
+          tower; "mixed" concatenates the four), keyboard strips (from the strip cache, else
           the video) and the ``<stem>.3.npy`` ground-truth roll for piano
           rows, the CFM train step (K3, K4, K5 on the card)
   loop:   resume, heartbeat, metrics, switch-EMA, exact-state checkpoints,

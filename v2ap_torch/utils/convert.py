@@ -4,14 +4,16 @@
 dotted paths and numpy arrays — its ``nnx.Param`` leaves plus the time
 embedding's fixed Fourier projection (a plain ``nnx.Variable``) — and fills
 the port's ``CFM`` (Video2Roll included), ``EncodecModel`` (encoder,
-decoder and the quantizer's codebooks), ``CLIPVisionModel``,
-``T5Encoder``, ``training.contrastive.FactorCL``, the evaluators' ``Cnn14``
-or ``ClapModel`` in place. The port mirrors the JAX module tree, so a path
+decoder and the quantizer's codebooks), ``CLIPVisionModel`` (ViT-bigG,
+ViT-L/336), ``Dinov2Model``, ``ConvNextCLIP``, ``T5Encoder``,
+``training.contrastive.FactorCL``, the evaluators' ``Cnn14`` or
+``ClapModel``, and Audeo's ``Roll2MidiGenerator`` /
+``Roll2MidiDiscriminator`` in place. The port mirrors the JAX module tree, so a path
 maps to the module of the same path; only the leaf layout changes:
 
   * ``Linear`` kernel (in, out)                 -> weight (out, in)
   * ``nnx.Conv`` kernel (kh, kw, in, out)       -> weight (out, in, kh, kw)
-    (``PatchEmbed``, ``Conv2d``)
+    (``PatchEmbed``, ``Conv2d``; depthwise: in = 1)
   * ``CausalConv1d`` / depthwise kernel (k, in, out) -> weight (out, in, k)
   * ``CausalConvTranspose1d`` kernel (k, cout, cin)  -> weight (cin, cout, k)
   * ``LayerNorm`` scale -> weight, ``Embed`` embedding -> weight
