@@ -256,6 +256,45 @@ Phases, each of which fails the run (exit 1, no result line) if it fails:
                ``write_midi_file`` and ``evaluate_rolls`` against a seeded
                ground truth: finite, binary rolls, a parseable MIDI file,
                walls printed.
+  24. weights in and int8 — with ``V2AP_INT8_TOWERS`` unset and the gate
+               file pointed at a missing path (JAX's default: int8 towers).
+               (a) Seeded tensors under the published key layouts of
+               ``tests/golden/hf_keys_*.json``: ViT-bigG (float16, sharded
+               ``model-*.safetensors`` with its index, written by this
+               script's own writer), FLAN-T5-large's encoder and the 24 kHz
+               EnCodec (``weight_g`` / ``weight_v``) in float32,
+               DINOv2-giant (518 px) and ConvNeXt-XXLarge in bf16 (each a
+               ``pytorch_model.bin``), ViT-L/336 (one float16
+               ``model.safetensors``) and Video2Roll (the reference's
+               names); ``python -m v2ap_torch.convert --clip --t5 --encodec
+               --dinov2 --convnext`` as its own process (seconds per flag,
+               no key left over), ViT-L/336 through its reader and
+               ``save_model``; a V2A pipeline's ``load_weights`` (seconds):
+               every loaded tensor of ViT-bigG, T5, EnCodec and Video2Roll
+               bit-equal to the in-process readers' in the pipeline's
+               dtype, EnCodec's folded weights against
+               ``torch._weight_norm`` on the card (1e-6 of max|w|), a V2A
+               generate on the loaded weights and Video2Roll's logits
+               finite. (b) One int8 ``Linear`` at ViT-bigG's fc1 card vs CPU
+               (codes, scales and int32 sums equal, output within one bf16
+               ulp) and timed beside bf16 ``F.linear``; V2A generates with
+               int8 towers (the default), bf16 towers and int8 again
+               (INT8_RUNS each, launch counts checked, walls and
+               ``video_encode_s``), ViT-bigG's features int8 vs bf16; one
+               chunk of the int8 tower under the profiler (an int8
+               tensor-core GEMM, ``INT8_GEMM``, for each of its 289
+               ``Linear`` calls, nothing off the tensor cores) and a
+               profiled int8-tower generate (K1 by the trace, K2 by the
+               counters); ``v2ap_torch.scripts.probe_tower_drift``'s
+               ``main`` (f32, bf16, int8, int8_mlp, int8_skip_last4); a mixed
+               pipeline through ``Predictor(...).setup(ckpt=)``, its four
+               towers bit-equal to the readers', INT8_MIXED_RUNS generates
+               in int8 and in bf16; ``V2AP_INT8_CFM=1``: every ``Linear``
+               of the CFM in int8, the captured 25-step sampler bit-equal
+               to the eager one, INT8_RUNS generates (``sample_s``). (c)
+               ``python -m v2ap_torch.int8_tower_gate --tiny`` writes its
+               verdict file (plumbing: seeded evaluators, a clip that does
+               not decode here).
 
 Each phase header line carries the seconds since the start of the run.
 
@@ -977,13 +1016,14 @@ def log_captures(pipe, since: int) -> None:
 
 
 def phase_generate(torch, pipe, label: str, gen, expect: dict,
-                   check=None) -> dict:
+                   check=None, runs: int = GENERATE_RUNS) -> dict:
     """One warm-up ``gen()`` (it captures the sampler's program), then
-    GENERATE_RUNS timed ones. The launch counters are zeroed just before
+    ``runs`` timed ones. The launch counters are zeroed just before
     each timed run and read just after it; every run must give finite
     audio of the clip's length, the expected counts (the wrappers', K1 0:
-    the sampler replays) and pass ``check(pipe)``. Reports the median wall
-    time and each stage's median."""
+    the sampler replays) and pass ``check(pipe)``. Reports and returns the
+    median wall time (``wall``, every one in ``walls``) and each stage's
+    median (``stages``)."""
     import numpy as np
 
     from v2ap_torch.ops.flash_attention import (launch_counts,
@@ -997,7 +1037,7 @@ def phase_generate(torch, pipe, label: str, gen, expect: dict,
     log_captures(pipe, since)
     torch.cuda.reset_peak_memory_stats()
     walls, stages = [], []
-    for _ in range(GENERATE_RUNS):
+    for _ in range(runs):
         torch.cuda.synchronize()
         reset_launch_counts()
         t0 = time.perf_counter()
@@ -1014,7 +1054,7 @@ def phase_generate(torch, pipe, label: str, gen, expect: dict,
     wall = float(np.median(walls))
     stage_med = ", ".join(f"{k} {np.median([s[k] for s in stages]):.4f}"
                           for k in stages[0])
-    log(f"  {label} 10 s clip x{GENERATE_RUNS}: wall (s) "
+    log(f"  {label} 10 s clip x{runs}: wall (s) "
         f"{', '.join(f'{w:.4f}' for w in walls)}; median {wall:.4f} s, "
         f"realtime factor {CLIP_S / wall:.3f}x")
     log(f"  median stages (s): {stage_med}; peak memory "
@@ -1023,6 +1063,9 @@ def phase_generate(torch, pipe, label: str, gen, expect: dict,
         f"{float(np.sqrt(np.mean(wav.astype(np.float64) ** 2))):.4f}")
     log(f"  launches by the wrappers per run: {counts} (expected {expect}; "
         f"K1 runs in the replayed sampler program, counted in the profile)")
+    return {"wall": wall, "walls": walls,
+            "stages": {k: float(np.median([s[k] for s in stages]))
+                       for k in stages[0]}}
 
 
 def check_roll(pipe) -> None:
@@ -2829,12 +2872,18 @@ def check_wavs(torch, out: str, same: dict) -> None:
                            f"in-process audio of the same clips: {errs}")
 
 
-def run_cli(args: list, label: str) -> float:
-    """``python -m <args>`` from the repository root; returns its wall."""
+def run_cli(args: list, label: str, env: dict | None = None,
+            out: list | None = None) -> float:
+    """``python -m <args>`` from the repository root, with ``env`` added to
+    the environment; returns its wall (its standard output appended to
+    ``out``)."""
     t0 = time.perf_counter()
     res = subprocess.run([sys.executable, "-m", *args], cwd=ROOT,
-                         capture_output=True, text=True, timeout=600)
+                         capture_output=True, text=True, timeout=600,
+                         env={**os.environ, **(env or {})})
     wall = time.perf_counter() - t0
+    if out is not None:
+        out.append(res.stdout)
     log(f"  python -m {args[0]}: exit {res.returncode} in {wall:.2f} s")
     if res.returncode != 0:
         raise RuntimeError(f"{label} failed: {res.stdout[-1500:]}\n"
@@ -3096,11 +3145,12 @@ def tower_pipeline(torch, mode: str, raw: int):
 
 
 def tower_generate(torch, pipe, frames, label: str, expect_k2: int,
-                   runs: int) -> int:
+                   runs: int, stats: dict | None = None) -> int:
     """One warm-up generate, then ``runs`` timed ones from ``frames``
     (empty prompt, 25 steps), the launch counters zeroed before each and
     read after: K2 ``expect_k2`` times and no other wrapper. Every wall,
-    each tower's seconds and the realtime factor printed. Returns K2's
+    each tower's seconds and the realtime factor printed, and put in
+    ``stats`` (``wall``, ``video_encode_s``: medians). Returns K2's
     launches of the last run."""
     import numpy as np
 
@@ -3117,7 +3167,7 @@ def tower_generate(torch, pipe, frames, label: str, expect_k2: int,
     log(f"  {label}: warm-up generate {time.perf_counter() - t0:.3f} s")
     torch.cuda.reset_peak_memory_stats()
     expect = {**dict.fromkeys(launch_counts, 0), "flash_attention": expect_k2}
-    walls, towers = [], []
+    walls, towers, encodes = [], [], []
     for _ in range(runs):
         torch.cuda.synchronize()
         reset_launch_counts()
@@ -3126,6 +3176,7 @@ def tower_generate(torch, pipe, frames, label: str, expect_k2: int,
         walls.append(time.perf_counter() - t0)
         counts = dict(launch_counts)
         towers.append(dict(pipe.tower_seconds))
+        encodes.append(pipe.last_timings["video_encode_s"])
         if wav.shape != (int(CLIP_S * sr),) or not np.isfinite(wav).all():
             raise RuntimeError(f"{label}: bad waveform {wav.shape}")
         if counts != expect:
@@ -3141,6 +3192,9 @@ def tower_generate(torch, pipe, frames, label: str, expect_k2: int,
                     for k in towers[0])
         + f"; peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
         f"GiB; launches {counts}; waveform {wav.shape} finite")
+    if stats is not None:
+        stats.update(wall=wall, walls=walls,
+                     video_encode_s=float(np.median(encodes)))
     return counts["flash_attention"]
 
 
@@ -3512,6 +3566,554 @@ def phase_audeo(torch) -> None:
 
 # ------------------------------------------------------------------ main
 
+# -------------------------------------------------------------- phase 24
+
+WEIGHTS_SEED = 24                  # the seeded "published" tensors
+INT8_RUNS = 3                      # timed int8 and bf16 V2A generates each
+INT8_MIXED_RUNS = 2                # timed mixed generates in each mode
+INT8_ROWS = 2 * 257                # int8 Linear card vs CPU: two frames'
+                                   # tokens through ViT-bigG's fc1
+BIGG_SHARDS = 3                    # model-0000i-of-00003.safetensors
+# cuBLASLt's int8 tensor-core GEMMs (int8 in, int32 accumulated), e.g.
+# cutlass_80_tensorop_i16832gemm_s8_128x64_128x3_tn_align16 (the mma.sync
+# m16n8k32 int8 shape; read in a trace on the card)
+INT8_GEMM = ("gemm_s8", "i16832gemm", "imma", "s8s8", "i8i8")
+# a product off the tensor cores: cuBLAS's matrix-vector and small-k kernels
+CUDA_CORE_GEMM = ("gemv", "gemmk1", "dot_kernel", "gemmSN")
+ENCODERS = {                       # flag -> (golden name, file, dtype)
+    "clip": ("clip_bigg", "sharded safetensors", "float16"),
+    "t5": ("t5_large", "pytorch_model.bin", "float32"),
+    "encodec": ("encodec_24khz", "pytorch_model.bin", "float32"),
+    "dinov2": ("dinov2_giant", "pytorch_model.bin", "bfloat16"),
+    "convnext": ("convnext_xxlarge", "pytorch_model.bin", "bfloat16"),
+}
+
+
+def golden_layout(name: str) -> dict:
+    """{"state": {key: shape}, ...} of a published checkpoint at full
+    width (``tests/golden/hf_keys_<name>.json``)."""
+    with open(os.path.join(ROOT, "tests", "golden",
+                           f"hf_keys_{name}.json")) as f:
+        return json.load(f)
+
+
+def seeded_state(torch, shapes: dict, seed: int, dtype) -> dict:
+    """Seeded tensors of ``shapes`` in ``dtype`` on the host, drawn on the
+    card: matrices and kernels N(0, 1 / fan_in), norm scales, weight-norm
+    magnitudes and layer scales 1 + 0.02 N, running variances |N| + 0.5,
+    other vectors 0.02 N; BatchNorm counters 0."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    unit = ("norm.weight", "norm1.weight", "norm2.weight", "layrnorm.weight",
+            "layer_norm.weight", "layer_norm1.weight", "layer_norm2.weight",
+            "weight_g", "lambda1", "layer_scale_parameter")
+    out = {}
+    for key, shape in shapes.items():
+        shape = tuple(shape)
+        if key.endswith("num_batches_tracked"):
+            out[key] = torch.zeros((), dtype=torch.int64)
+            continue
+        x = torch.randn(shape, generator=gen, device="cuda")
+        if key.endswith(unit) or (".bn" in key and key.endswith(".weight")
+                                  and len(shape) == 1):
+            x = 1.0 + 0.02 * x
+        elif key.endswith("running_var"):
+            x = x.abs() + 0.5
+        elif len(shape) >= 2:
+            x = x / math.sqrt(math.prod(shape[1:]))
+        else:
+            x = 0.02 * x
+        out[key] = x.to(dtype).cpu()
+    return out
+
+
+def write_safetensors(torch, path: str, tensors: dict) -> None:
+    """A minimal safetensors writer: the 8-byte little-endian header
+    length, the JSON header (padded to 8 bytes), the raw buffers."""
+    import struct
+
+    names = {torch.float32: "F32", torch.float16: "F16",
+             torch.bfloat16: "BF16", torch.int64: "I64"}
+    header, offset = {}, 0
+    for key, t in tensors.items():
+        n = t.numel() * t.element_size()
+        header[key] = {"dtype": names[t.dtype], "shape": list(t.shape),
+                       "data_offsets": [offset, offset + n]}
+        offset += n
+    blob = json.dumps(header).encode()
+    blob += b" " * (-len(blob) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(blob)))
+        f.write(blob)
+        for t in tensors.values():
+            f.write(t.contiguous().reshape(-1).view(torch.uint8).numpy())
+
+
+def write_snapshot(torch, root: str, flag: str, sd: dict) -> str:
+    """``sd`` as a snapshot directory under ``root``: ViT-bigG as sharded
+    ``model-*.safetensors`` with its index, the others as
+    ``pytorch_model.bin``."""
+    path = os.path.join(root, flag)
+    os.makedirs(path, exist_ok=True)
+    if flag != "clip":
+        torch.save(sd, os.path.join(path, "pytorch_model.bin"))
+        return path
+    keys = list(sd)
+    per = math.ceil(len(keys) / BIGG_SHARDS)
+    weight_map = {}
+    for i in range(BIGG_SHARDS):
+        name = f"model-{i + 1:05d}-of-{BIGG_SHARDS:05d}.safetensors"
+        part = {k: sd[k] for k in keys[i * per:(i + 1) * per]}
+        write_safetensors(torch, os.path.join(path, name), part)
+        weight_map.update(dict.fromkeys(part, name))
+    with open(os.path.join(path, "model.safetensors.index.json"), "w") as f:
+        json.dump({"metadata": {"total_size": sum(
+            t.numel() * t.element_size() for t in sd.values())},
+            "weight_map": weight_map}, f)
+    return path
+
+
+def _same_tensors(torch, label: str, got, want) -> int:
+    """Every tensor of module ``got`` bit-equal to module ``want``'s in
+    ``got``'s dtype; returns the count."""
+    ref = want.state_dict()
+    bad = [k for k, t in got.state_dict().items()
+           if not torch.equal(t.cpu(), ref[k].to(t.dtype))]
+    if bad:
+        raise RuntimeError(f"weights in: {label} differs from the in-process "
+                           f"reader at {bad[:5]}")
+    return len(ref)
+
+
+def phase_weights_in(torch, frames, root: str):
+    """Phase 24a. Seeded tensors under the published key layouts, written
+    as snapshots; ``python -m v2ap_torch.convert`` as its own process; the
+    pipeline's ``load_weights``; every loaded tensor against the
+    in-process readers; a V2A generate. Returns (the converted directory,
+    the mixed configuration, what phase 24b takes over: the V2A pipeline
+    under ``pipe``)."""
+    import numpy as np
+
+    from v2ap_torch import config as C
+    from v2ap_torch.convert import build_encoder
+    from v2ap_torch.models.clip_vit import CLIPVisionModel, clip_vit_l_336
+    from v2ap_torch.models.video2roll import Video2RollNet
+    from v2ap_torch.predict import Predictor
+    from v2ap_torch.utils.checkpoint import save_model
+    from v2ap_torch.utils.jitting import create_model_zeros
+    from v2ap_torch.utils.torch_convert import (load_clip_vision_state_dict,
+                                                load_video2roll_state_dict,
+                                                read_snapshot)
+
+    snaps = os.path.join(root, "snapshots")
+    out = os.path.join(root, "converted")
+    t0 = time.perf_counter()
+    dirs, sizes = {}, {}
+    for i, (flag, (name, kind, dtype)) in enumerate(ENCODERS.items()):
+        sd = seeded_state(torch, golden_layout(name)["state"],
+                          WEIGHTS_SEED + i, getattr(torch, dtype))
+        sizes[flag] = sum(t.numel() * t.element_size() for t in sd.values())
+        dirs[flag] = write_snapshot(torch, snaps, flag, sd)
+        log(f"  {flag}: {len(sd)} keys ({name}), "
+            f"{sum(t.numel() for t in sd.values()) / 1e6:.1f} M values, "
+            f"{dtype}, {sizes[flag] / 2**30:.2f} GiB as {kind}")
+        del sd
+    extra = {}
+    for name, dtype, i in (("clip_l336", torch.float16, 10),
+                           ("video2roll", torch.float32, 11)):
+        sd = seeded_state(torch, golden_layout(name)["state"],
+                          WEIGHTS_SEED + i, dtype)
+        path = os.path.join(snaps, name)
+        os.makedirs(path, exist_ok=True)
+        if name == "clip_l336":
+            write_safetensors(torch, os.path.join(path, "model.safetensors"),
+                              sd)
+        else:
+            torch.save(sd, os.path.join(path, "pytorch_model.bin"))
+        extra[name] = path
+        del sd
+    log(f"  snapshots written in {time.perf_counter() - t0:.2f} s")
+
+    args = ["v2ap_torch.convert", "--out", out]
+    for flag, path in dirs.items():
+        args += [f"--{flag}", path]
+    stdout = []
+    wall = run_cli(args, "convert", out=stdout)
+    per_flag = [line for line in stdout[0].splitlines()
+                if line.startswith("converted ")]
+    for line in per_flag:
+        log(f"    {line}")
+    if len(per_flag) != len(dirs) or any(
+            "; 0 keys not used" not in line for line in per_flag):
+        raise RuntimeError(f"convert: a flag did not convert or left keys: "
+                           f"{per_flag}")
+    log(f"  python -m v2ap_torch.convert ({', '.join(dirs)}): {wall:.2f} s")
+    # ViT-L/336 has no flag: the reader in process, save_model under the
+    # tower's name (what load_weights reads)
+    t0 = time.perf_counter()
+    clip_l = create_model_zeros(
+        lambda d: CLIPVisionModel(clip_vit_l_336(), device=d))
+    if load_clip_vision_state_dict(read_snapshot(extra["clip_l336"]), clip_l):
+        raise RuntimeError("weights in: ViT-L/336 left keys")
+    save_model(os.path.join(out, "clip_vit2"), clip_l)
+    log(f"  ViT-L/336 (single model.safetensors) read and saved in "
+        f"{time.perf_counter() - t0:.2f} s")
+
+    base = C.v2a_default()
+    cfg = base.replace(conditioning=dataclasses.replace(
+        base.conditioning, frame_stride=1, feature_cache=False))
+    pred = Predictor(cfg=cfg, device="cuda")
+    t0 = time.perf_counter()
+    pred.setup()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    pipe = pred.pipeline
+    t0 = time.perf_counter()
+    loaded = pipe.load_weights(out)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    log(f"  V2A pipeline built in {build_s:.2f} s; load_weights -> "
+        f"{loaded} in {load_s:.2f} s")
+    if sorted(loaded) != ["clip", "encodec", "t5"]:
+        raise RuntimeError(f"weights in: load_weights loaded {loaded}")
+    t0 = time.perf_counter()
+    n = 0
+    for flag, module in (("clip", pipe.clip), ("t5", pipe.t5),
+                         ("encodec", pipe.codec)):
+        want, reader = build_encoder(flag)
+        if reader(read_snapshot(dirs[flag]), want):
+            raise RuntimeError(f"weights in: {flag} left keys")
+        n += _same_tensors(torch, flag, module, want)
+        del want
+    v2r = create_model_zeros(lambda d: Video2RollNet(num_classes=51,
+                                                     device=d))
+    if load_video2roll_state_dict(read_snapshot(extra["video2roll"]), v2r):
+        raise RuntimeError("weights in: Video2Roll left keys")
+    pipe.cfm.video2roll.load_state_dict(v2r.state_dict())
+    n += _same_tensors(torch, "video2roll", pipe.cfm.video2roll, v2r)
+    log(f"  {n} tensors of ViT-bigG, FLAN-T5, EnCodec and Video2Roll "
+        f"bit-equal to the in-process readers' (in the pipeline's dtypes) "
+        f"in {time.perf_counter() - t0:.2f} s")
+    # EnCodec's weight norm folded on the host against torch's on the card
+    sd = torch.load(os.path.join(dirs["encodec"], "pytorch_model.bin"),
+                    weights_only=True)
+    worst = 0.0
+    for layer, key in ((pipe.codec.encoder.layers[0], "encoder.layers.0"),
+                       (pipe.codec.decoder.layers[3], "decoder.layers.3")):
+        v = sd[f"{key}.conv.weight_v"].cuda()
+        g = sd[f"{key}.conv.weight_g"].cuda()
+        ref = torch._weight_norm(v, g, 0)
+        worst = max(worst, (layer.weight - ref).abs().max().item()
+                    / ref.abs().max().item())
+    log(f"  EnCodec's folded weight_g / weight_v (a convolution and a "
+        f"transposed one) against torch._weight_norm on the card: max "
+        f"|diff| / max|w| {worst:.2e} (tol 1e-6)")
+    if not worst <= 1e-6:
+        raise RuntimeError("weights in: EnCodec's weight norm disagrees")
+    x = torch.rand(4, 5, 100, 900, generator=torch.Generator(
+        device="cuda").manual_seed(3), device="cuda")
+    with torch.inference_mode():
+        logits = pipe.cfm.video2roll(x)
+    t0 = time.perf_counter()
+    wav, sr = pipe.generate(None, steps=25, cfg_strength=2.0, seed=0,
+                            frames_cache=[(frames, CLIP_S, 1)])
+    log(f"  V2A generate on the loaded weights: {time.perf_counter() - t0:.3f}"
+        f" s (captures), {wav.shape[0]} samples, finite "
+        f"{bool(np.isfinite(wav).all())}, rms "
+        f"{float(np.sqrt(np.mean(wav.astype(np.float64) ** 2))):.4f}; the "
+        f"loaded Video2Roll's logits on 4 windows finite "
+        f"{bool(logits.isfinite().all())}")
+    if wav.shape[0] != int(CLIP_S * sr) or not np.isfinite(wav).all() or \
+            not logits.isfinite().all():
+        raise RuntimeError("weights in: the generate on loaded weights failed")
+
+    # the other towers: a mixed pipeline through Predictor.setup(ckpt=)
+    mixed = base.replace(
+        model=dataclasses.replace(base.model, dim_text_raw=4608),
+        conditioning=dataclasses.replace(base.conditioning,
+                                         video_encoder="mixed",
+                                         frame_stride=1, feature_cache=False))
+    return out, mixed, {"pipe": pipe, "convert_s": wall, "load_s": load_s,
+                        "dirs": dirs, "clip_l": clip_l}
+
+
+def check_mixed_weights(torch, pipe, held: dict) -> None:
+    """The mixed pipeline's towers against the in-process readers."""
+    from v2ap_torch.convert import build_encoder
+    from v2ap_torch.utils.torch_convert import read_snapshot
+
+    t0 = time.perf_counter()
+    towers = {t.name: t.model for t in pipe.towers}
+    n = _same_tensors(torch, "clip_vit2", towers["clip_vit2"],
+                      held.pop("clip_l"))
+    for flag, name in (("dinov2", "dinov2"), ("convnext", "clip_convnext"),
+                       ("clip", "clip_vit")):
+        want, reader = build_encoder(flag)
+        reader(read_snapshot(held["dirs"][flag]), want)
+        n += _same_tensors(torch, name, towers[name], want)
+        del want
+    log(f"  mixed pipeline from Predictor(...).setup(ckpt=): {n} tensors of "
+        f"ViT-bigG, ViT-L/336, ConvNeXt-XXLarge (trunk) and DINOv2-giant "
+        f"(positions resized 37x37 -> 16x16) bit-equal to the in-process "
+        f"readers' in {time.perf_counter() - t0:.2f} s")
+
+
+def int8_linear_card_vs_cpu(torch) -> None:
+    """One int8 ``Linear`` at ViT-bigG's fc1 (1664 -> 8192) on INT8_ROWS
+    bf16 tokens, on the card and on the CPU: equal codes and scales, equal
+    int32 sums, the output within one bf16 ulp; the int8 product timed
+    beside bf16 ``F.linear`` (CUDA events)."""
+    import torch.nn.functional as F
+
+    from v2ap_torch.utils.quantize import (int8_linear, int8_matmul,
+                                           quantize_rows)
+
+    g = torch.Generator(device="cuda").manual_seed(240)
+    x = torch.randn(INT8_ROWS, 1664, generator=g, device="cuda"
+                    ).to(torch.bfloat16)
+    w = (torch.randn(8192, 1664, generator=g, device="cuda") / 40.8
+         ).to(torch.bfloat16)
+    b = (torch.randn(8192, generator=g, device="cuda") * 0.02
+         ).to(torch.bfloat16)
+    qx, sx = quantize_rows(x)
+    qw, sw = quantize_rows(w)
+    qxc, sxc = quantize_rows(x.cpu())
+    qwc, swc = quantize_rows(w.cpu())
+    codes = (torch.equal(qx.cpu(), qxc) and torch.equal(qw.cpu(), qwc)
+             and torch.equal(sx.cpu(), sxc) and torch.equal(sw.cpu(), swc))
+    acc = int8_matmul(qx, qw)
+    sums = torch.equal(acc.cpu(), int8_matmul(qxc, qwc))
+    y = int8_linear(x, w, b).float().cpu()
+    yc = int8_linear(x.cpu(), w.cpu(), b.cpu()).float()
+    ulp = torch.exp2(torch.floor(torch.log2(yc.abs().clamp_min(2.0 ** -126)))
+                     - 7)
+    over = int(((y - yc).abs() > ulp).sum())
+    differ = int((y != yc).sum())
+    big = torch.randn(64 * 257, 1664, generator=g, device="cuda"
+                      ).to(torch.bfloat16)
+    ms_int8 = time_ms(torch, lambda: int8_linear(big, w, b))
+    qb, _ = quantize_rows(big)
+    ms_mm = time_ms(torch, lambda: int8_matmul(qb, qw))
+    ms_bf16 = time_ms(torch, lambda: F.linear(big, w, b))
+    log(f"  int8 Linear ({INT8_ROWS}, 1664) -> 8192 card vs CPU: codes and "
+        f"scales equal {codes}, int32 sums equal {sums}, outputs differing "
+        f"{differ} (more than one bf16 ulp: {over})")
+    log(f"  at a 64-frame chunk's (16448, 1664) -> 8192: int8 Linear "
+        f"(quantize, torch._int_mm, dequantize) {ms_int8:.4f} ms, its "
+        f"torch._int_mm alone {ms_mm:.4f} ms, bf16 F.linear {ms_bf16:.4f} ms "
+        f"(CUDA events, 20 calls)")
+    if not codes or not sums or over:
+        raise RuntimeError("int8 Linear: card and CPU disagree")
+
+
+def profile_int8_tower(torch, pipe, frames) -> None:
+    """The int8 tower's kernels over one 64-frame chunk under the
+    profiler: an int8 tensor-core GEMM (cuBLASLt, int32 sums) for each of
+    the 289 ``Linear`` calls, no product off the tensor cores."""
+    from torch.profiler import ProfilerActivity, profile
+
+    px = torch.from_numpy(frames[:64]).cuda()
+    tower = pipe.towers[0]
+    from v2ap_torch.models.clip_vit import device_normalize
+
+    def run():
+        with torch.inference_mode():
+            tower.model(device_normalize(tower.preprocess(px), tower.mean,
+                                         tower.std))
+    run()
+    pad = torch.zeros(1024, device="cuda")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        # the trace can miss the first kernels after it starts (one run
+        # read 288 GEMMs of 289): small ones go first
+        for _ in range(32):
+            pad.add_(1.0)
+        torch.cuda.synchronize()
+        run()
+        torch.cuda.synchronize()
+    rows = kernel_rows(prof)
+    total = sum(e.device_time_total for e in rows)
+    if not total:
+        raise RuntimeError("int8 tower profile: no device time recorded")
+    int8 = [e for e in rows if any(s in e.key for s in INT8_GEMM)]
+    slow = [e.key for e in rows if any(s in e.key for s in CUDA_CORE_GEMM)]
+    n_int8 = sum(e.count for e in int8)
+    linears = 6 * pipe.clip_cfg.num_layers + 1
+    log(f"  int8 ViT-bigG, one 64-frame chunk: {total / 1e3:.2f} ms of "
+        f"kernels; int8 GEMM launches {n_int8} for {linears} Linear calls, "
+        f"{sum(e.device_time_total for e in int8) / 1e3:.2f} ms")
+    for e in sorted(rows, key=lambda e: -e.device_time_total)[:10]:
+        log(f"    {e.device_time_total / 1e3:8.2f} ms {e.count:5d}x "
+            f"{e.device_time_total / total:6.1%}  {e.key[:100]}")
+    if n_int8 < linears or slow:
+        raise RuntimeError(f"int8 tower: int8 GEMMs {n_int8} < {linears} or "
+                           f"products off the tensor cores {slow[:3]}")
+
+
+def phase_int8(torch, frames, out: str, mixed_cfg, held: dict,
+               root: str) -> None:
+    """Phase 24b and 24c (the V2A pipeline taken from ``held``)."""
+    import numpy as np
+
+    from v2ap_torch.ops.layers import Linear
+    from v2ap_torch.pipelines.generate import V2APipeline
+    from v2ap_torch.predict import Predictor
+
+    pipe = held.pop("pipe")
+    if not pipe.quantize_towers or any(
+            not m.int8 for m in pipe.clip.modules() if isinstance(m, Linear)):
+        raise RuntimeError("int8: the default (no V2AP_INT8_TOWERS, no gate "
+                           "file) did not serve int8 towers")
+    int8_linear_card_vs_cpu(torch)
+
+    def gen():
+        return pipe.generate(None, steps=25, cfg_strength=2.0, seed=0,
+                             frames_cache=[(frames, CLIP_S, 1)])
+
+    expect = generate_expect(pipe, len(frames))
+    res = {}
+    for label, on in (("int8 towers", True), ("bf16 towers", False),
+                      ("int8 towers again", True)):
+        pipe.set_int8_towers(on)
+        res[label] = phase_generate(torch, pipe, f"V2A generate, {label}",
+                                    gen, expect, runs=INT8_RUNS)
+    with torch.inference_mode():
+        feats = {}
+        for on in (True, False):
+            pipe.set_int8_towers(on)
+            feats[on], _ = pipe.encode_video_frames_clip(
+                None, 768, frames_cache=[(frames, CLIP_S, 1)])
+    pipe.set_int8_towers(True)
+    drift = rel_rms(feats[True].float(), feats[False].float())
+    i8, bf = res["int8 towers"], res["bf16 towers"]
+    log(f"  int8 against bf16 towers (same weights, same run): "
+        f"video_encode_s {i8['stages']['video_encode_s']:.4f} / "
+        f"{res['int8 towers again']['stages']['video_encode_s']:.4f} vs "
+        f"{bf['stages']['video_encode_s']:.4f} s, wall {i8['wall']:.4f} / "
+        f"{res['int8 towers again']['wall']:.4f} vs {bf['wall']:.4f} s; "
+        f"ViT-bigG features int8 vs bf16 rel-RMS {drift:.4e}")
+    if not 0.0 < drift < 0.5:
+        raise RuntimeError(f"int8: feature drift {drift} against bf16")
+    profile_int8_tower(torch, pipe, frames)
+    phase_profile(torch, "int8-tower generate", lambda: gen(), SM90_FWD,
+                  expect, k1_expect(pipe))
+    sample_bf16 = bf["stages"]["sample_s"]
+    del pipe
+    torch.cuda.empty_cache()
+
+    from v2ap_torch.scripts import probe_tower_drift
+
+    log("  probe_tower_drift (ViT-bigG, 64 frames, f32 / bf16 / int8 "
+        "variants; tower seconds a 64-frame chunk, median of 3):")
+    probe = probe_tower_drift.main(["--frames", "64", "--reps", "3"])
+    torch.cuda.empty_cache()
+    if probe["int8_linears"] != 289 or not all(
+            math.isfinite(v) for v in probe.values()):
+        raise RuntimeError(f"probe_tower_drift: {probe}")
+
+    t0 = time.perf_counter()
+    pred = Predictor(cfg=mixed_cfg, device="cuda")
+    pred.setup(ckpt=out)
+    torch.cuda.synchronize()
+    log(f"  Predictor(mixed).setup(ckpt=...): {time.perf_counter() - t0:.2f} "
+        f"s, towers int8 {pred.pipeline.quantize_towers}")
+    check_mixed_weights(torch, pred.pipeline, held)
+    stats = {}
+    for label, on in (("int8", True), ("bf16", False)):
+        pred.pipeline.set_int8_towers(on)
+        stats[label] = {}
+        tower_generate(torch, pred.pipeline, frames, f"mixed, {label} towers",
+                       (48 + 24) * TOWER_CHUNKS, INT8_MIXED_RUNS,
+                       stats[label])
+    log(f"  mixed int8 against bf16 towers: wall {stats['int8']['wall']:.4f} "
+        f"vs {stats['bf16']['wall']:.4f} s, video_encode_s "
+        f"{stats['int8']['video_encode_s']:.4f} vs "
+        f"{stats['bf16']['video_encode_s']:.4f} s")
+    del pred
+    torch.cuda.empty_cache()
+
+    base = mixed_cfg.replace(
+        model=dataclasses.replace(mixed_cfg.model, dim_text_raw=None),
+        conditioning=dataclasses.replace(mixed_cfg.conditioning,
+                                         video_encoder="clip_vit"))
+    os.environ["V2AP_INT8_CFM"] = "1"
+    try:
+        pipe = V2APipeline(base, seed=0, device="cuda")
+    finally:
+        del os.environ["V2AP_INT8_CFM"]
+    n_lin = sum(1 for m in pipe.cfm.modules() if isinstance(m, Linear))
+    n_int8 = sum(1 for m in pipe.cfm.modules()
+                 if isinstance(m, Linear) and m.int8)
+    log(f"  V2AP_INT8_CFM=1: {n_int8} of the CFM's {n_lin} Linear layers "
+        f"int8 (Video2Roll's included); roll tag {pipe._roll_tag!r}")
+    if n_int8 != n_lin or not pipe.quantize_cfm:
+        raise RuntimeError("int8 CFM: not every Linear is int8")
+    from v2ap_torch import config as C
+
+    x0, text, roll, ctx, cmask, mask = sampler_inputs(torch, pipe, frames)
+    cfg25 = C.SamplerConfig(steps=25, cfg_strength=2.0)
+    first = pipe._sample(x0, text, roll, ctx, cmask, mask, cfg25)
+    again = pipe._sample(x0, text, roll, ctx, cmask, mask, cfg25)
+    with torch.inference_mode():
+        want = pipe.cfm.sample(x0, text_embed=text, frames_embed=roll,
+                               context=ctx, context_mask=cmask, mask=mask,
+                               sampler=cfg25)
+    same = torch.equal(first, want) and torch.equal(again, want)
+    log(f"  int8 CFM: captured sampler vs eager bit-equal {same} (max |diff| "
+        f"{(again - want).abs().max().item():.3e})")
+    if not same or not torch.isfinite(want).all():
+        raise RuntimeError("int8 CFM: the captured sampler differs from the "
+                           "eager one")
+
+    def gen_c():
+        return pipe.generate(None, steps=25, cfg_strength=2.0, seed=0,
+                             frames_cache=[(frames, CLIP_S, 1)])
+
+    r = phase_generate(torch, pipe, "V2A generate, int8 CFM and towers",
+                       gen_c, generate_expect(pipe, len(frames)),
+                       runs=INT8_RUNS)
+    log(f"  sample_s int8 CFM {r['stages']['sample_s']:.4f} s vs bf16 CFM "
+        f"{sample_bf16:.4f} s (the int8-tower generates above)")
+    del pipe
+    torch.cuda.empty_cache()
+
+    log("[24c/24] python -m v2ap_torch.int8_tower_gate --tiny")
+    clips = os.path.join(root, "clips")
+    os.makedirs(clips)
+    for i in range(2):                   # FAD needs two clips a set
+        with open(os.path.join(clips, f"clip{i}.mp4"), "wb") as f:
+            f.write(np.random.default_rng(i).bytes(4096))  # no cv2 here
+    gate = os.path.join(root, "int8_gate.json")
+    run_cli(["v2ap_torch.int8_tower_gate", "--videos", clips, "--tiny",
+             "--steps", "2"], "int8 gate", env={"V2AP_INT8_GATE_FILE": gate})
+    with open(gate) as f:
+        verdict = json.load(f)
+    log(f"  verdict file {verdict}: plumbing only (seeded Cnn14, tiny "
+        f"stack, and the clips do not decode here, so both variants "
+        f"are unconditioned)")
+    if verdict.get("clips") != 2 or not math.isfinite(
+            verdict.get("fad_int8_vs_bf16", math.nan)):
+        raise RuntimeError(f"int8 gate: verdict {verdict}")
+
+
+def phase_24(torch, frames) -> None:
+    root = tempfile.mkdtemp(prefix="v2ap_chip_smoke_")
+    os.environ.pop("V2AP_INT8_TOWERS", None)
+    os.environ["V2AP_INT8_GATE_FILE"] = os.path.join(root, "none.json")
+    try:
+        t0 = time.perf_counter()
+        out, mixed, held = phase_weights_in(torch, frames, root)
+        log(f"  phase 24a: {time.perf_counter() - t0:.2f} s")
+        log("[24b/24] int8: the Linear card vs CPU; int8 vs bf16 towers; the "
+            "tower's profile; drift; mixed towers; V2AP_INT8_CFM=1")
+        t0 = time.perf_counter()
+        phase_int8(torch, frames, out, mixed, held, root)
+        log(f"  phases 24b-c: {time.perf_counter() - t0:.2f} s")
+    finally:
+        del os.environ["V2AP_INT8_GATE_FILE"]
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     try:
         import torch
@@ -3539,7 +4141,7 @@ def main() -> int:
         "error", message="flex_attention called without torch.compile")
     t_start = time.perf_counter()
 
-    log(f"[1/23] build — card: {card_line()}")
+    log(f"[1/24] build — card: {card_line()}")
     log(f"  torch {torch.__version__} (CUDA {torch.version.cuda}), "
         f"{torch.cuda.get_device_name(0)}; f32 matmul and cuDNN TF32 off")
     t0 = time.perf_counter()
@@ -3549,18 +4151,18 @@ def main() -> int:
         f"{', '.join(src.name for src in fa._SOURCES)} in "
         f"{time.perf_counter() - t0:.2f} s")
 
-    log("[2/23] kernels vs plain versions (bf16 in, f32 reference)")
+    log("[2/24] kernels vs plain versions (bf16 in, f32 reference)")
     kern = phase_kernels(torch)
     kern.update(phase_train_kernels(torch))
     log_bwd_more(torch)
-    log("[3/23] P1 probe: packed (b, n, h*d) vs (b, h, n, d) + transposes")
+    log("[3/24] P1 probe: packed (b, n, h*d) vs (b, h, n, d) + transposes")
     kern["P1"] = phase_probe(torch)
-    log("[4/23] small f32 config: card vs CPU")
+    log("[4/24] small f32 config: card vs CPU")
     phase_small(torch)
     import numpy as np
 
     frames = clip_frames()
-    log("[5/23] full-width V2A generate (frame stride 1, empty prompt; the "
+    log("[5/24] full-width V2A generate (frame stride 1, empty prompt; the "
         "sampler as a captured program)")
     pipe = full_pipeline(torch, "V2A", frame_stride=1)
 
@@ -3570,7 +4172,7 @@ def main() -> int:
 
     phase_generate(torch, pipe, "V2A generate", generate_v2a,
                    generate_expect(pipe, len(frames)))
-    log("[6/23] V2A generate profile")
+    log("[6/24] V2A generate profile")
 
     def profiled(gen, check=None):
         def run():
@@ -3584,17 +4186,17 @@ def main() -> int:
     gen_counts = phase_profile(torch, "generate", profiled(generate_v2a),
                                SM90_FWD, generate_expect(pipe, len(frames)),
                                k1_expect(pipe))
-    log("[7/23] full-width sampler: captured programs vs eager, same inputs")
+    log("[7/24] full-width sampler: captured programs vs eager, same inputs")
     phase_captured(torch, pipe, frames)
-    log(f"[8/23] generate_batch: {BATCH} x 10 s clips, frames handed in")
+    log(f"[8/24] generate_batch: {BATCH} x 10 s clips, frames handed in")
     phase_generate_batch(torch, pipe, frames)
-    log(f"[9/23] generate_long: a {LONG_S:.0f} s clip in one batched call")
+    log(f"[9/24] generate_long: a {LONG_S:.0f} s clip in one batched call")
     phase_generate_long(torch, pipe)
-    log(f"[10/23] HTTP server: {BATCH} concurrent POST /v2a")
+    log(f"[10/24] HTTP server: {BATCH} concurrent POST /v2a")
     phase_http(torch, pipe)
     del pipe
     torch.cuda.empty_cache()
-    log("[11/23] full-width V2P generate with a prompt (v2a_default(): frame "
+    log("[11/24] full-width V2P generate with a prompt (v2a_default(): frame "
         "stride 3, strip stride 2; FLAN-T5-large, Video2Roll)")
     pipe = full_pipeline(torch, "V2P")
     strips = np.random.default_rng(1).integers(
@@ -3614,20 +4216,20 @@ def main() -> int:
     roll = pipe.last_roll
     log(f"  roll {tuple(roll.shape)}: min {roll.min().item():.4f}, max "
         f"{roll.max().item():.4f}, mean {roll.mean().item():.4f}")
-    log("[12/23] V2P generate profile")
+    log("[12/24] V2P generate profile")
     phase_profile(torch, "V2P generate", profiled(generate_v2p, check_roll),
                   SM90_FWD, generate_expect(pipe, len(frames)),
                   k1_expect(pipe))
     del pipe, roll
     torch.cuda.empty_cache()
-    log("[13/23] small train: tiny_test() card vs CPU, then "
+    log("[13/24] small train: tiny_test() card vs CPU, then "
         f"{TINY_STEPS} steps")
     phase_small_train(torch)
-    log("[14/23] full-width V2A train step, then with remat full and dots")
+    log("[14/24] full-width V2A train step, then with remat full and dots")
     trainer, batch = full_trainer(torch)
     train_counts = phase_train(torch, trainer, batch)
     phase_train_remat(torch, trainer, batch, train_counts)
-    log("[15/23] train-step profile")
+    log("[15/24] train-step profile")
 
     def train_once():
         loss, _ = trainer.train_step(batch)
@@ -3639,10 +4241,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     root = tempfile.mkdtemp(prefix="v2ap_chip_smoke_")
     try:
-        log("[16/23] train from corpora: TrainingPipeline(v2a_default()), "
+        log("[16/24] train from corpora: TrainingPipeline(v2a_default()), "
             f"remat dots, EMA, batch {TRAIN_BATCH} x {TRAIN_LATENTS}")
         tp, batcher = phase_corpus_train(torch, root)
-        log("[17/23] resume, save the EMA CFM, load_weights, generate")
+        log("[17/24] resume, save the EMA CFM, load_weights, generate")
         held = {"pipe": tp, "batcher": batcher}
         del tp, batcher
         phase_resume_and_serve(torch, held, root, frames)
@@ -3651,7 +4253,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     from v2ap_torch import config as C
 
-    log(f"[18a/23] DPO at full width: crossatt3, TrainConfig(dpo=True), "
+    log(f"[18a/24] DPO at full width: crossatt3, TrainConfig(dpo=True), "
         f"dropout 0.1, no remat, batch {TRAIN_BATCH} x {TRAIN_LATENTS} with "
         f"rows 6 and 7 a pair")
     trainer, batch = full_trainer(torch, train_cfg=C.TrainConfig(dpo=True),
@@ -3659,7 +4261,7 @@ def main() -> int:
     phase_dpo(torch, "DPO train step", trainer, batch)
     del trainer, batch
     torch.cuda.empty_cache()
-    log(f"[18b/23] crossatt6 (FactorCL) with DPO under remat dots, batch "
+    log(f"[18b/24] crossatt6 (FactorCL) with DPO under remat dots, batch "
         f"{TRAIN_BATCH} x {TRAIN_LATENTS}")
     six = C.variant_preset("crossatt6")
     six = six.replace(model=dataclasses.replace(six.model, remat=True,
@@ -3673,11 +4275,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     root = tempfile.mkdtemp(prefix="v2ap_chip_smoke_")
     try:
-        log(f"[19/23] reflow: pairs from the full-width teacher, "
+        log(f"[19/24] reflow: pairs from the full-width teacher, "
             f"{REFLOW_STEPS} distill steps, save_model, load_weights, "
             f"generate(fewstep=2)")
         pipe = phase_reflow(torch, frames, root)
-        log("[20/23] the reference layout: a full-width synthetic crossatt3 "
+        log("[20/24] the reference layout: a full-width synthetic crossatt3 "
             ".pt, python -m v2ap_torch.convert, load_weights, generate; "
             "crossatt6")
         phase_reference(torch, pipe, frames, root)
@@ -3685,7 +4287,7 @@ def main() -> int:
         torch.cuda.empty_cache()
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    log("[21/23] evaluate: Cnn14 and CLAP card vs CPU; run_batch_eval, python "
+    log("[21/24] evaluate: Cnn14 and CLAP card vs CPU; run_batch_eval, python "
         "-m v2ap_torch.evaluate (FAD, IS, KL, CLAP) and python -m "
         "v2ap_torch.inference_v2p from primed caches")
     phase_evaluators(torch)
@@ -3697,19 +4299,26 @@ def main() -> int:
     finally:
         shutil.rmtree(root, ignore_errors=True)
     torch.cuda.empty_cache()
-    log("[22/23] the other video towers: small f32 card vs CPU; full-width "
+    log("[22/24] the other video towers: small f32 card vs CPU; full-width "
         "mixed (ViT-bigG + ViT-L/336 + ConvNeXt-XXLarge + DINOv2-giant, "
         "4608-d) and clip_vit2 generates")
     t0 = time.perf_counter()
     k2_clip_l = phase_towers(torch, frames)
     log(f"  phase 22: {time.perf_counter() - t0:.2f} s")
-    log("[23/23] Audeo: trainer steps card vs CPU; full-width Video2Roll and "
+    log("[23/24] Audeo: trainer steps card vs CPU; full-width Video2Roll and "
         "Roll2Midi training; roll inference, Roll2Midi, synthesis, MIDI, "
         "metrics")
     t0 = time.perf_counter()
     phase_audeo(torch)
     log(f"  phase 23: {time.perf_counter() - t0:.2f} s")
     torch.cuda.empty_cache()
+    log("[24a/24] weights in: seeded tensors in the published layouts of "
+        "ViT-bigG, FLAN-T5-large, EnCodec 24 kHz, DINOv2-giant, "
+        "ConvNeXt-XXLarge, ViT-L/336 and Video2Roll; python -m "
+        "v2ap_torch.convert; load_weights; generate")
+    t0 = time.perf_counter()
+    phase_24(torch, frames)
+    log(f"  phase 24: {time.perf_counter() - t0:.2f} s")
 
     main_case = {"K1": "K1 self-attn (2, 800, 16x64)",
                  "K2": "K2 ViT-bigG (64, 16, 257, 104)",

@@ -243,7 +243,9 @@ def test_pipeline_refuses_unported_conditioning(pipelines, change, kwargs):
     that is neither 1 (full rate) nor the stride. The feature caches are
     ported: such a pipeline builds, with the JAX package's cache tags. The
     other towers are ported: the mixed mode builds the four towers (tiny
-    configs through ``tower_configs``), and only an unknown mode raises."""
+    configs through ``tower_configs``), and only an unknown mode raises.
+    int8 towers and the int8 CFM are ported: such a pipeline builds with
+    every ``Linear`` of the towers (or the CFM) in int8 and JAX's tags."""
     cfg = _cfg(t_config)
     cfg = cfg.replace(conditioning=dataclasses.replace(cfg.conditioning,
                                                        **change))
@@ -271,8 +273,16 @@ def test_pipeline_refuses_unported_conditioning(pipelines, change, kwargs):
             tp.generate(None, duration_s=0.5, steps=2,
                         frames_cache=[(frames, 1.0, 2)])
         return
-    with pytest.raises(NotImplementedError):
-        _port_pipeline(cfg, **kwargs)
+    from v2ap_torch.ops.layers import Linear
+
+    tp = _port_pipeline(cfg, **kwargs)
+    int8_cfm = bool(kwargs.get("quantize_cfm"))
+    assert all(m.int8 != int8_cfm for m in tp.clip.modules()
+               if isinstance(m, Linear))
+    assert all(m.int8 == int8_cfm for m in tp.cfm.modules()
+               if isinstance(m, Linear))
+    assert (tp._tower_tag, tp._roll_tag) == (
+        ("bf16", "int8") if int8_cfm else ("int8", "bf16"))
 
 
 def test_encode_text_matches_jax(pipelines):
@@ -692,8 +702,9 @@ def test_stride_switches_match_jax(monkeypatch):
 def test_int8_tower_default_follows_jax(monkeypatch, tmp_path, env, gate,
                                         builds):
     """quantize_towers=None means JAX's default: V2AP_INT8_TOWERS if set,
-    else the int8 gate's verdict file, else int8. int8 raises in the port;
-    bf16 builds. The port's copy of the gate reader agrees with JAX's."""
+    else the int8 gate's verdict file, else int8. ``builds`` names the bf16
+    cases; the others build int8 towers (tagged "int8"), as JAX's do. The
+    port's copy of the gate reader agrees with JAX's."""
     gate_file = tmp_path / "gate.json"
     if gate is not None:
         gate_file.write_text(f'{{"int8_default": {str(gate).lower()}}}')
@@ -704,21 +715,24 @@ def test_int8_tower_default_follows_jax(monkeypatch, tmp_path, env, gate,
         monkeypatch.setenv("V2AP_INT8_TOWERS", env)
     assert t_gate.gate_file_path() == j_gate.gate_file_path()
     assert t_gate.read_gate_default() == j_gate.read_gate_default() == gate
-    if builds:
-        assert _port_pipeline(_cfg(t_config), quantize_towers=None).cfm
-    else:
-        with pytest.raises(NotImplementedError, match="V2AP_INT8_TOWERS=0"):
-            _port_pipeline(_cfg(t_config), quantize_towers=None)
+    tp = _port_pipeline(_cfg(t_config), quantize_towers=None)
+    assert tp.quantize_towers is not builds
+    assert tp._tower_tag == ("bf16" if builds else "int8")
 
 
 @pytest.mark.parametrize("var", ["V2AP_INT8_CFM", "V2AP_SHIP_YUV420",
                                  "V2AP_SHIP_STRIP_HALF"])
 def test_other_result_switches_raise(monkeypatch, var):
-    """The JAX pipeline's other switches that change its result (int8 CFM,
-    the wire-level shipping modes) raise when on."""
+    """The JAX pipeline's other switches that change its result: the
+    wire-level shipping modes raise when on; the int8 CFM is ported, and
+    V2AP_INT8_CFM=1 builds it (every ``Linear`` of the CFM in int8, the
+    roll cache tagged "int8", as JAX tags it)."""
     monkeypatch.setenv(var, "1")
-    with pytest.raises(NotImplementedError, match=var.split("_", 1)[1]
-                       if var != "V2AP_INT8_CFM" else "int8"):
+    if var == "V2AP_INT8_CFM":
+        tp = _port_pipeline(_cfg(t_config))
+        assert tp.quantize_cfm and tp._roll_tag == "int8"
+        return
+    with pytest.raises(NotImplementedError, match=var.split("_", 1)[1]):
         _port_pipeline(_cfg(t_config))
 
 

@@ -340,22 +340,21 @@ def test_example_endpoint(served_pipeline):
 
 
 def test_predictor_tiny_on_cpu(tmp_path, monkeypatch):
-    """Predictor(tiny=True, device="cpu") with bf16 towers
-    (V2AP_INT8_TOWERS=0): the generated audio lands beside the target
-    path; without the variable the JAX default (int8 towers) raises."""
+    """Predictor(tiny=True, device="cpu"): without V2AP_INT8_TOWERS and
+    without a gate file it serves the JAX default, int8 towers; the
+    generated audio lands beside the target path. ``setup(ckpt=)`` loads
+    a saved tiny pipeline's weights and ``predict`` serves them: the same
+    audio as the pipeline that saved them."""
     from v2ap_torch.predict import Predictor
+    from v2ap_torch.utils.checkpoint import save_model
 
     monkeypatch.delenv("V2AP_INT8_TOWERS", raising=False)
     monkeypatch.setenv("V2AP_INT8_GATE_FILE", str(tmp_path / "none.json"))
-    with pytest.raises(NotImplementedError, match="V2AP_INT8_TOWERS=0"):
-        Predictor(tiny=True, device="cpu").setup()
-    monkeypatch.setenv("V2AP_INT8_TOWERS", "0")
     p = Predictor(tiny=True, device="cpu")
     with pytest.raises(RuntimeError, match="setup"):
         p.predict("x.mp4")
-    with pytest.raises(NotImplementedError, match="load_weights"):
-        p.setup(ckpt=str(tmp_path))
     p.setup()
+    assert p.pipeline.quantize_towers and p.pipeline._tower_tag == "int8"
     video = str(tmp_path / "clip.mp4")
     assert write_synthetic_video(video, frames=6, fps=4)
     out = p.predict(video, v2a_num_steps=2, out_dir=str(tmp_path / "o"))
@@ -363,6 +362,30 @@ def test_predictor_tiny_on_cpu(tmp_path, monkeypatch):
     if out.endswith(".wav"):
         audio, sr = read_wav(out)
         assert sr == 24_000 and audio.shape == (1, 112 * 320)
+
+    # another seed's weights, saved as load_weights reads them
+    saver = Predictor(tiny=True, device="cpu")
+    saver.setup()
+    with torch.no_grad():
+        for module in (saver.pipeline.cfm, saver.pipeline.clip):
+            for t in module.parameters():
+                t.add_(0.01 * torch.randn(t.shape, generator=torch.Generator()
+                                          .manual_seed(t.numel())))
+    ckpt = tmp_path / "ckpt"
+    save_model(str(ckpt / "cfm"), saver.pipeline.cfm)
+    save_model(str(ckpt / "clip"), saver.pipeline.clip)
+    loaded = Predictor(tiny=True, device="cpu")
+    loaded.setup(ckpt=str(ckpt))
+    for module in ("cfm", "clip"):
+        got = getattr(loaded.pipeline, module).state_dict()
+        for name, t in getattr(saver.pipeline, module).state_dict().items():
+            assert torch.equal(got[name], t), (module, name)
+    a = loaded.predict(video, v2a_num_steps=2, out_dir=str(tmp_path / "a"))
+    b = saver.predict(video, v2a_num_steps=2, out_dir=str(tmp_path / "b"))
+    c = p.predict(video, v2a_num_steps=2, out_dir=str(tmp_path / "c"))
+    if a.endswith(".wav"):
+        np.testing.assert_array_equal(read_wav(a)[0], read_wav(b)[0])
+        assert not np.array_equal(read_wav(a)[0], read_wav(c)[0])
 
 
 def test_app_serves_the_predictor_pipeline(monkeypatch):

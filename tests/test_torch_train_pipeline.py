@@ -413,10 +413,33 @@ def test_train_cli_video_encoder_matches_jax(mode):
 
 @pytest.mark.parametrize("args", [
     ["--host-id", "0"], ["--num-hosts", "2"], ["--no-mesh"]])
-def test_train_cli_unported_options_raise(args, tmp_path):
-    with pytest.raises(NotImplementedError):
-        t_train.main(["--corpora-root", str(tmp_path), "--tiny", "--device",
-                      "cpu", *args])
+def test_train_cli_multihost_options_are_honoured(args, tmp_path, media,
+                                                  monkeypatch, capsys):
+    """As JAX's ``scripts/train.py`` on one device: ``--host-id`` /
+    ``--num-hosts`` reach ``TrainBatcher`` (defaults 0 and 1), and
+    ``--no-mesh`` trains (the port builds no mesh either way)."""
+    from v2ap_torch.data import dataset as t_data
+
+    root = str(tmp_path / "corpus")
+    _corpus(root, media)
+    seen = []
+    real = t_data.TrainBatcher
+
+    def recording(*a, **kw):
+        seen.append(kw)
+        return real(*a, **kw)
+
+    monkeypatch.setattr(t_data, "TrainBatcher", recording)
+    assert t_train.main(["--corpora-root", root, "--tiny", "--device", "cpu",
+                         "--steps", "1", "--batch-size", "2", "--work-dir",
+                         str(tmp_path / "run"), *args]) == 0
+    assert "finished at step 1" in capsys.readouterr().out
+    want = {"--host-id": (0, 1), "--num-hosts": (0, 2),
+            "--no-mesh": (0, 1)}[args[0]]
+    assert (seen[0]["host_id"], seen[0]["num_hosts"]) == want
+    if args[0] == "--num-hosts":
+        assert real([], batch_size=2, host_id=1, num_hosts=2).video_samples \
+            == []
 
 
 @pytest.mark.parametrize("args", [

@@ -17,6 +17,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from v2ap_torch.utils.quantize import int8_linear
+
 
 def lecun_normal_(w: torch.Tensor, fan_in: int) -> torch.Tensor:
     """nnx's default kernel init: truncated normal with variance 1/fan_in."""
@@ -25,7 +27,11 @@ def lecun_normal_(w: torch.Tensor, fan_in: int) -> torch.Tensor:
 
 
 class Linear(nn.Module):
-    """y = x W^T + b computed in ``dtype``; W stored (out, in) in float32."""
+    """y = x W^T + b computed in ``dtype``; W stored (out, in) in float32.
+    ``int8`` (set by ``utils.quantize.quantize_linears_int8``) runs the
+    product as AQT's int8 one on the same stored weights."""
+
+    int8 = False
 
     def __init__(self, in_features: int, out_features: int, *,
                  bias: bool = True, dtype: torch.dtype = torch.float32,
@@ -46,6 +52,8 @@ class Linear(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype
         bias = self.bias.to(dt) if self.bias is not None else None
+        if self.int8:
+            return int8_linear(x.to(dt), self.weight.to(dt), bias)
         return F.linear(x.to(dt), self.weight.to(dt), bias)
 
 

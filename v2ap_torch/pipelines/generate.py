@@ -29,16 +29,17 @@ duration through one sampler call, ``generate_to_file`` writes the audio
 
 The environment switches of the JAX pipeline that change its result are
 read as it reads them: ``V2AP_FRAME_STRIDE`` and ``V2AP_STRIP_STRIDE``
-override the config's strides (and tag the caches). What would change the
-result and is not ported raises
-``NotImplementedError`` rather than give another result: a tokenizer
-(``tokenizer_path``, or ``V2AP_T5_TOKENIZER`` naming an existing path: the
-sentencepiece / HF assets), int8 towers or CFM, and the wire-level
-shipping modes (``V2AP_SHIP_YUV420=1``, ``V2AP_SHIP_STRIP_HALF=1``).
-``quantize_towers=None`` means what it means in JAX: ``V2AP_INT8_TOWERS``
-if set (``0`` is bf16), else the int8 gate's persisted verdict, else int8;
-so the port serves (bf16 towers) only with ``quantize_towers=False`` or
-``V2AP_INT8_TOWERS=0``.
+override the config's strides (and tag the caches). ``quantize_towers=None``
+means what it means in JAX: ``V2AP_INT8_TOWERS`` if set (``0`` is bf16),
+else the int8 gate's persisted verdict, else int8 towers: every ``Linear``
+of the video towers runs AQT's int8 product (``utils.quantize``; attention
+stays bf16). ``quantize_cfm=None`` reads ``V2AP_INT8_CFM`` (``1``: every
+``Linear`` of the CFM, Video2Roll's included, in int8). The modes tag the
+feature and roll caches as JAX's do. What would change the result and is
+not ported raises ``NotImplementedError`` rather than give another result:
+a tokenizer (``tokenizer_path``, or ``V2AP_T5_TOKENIZER`` naming an
+existing path: the sentencepiece / HF assets) and the wire-level shipping
+modes (``V2AP_SHIP_YUV420=1``, ``V2AP_SHIP_STRIP_HALF=1``).
 """
 
 from __future__ import annotations
@@ -63,6 +64,7 @@ from v2ap_torch.models.video_towers import build_video_towers
 from v2ap_torch.utils.device import resolve_device, seeded_init
 from v2ap_torch.utils.jitting import (CapturedPrograms, batch_bucket,
                                       cast_params, pad_batch)
+from v2ap_torch.utils.quantize import quantize_linears_int8
 
 
 def bucket_length(n: int, bucket: int = 96) -> int:
@@ -147,12 +149,6 @@ class V2APipeline:
                 quantize_towers = True if gate is None else gate
         if quantize_cfm is None:
             quantize_cfm = os.environ.get("V2AP_INT8_CFM", "0") == "1"
-        if quantize_towers or quantize_cfm:
-            raise NotImplementedError(
-                "int8 towers / CFM are not ported yet; the port serves bf16 "
-                "towers: pass quantize_towers=False or set V2AP_INT8_TOWERS=0 "
-                "(with quantize_towers=None the JAX pipeline serves int8 "
-                "towers unless V2AP_INT8_TOWERS=0 or the int8 gate says no)")
         for var in ("V2AP_SHIP_YUV420", "V2AP_SHIP_STRIP_HALF"):
             if os.environ.get(var) == "1":
                 raise NotImplementedError(f"{var}=1: the wire-level shipping "
@@ -202,6 +198,10 @@ class V2APipeline:
                 cast_params(self.cfm, torch.bfloat16)
         for module in frozen + ([] if trainable_cfm else [self.cfm]):
             module.eval().requires_grad_(False)
+        # int8 products on the stored weights (the caches' tags follow)
+        self.quantize_cfm = bool(quantize_cfm)
+        quantize_linears_int8(self.cfm, self.quantize_cfm)
+        self.set_int8_towers(bool(quantize_towers))
         self.tokenize = FallbackTokenizer(self.t5_cfg.vocab_size)
         # the sampler's captured programs (CUDA only; the CPU runs eagerly)
         self.graphs = (CapturedPrograms() if self.device.type == "cuda"
@@ -237,17 +237,27 @@ class V2APipeline:
             loaded.append("cfm")
         return loaded
 
+    def set_int8_towers(self, on: bool) -> int:
+        """Run every ``Linear`` of the video towers in int8 (or back in
+        bf16) in place; returns the number of layers set."""
+        self.quantize_towers = on
+        return sum(quantize_linears_int8(t.model, on) for t in self.towers)
+
     @property
     def _tower_tag(self) -> str:
-        """The numerics tag of the frame-feature cache (JAX's, bf16 towers)."""
+        """The numerics tag of the frame-feature cache (JAX's): the towers'
+        mode and the frame stride."""
         s = self.frame_stride
-        return "bf16" + (f"+s{s}" if s > 1 else "")
+        return (("int8" if self.quantize_towers else "bf16")
+                + (f"+s{s}" if s > 1 else ""))
 
     @property
     def _roll_tag(self) -> str:
-        """The numerics tag of the roll cache (strip-stride blends apart)."""
+        """The numerics tag of the roll cache (JAX's): the CFM's mode, whose
+        Video2Roll computes the roll, and the strip stride."""
         ss = self.strip_stride
-        return "bf16" + (f"+ss{ss}" if ss > 1 else "")
+        return (("int8" if self.quantize_cfm else "bf16")
+                + (f"+ss{ss}" if ss > 1 else ""))
 
     def _sync(self) -> None:
         if self.device.type == "cuda":

@@ -11,9 +11,10 @@ Counterpart of the root ``predict.py``:
     python -m v2ap_torch.predict clip.mp4 [--tiny] [--cpu] [--steps N]
 
 ``tiny=True`` builds the port's miniature configs (CPU-sized). The
-pipeline's int8-tower default is JAX's: set ``V2AP_INT8_TOWERS=0`` (bf16
-towers, what the port serves) or it raises. A checkpoint (``ckpt``)
-raises: loading weights is not ported yet.
+pipeline's int8-tower default is JAX's (``V2AP_INT8_TOWERS``, the int8
+gate's verdict, else int8 towers). ``setup(ckpt)`` loads a converted or
+saved directory through ``V2APipeline.load_weights`` (``cfm/``,
+``encodec/``, ``t5/``, ``clip/``, the towers' names).
 """
 
 from __future__ import annotations
@@ -31,9 +32,6 @@ class Predictor:
         self.pipeline = None
 
     def setup(self, ckpt: Optional[str] = None) -> None:
-        if ckpt:
-            raise NotImplementedError("loading weights (V2APipeline."
-                                      "load_weights) is not ported yet")
         from v2ap_torch.config import V2APConfig
         from v2ap_torch.pipelines.generate import V2APipeline
 
@@ -52,6 +50,8 @@ class Predictor:
         else:
             self.pipeline = V2APipeline(self._cfg or V2APConfig(),
                                         device=self._device)
+        if ckpt:
+            self.pipeline.load_weights(ckpt)
 
     def predict(self, video: str, prompt: str = "",
                 v2a_num_steps: int = 25, if_piano: bool = False,

@@ -26,9 +26,10 @@ the preference-pair corpus ``<root>/pairs.scp``), the host ``TrainBatcher``
 ``--work-dir/ckpts``. Remat is on with the ``dots`` policy unless
 ``--no-remat`` or ``--tiny``, as in JAX. ``--video-encoder`` picks the
 video tower(s) (``mixed``: the four concatenated, 4608-d through the CFM's
-``proj_text``). Not ported, and refused: the multi-host options
-(``--host-id``, ``--num-hosts``, ``--no-mesh``), which belong to
-parallelism.
+``proj_text``). ``--host-id`` / ``--num-hosts`` stride the video and
+pair corpora per host in ``TrainBatcher`` (defaults 0 and 1, as JAX's on
+one process); ``--no-mesh`` is accepted and changes nothing, since the
+port trains on one device and builds no mesh.
 """
 
 from __future__ import annotations
@@ -117,19 +118,14 @@ def main(argv=None) -> int:
                     help="the miniature model and frozen towers")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda)")
-    ap.add_argument("--host-id", type=int, default=None, help="not ported")
-    ap.add_argument("--num-hosts", type=int, default=None,
-                    help="not ported")
-    ap.add_argument("--no-mesh", action="store_true", help="not ported")
+    ap.add_argument("--host-id", type=int, default=0,
+                    help="this host's index: the video and pair corpora "
+                         "are strided per host")
+    ap.add_argument("--num-hosts", type=int, default=1,
+                    help="hosts sharing the corpora")
+    ap.add_argument("--no-mesh", action="store_true",
+                    help="build no device mesh (the port never builds one)")
     args = ap.parse_args(argv)
-
-    unported = [flag for flag, on in (
-        ("--host-id", args.host_id is not None),
-        ("--num-hosts", args.num_hosts is not None),
-        ("--no-mesh", args.no_mesh)) if on]
-    if unported:
-        raise NotImplementedError(f"{', '.join(unported)}: not ported "
-                                  f"(parallelism comes later)")
 
     from v2ap_torch.data.dataset import TrainBatcher
     from v2ap_torch.data.manifests import (CorpusSpec, default_corpora,
@@ -148,8 +144,9 @@ def main(argv=None) -> int:
         print(f"no samples found under {args.corpora_root}", file=sys.stderr)
         return 2
     batcher = TrainBatcher(samples, cfg.data,
-                           batch_size=cfg.train.batch_size, seed=args.seed,
-                           dpo=cfg.train.dpo,
+                           batch_size=cfg.train.batch_size,
+                           host_id=args.host_id, num_hosts=args.num_hosts,
+                           seed=args.seed, dpo=cfg.train.dpo,
                            micro_batches=cfg.train.grad_accum)
     eval_batcher = None
     if args.eval_scp:
