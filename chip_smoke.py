@@ -295,6 +295,41 @@ Phases, each of which fails the run (exit 1, no result line) if it fails:
                ``python -m v2ap_torch.int8_tower_gate --tiny`` writes its
                verdict file (plumbing: seeded evaluators, a clip that does
                not decode here).
+  25. AudioLDM, vocoders, the token path — float32 unless said, TF32 off.
+               (a) A small AudioLDM stack (two-level 32-channel UNet, tiny
+               CLAP, VAE and HiFi-GAN) on the card against the CPU, same
+               weights, x_t and per-step noise, 10 DDIM steps at eta 0 and
+               0.5: latents and waveform within SMALL_REL_RMS. Then
+               ``AudioLDMBackend(ldm_s_full())`` with the default CLAP, VAE
+               and HiFi-GAN from seeded weights (zero-initialised tensors
+               seeded too), the two AUDIOLDM_PROMPTS through CLAP's
+               fallback tokenizer against "": a warm-up and AUDIOLDM_RUNS
+               timed ``text_to_audio`` calls (25 DDIM steps, guidance 2.5,
+               eta 0), no flash wrapper counting in any; the waveform
+               (2, 163 872) (HiFi-GAN's 160 x 1024 + 32 samples), finite,
+               not all zero; the stages (CLAP, DDIM, VAE decode, HiFi-GAN)
+               timed one by one over AUDIOLDM_RUNS more runs, whose
+               waveform must be within SMALL_PARAM_REL_RMS of
+               ``text_to_audio``'s (the same calls; cuDNN may choose
+               another algorithm); one more ``text_to_audio`` under the
+               profiler (kernel groups, busy share, host launches). (b) Vocos at
+               ``vocos_mel_24khz()`` on a seeded 938-frame mel (239 872
+               samples): ``istft`` against the loop-and-scatter overlap-add
+               and the card against the CPU within VOCOS_REL_RMS; ms per
+               clip. (c) ``VaeVocoder.decode`` of seeded (2, 750, 128)
+               latents at the default widths: finite, 480 032 samples a
+               row, ms. (d) ``DurationPredictor`` at v2a_default()'s
+               transformer (12 layers, bf16 compute, f32 params), byte
+               tokens, PRED_BATCH x 750 latents: first a small f32 config
+               card vs CPU (prediction, loss with ``frac`` handed in, every
+               gradient, SMALL_REL_RMS); then PRED_FWD_REPS timed forwards,
+               each launching K1 48 times (4 attentions a layer: audio
+               self, audio cross run over the audio stream, text, frames)
+               and nothing else; a warm-up and PRED_STEPS timed
+               loss + backward + AdamW steps, each K3, K4, K5 48 times and
+               no K1, peak memory; one forward + backward under the
+               profiler, failing unless ``flash_fwd_sm90_kernel<64>`` and
+               the ``flash_bwd_*_sm90`` kernels ran and no CUDA-core one.
 
 Each phase header line carries the seconds since the start of the run.
 
@@ -3027,7 +3062,7 @@ def phase_eval(torch, root: str) -> None:
 
 # -------------------------------------------------------------- phase 22
 
-TOWER_RUNS = 3                     # timed mixed-mode generates (median)
+TOWER_RUNS = 2                     # timed mixed-mode generates (median)
 HD_FRAME = (720, 1280)             # (h, w) of the mixed generate's 720p frames
 TOWER_CHUNKS = math.ceil(CLIP_S * FPS / 64)   # 64-frame tower chunks
 
@@ -3569,8 +3604,8 @@ def phase_audeo(torch) -> None:
 # -------------------------------------------------------------- phase 24
 
 WEIGHTS_SEED = 24                  # the seeded "published" tensors
-INT8_RUNS = 3                      # timed int8 and bf16 V2A generates each
-INT8_MIXED_RUNS = 2                # timed mixed generates in each mode
+INT8_RUNS = 2                      # timed int8 and bf16 V2A generates each
+INT8_MIXED_RUNS = 1                # timed mixed generates in each mode
 INT8_ROWS = 2 * 257                # int8 Linear card vs CPU: two frames'
                                    # tokens through ViT-bigG's fc1
 BIGG_SHARDS = 3                    # model-0000i-of-00003.safetensors
@@ -4076,7 +4111,7 @@ def phase_int8(torch, frames, out: str, mixed_cfg, held: dict,
     del pipe
     torch.cuda.empty_cache()
 
-    log("[24c/24] python -m v2ap_torch.int8_tower_gate --tiny")
+    log("[24c/25] python -m v2ap_torch.int8_tower_gate --tiny")
     clips = os.path.join(root, "clips")
     os.makedirs(clips)
     for i in range(2):                   # FAD needs two clips a set
@@ -4103,7 +4138,7 @@ def phase_24(torch, frames) -> None:
         t0 = time.perf_counter()
         out, mixed, held = phase_weights_in(torch, frames, root)
         log(f"  phase 24a: {time.perf_counter() - t0:.2f} s")
-        log("[24b/24] int8: the Linear card vs CPU; int8 vs bf16 towers; the "
+        log("[24b/25] int8: the Linear card vs CPU; int8 vs bf16 towers; the "
             "tower's profile; drift; mixed towers; V2AP_INT8_CFM=1")
         t0 = time.perf_counter()
         phase_int8(torch, frames, out, mixed, held, root)
@@ -4112,6 +4147,517 @@ def phase_24(torch, frames) -> None:
         del os.environ["V2AP_INT8_GATE_FILE"]
         shutil.rmtree(root, ignore_errors=True)
     torch.cuda.empty_cache()
+
+
+# --------------------------------------------------------------- phase 25
+
+AUDIOLDM_RUNS = 3                  # timed full-width text_to_audio calls
+AUDIOLDM_STEPS = 25
+AUDIOLDM_GUIDANCE = 2.5
+AUDIOLDM_PROMPTS = ("a dog barks while rain falls on a tin roof",
+                    "a steam train passes a level crossing")
+AUDIOLDM_SAMPLES = 160 * 1024 + 32  # HiFi-GAN's length for 1024 mel frames
+VOCOS_FRAMES = 938                 # 10 s of 24 kHz mel at hop 256
+VOCOS_REPS = 5
+VOCOS_REL_RMS = 1e-4
+VAE_VOCODER_LATENTS = (2, 750, 128)
+VAE_VOCODER_REPS = 3
+PRED_BATCH = 8
+PRED_STEPS = 5                     # timed predictor train steps
+PRED_FWD_REPS = 5
+PRED_TEXTS = ("a dog barks", "rain on a tin roof", "a steam train",
+              "footsteps on gravel", "a door slams", "wind in the trees",
+              "a kettle whistles", "applause")
+
+
+def fill_zero_params(torch, model, seed: int, std: float = 0.02) -> int:
+    """Seeded normal values into every parameter that is all zero (the
+    zero-initialised convolutions, projections and gates), so that each
+    layer takes part; returns how many were filled."""
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    n = 0
+    with torch.no_grad():
+        for p in model.parameters():
+            if p.is_floating_point() and not p.any():
+                p.copy_(torch.randn(p.shape, generator=gen) * std)
+                n += 1
+    return n
+
+
+def ldm_small_backend(torch, device: str):
+    """The small AudioLDM stack of the card-vs-CPU check: a two-level UNet
+    (32 channels), tiny CLAP, VAE and HiFi-GAN, f32."""
+    from v2ap_torch.models import audioldm_vae, clap, hifigan
+    from v2ap_torch.models import latent_diffusion as ldm
+    from v2ap_torch.utils.device import seeded_init
+
+    a_cfg, t_cfg = clap.clap_tiny_test()
+    cfg = ldm.LDMConfig(in_channels=4, out_channels=4, model_channels=32,
+                        num_res_blocks=1, attention_resolutions=(1, 2),
+                        channel_mult=(1, 2), num_head_channels=16,
+                        film_dim=a_cfg.projection_dim, timesteps=100,
+                        latent_t=32, latent_f=16)
+    dev = torch.device(device)
+    with seeded_init(3, dev):
+        return ldm.AudioLDMBackend(
+            cfg, clap=clap.ClapModel(a_cfg, t_cfg, device=dev),
+            vae=audioldm_vae.AudioLDMVAE(audioldm_vae.AudioLDMVAEConfig(
+                mel_bins=32, base_channels=32, channel_mults=(1, 2),
+                num_res_blocks=1, latent_channels=4, groups=8), device=dev),
+            vocoder=hifigan.HiFiGANGenerator(hifigan.HiFiGANConfig(
+                in_channels=32, upsample_initial_channel=64,
+                upsample_rates=(4, 4), upsample_kernel_sizes=(8, 8),
+                resblock_kernel_sizes=(3, 5),
+                resblock_dilations=((1, 3), (1, 3))), device=dev),
+            device=dev)
+
+
+def audioldm_stages(torch, backend, ids, mask, u_ids, u_mask, x_t,
+                    noise=None, eta: float = 0.0,
+                    steps: int = AUDIOLDM_STEPS) -> tuple:
+    """``text_to_audio``'s stages one by one, each synchronised and timed:
+    (latents, waveform, {stage: seconds})."""
+    sec = {}
+
+    def sync():
+        if x_t.is_cuda:
+            torch.cuda.synchronize()
+
+    def timed(name, fn):
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        sec[name] = time.perf_counter() - t0
+        return out
+
+    with torch.no_grad():
+        film, film_u = timed("clap", lambda: (
+            backend.clap.get_text_features(ids, mask),
+            backend.clap.get_text_features(u_ids, u_mask)))
+        z = timed("ddim", lambda: backend.ldm.ddim_sample(
+            x_t, film=film, film_uncond=film_u.expand_as(film), steps=steps,
+            guidance_scale=AUDIOLDM_GUIDANCE, eta=eta, noise=noise))
+        mel = timed("vae_decode", lambda: backend.vae.decode(
+            z / backend.ldm.cfg.scale_factor))
+        wav = timed("hifigan", lambda: backend.vocoder(mel))
+    return z, wav, sec
+
+
+def phase_audioldm_small(torch) -> None:
+    """25a, small: the AudioLDM stack on the card against the CPU, same
+    weights, x_t and per-step noise, DDIM at eta 0 and 0.5."""
+    from v2ap_torch.evaluation.clap_scorer import _fallback_tokenize
+    from v2ap_torch.models.latent_diffusion import make_ddim_schedule
+
+    cpu = ldm_small_backend(torch, "cpu")
+    fill_zero_params(torch, cpu, 25)
+    card = ldm_small_backend(torch, "cuda")
+    card.load_state_dict(cpu.state_dict())
+    vocab = cpu.clap.text_model.cfg.vocab_size
+    ids, mask = (torch.from_numpy(a) for a in _fallback_tokenize(
+        list(AUDIOLDM_PROMPTS), vocab, 16))
+    u_ids, u_mask = (torch.from_numpy(a) for a in _fallback_tokenize(
+        [""], vocab, 16))
+    gen = torch.Generator().manual_seed(25)
+    x_t = torch.randn(cpu.latent_shape(2), generator=gen)
+    steps = 10
+    for eta in (0.0, 0.5):
+        rows = len(make_ddim_schedule(cpu.ldm.cfg, steps, eta))
+        noise = torch.randn((rows,) + x_t.shape, generator=gen)
+        out = {}
+        for name, m in (("card", card), ("cpu", cpu)):
+            dev = next(m.parameters()).device
+            z, wav, _ = audioldm_stages(
+                torch, m, ids.to(dev), mask.to(dev), u_ids.to(dev),
+                u_mask.to(dev), x_t.to(dev), noise=noise.to(dev), eta=eta,
+                steps=steps)
+            out[name] = (z.cpu(), wav.cpu())
+        for i, what in enumerate(("latents", "waveform")):
+            g, c = out["card"][i], out["cpu"][i]
+            err = rel_rms(g, c)
+            log(f"  small AudioLDM eta {eta} {what} {tuple(g.shape)}: rel-RMS "
+                f"card vs CPU {err:.2e} (tol {SMALL_REL_RMS})")
+            if not torch.isfinite(g).all() or err > SMALL_REL_RMS:
+                raise RuntimeError(f"AudioLDM small: {what} at eta {eta} "
+                                   f"disagree ({err})")
+
+
+def phase_audioldm(torch) -> dict:
+    """25a, full width: AudioLDMBackend(ldm_s_full()) with the default CLAP,
+    VAE and HiFi-GAN from seeded weights on the card."""
+    import numpy as np
+
+    from v2ap_torch.evaluation.clap_scorer import _fallback_tokenize
+    from v2ap_torch.models.latent_diffusion import AudioLDMBackend, ldm_s_full
+    from v2ap_torch.ops.flash_attention import (launch_counts,
+                                                reset_launch_counts)
+    from v2ap_torch.utils.device import seeded_init
+
+    phase_audioldm_small(torch)
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    with seeded_init(0, dev):
+        backend = AudioLDMBackend(ldm_s_full(), device=dev)
+    filled = fill_zero_params(torch, backend, 26)
+    torch.cuda.synchronize()
+    count = {name: sum(p.numel() for p in getattr(backend, name).parameters())
+             for name in ("ldm", "clap", "vae", "vocoder")}
+    log(f"  build: {time.perf_counter() - t0:.2f} s, parameters (M) "
+        f"{', '.join(f'{k} {v / 1e6:.1f}' for k, v in count.items())}; "
+        f"{filled} zero-initialised tensors seeded")
+    vocab = backend.clap.text_model.cfg.vocab_size
+    ids, mask = (torch.from_numpy(a).to(dev) for a in _fallback_tokenize(
+        list(AUDIOLDM_PROMPTS), vocab))
+    u_ids, u_mask = (torch.from_numpy(a).to(dev) for a in _fallback_tokenize(
+        [""], vocab))
+    x_t = torch.randn(backend.latent_shape(len(AUDIOLDM_PROMPTS)),
+                      generator=torch.Generator(device=dev).manual_seed(0),
+                      device=dev)
+
+    def run():
+        return backend.text_to_audio(ids, mask, u_ids, u_mask,
+                                     steps=AUDIOLDM_STEPS,
+                                     guidance_scale=AUDIOLDM_GUIDANCE,
+                                     x_t=x_t)
+
+    t0 = time.perf_counter()
+    wav = run()
+    torch.cuda.synchronize()
+    log(f"  warm-up text_to_audio: {time.perf_counter() - t0:.3f} s")
+    torch.cuda.reset_peak_memory_stats()
+    walls = []
+    for _ in range(AUDIOLDM_RUNS):
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        wav = run()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        if any(launch_counts.values()):
+            raise RuntimeError(f"AudioLDM: a flash kernel ran: "
+                               f"{dict(launch_counts)}")
+    want = (len(AUDIOLDM_PROMPTS), AUDIOLDM_SAMPLES)
+    if tuple(wav.shape) != want or not torch.isfinite(wav).all() or \
+            not wav.abs().max() > 0:
+        raise RuntimeError(f"AudioLDM: waveform {tuple(wav.shape)} (want "
+                           f"{want}), finite {bool(torch.isfinite(wav).all())}"
+                           f", max |x| {wav.abs().max().item()}")
+    stages = []
+    for _ in range(AUDIOLDM_RUNS):
+        _, staged, sec = audioldm_stages(torch, backend, ids, mask, u_ids,
+                                         u_mask, x_t)
+        stages.append(sec)
+    def profiled():
+        out = run()
+        if not torch.isfinite(out).all():
+            raise RuntimeError("AudioLDM profile: non-finite waveform")
+
+    phase_profile(torch, "text_to_audio", profiled)
+    # the same calls; cuDNN may pick another algorithm between them
+    staged_err = rel_rms(staged, wav)
+    if staged_err > SMALL_PARAM_REL_RMS:
+        raise RuntimeError(f"AudioLDM: the staged run differs from "
+                           f"text_to_audio ({staged_err:.2e})")
+    med = {k: float(np.median([s[k] for s in stages])) for k in stages[0]}
+    wall = float(np.median(walls))
+    audio_s = len(AUDIOLDM_PROMPTS) * AUDIOLDM_SAMPLES / 16_000
+    log(f"  text_to_audio x{AUDIOLDM_RUNS} ({len(AUDIOLDM_PROMPTS)} prompts, "
+        f"{AUDIOLDM_STEPS} DDIM steps, guidance {AUDIOLDM_GUIDANCE}, eta 0, "
+        f"f32, TF32 off): wall (s) {', '.join(f'{w:.4f}' for w in walls)}; "
+        f"median {wall:.4f} s, {audio_s / wall:.2f} audio-s per s; stages "
+        f"(median of {AUDIOLDM_RUNS} staged runs) "
+        f"{', '.join(f'{k} {v:.4f}' for k, v in med.items())} s; peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; waveform "
+        f"{tuple(wav.shape)} at 16 kHz, max |x| {wav.abs().max().item():.4f}; "
+        f"staged vs text_to_audio rel-RMS {staged_err:.2e} (tol "
+        f"{SMALL_PARAM_REL_RMS}); no flash kernel launched")
+    del backend
+    torch.cuda.empty_cache()
+    return {"wall": wall, **med}
+
+
+def plain_overlap_add(torch, td, hop: int):
+    """The loop-and-scatter overlap-add: frame t added at t * hop."""
+    b, frames, n = td.shape
+    out = torch.zeros(b, (frames - 1) * hop + n, device=td.device,
+                      dtype=td.dtype)
+    for t in range(frames):
+        out[:, t * hop: t * hop + n] += td[:, t]
+    return out
+
+
+def phase_vocos(torch) -> float:
+    """25b: Vocos at vocos_mel_24khz() on a seeded 10 s mel."""
+    import numpy as np
+
+    from v2ap_torch.models import vocos as V
+    from v2ap_torch.utils.device import seeded_init
+
+    cfg = V.vocos_mel_24khz()
+    with seeded_init(0, torch.device("cpu")):
+        cpu = V.Vocos(cfg, device="cpu")
+    card = V.Vocos(cfg, device="cuda")
+    card.load_state_dict(cpu.state_dict())
+    mel = torch.randn(1, VOCOS_FRAMES, cfg.input_channels,
+                      generator=torch.Generator().manual_seed(25))
+    with torch.no_grad():
+        got = card.decode(mel.cuda())
+        want = cpu.decode(mel)
+        out = card.head(card.backbone(mel.cuda())).float()
+        half = cfg.n_fft // 2 + 1
+        mag = torch.clamp(torch.exp(out[..., :half]), max=1e2)
+        spec = torch.complex(mag * torch.cos(out[..., half:]),
+                             mag * torch.sin(out[..., half:]))
+        fast = V.istft(spec, cfg.n_fft, cfg.hop_length)
+        td = torch.fft.irfft(spec, n=cfg.n_fft, dim=-1) * torch.from_numpy(
+            V._hann(cfg.n_fft)).cuda()
+        env = torch.from_numpy(V._envelope(VOCOS_FRAMES, cfg.n_fft,
+                                           cfg.hop_length)).cuda()
+        plain = plain_overlap_add(torch, td, cfg.hop_length) / env
+        plain = plain[:, cfg.n_fft // 2: plain.shape[1] - cfg.n_fft // 2]
+    n = (VOCOS_FRAMES - 1) * cfg.hop_length
+    for what, g, c in (("istft vs plain overlap-add", fast, plain),
+                       ("waveform card vs CPU", got, want)):
+        err = rel_rms(g.cpu(), c.cpu())
+        log(f"  Vocos {what} {tuple(g.shape)}: rel-RMS {err:.2e} (tol "
+            f"{VOCOS_REL_RMS})")
+        if tuple(g.shape) != (1, n) or not torch.isfinite(g).all() or \
+                err > VOCOS_REL_RMS:
+            raise RuntimeError(f"Vocos: {what} ({err}, {tuple(g.shape)})")
+    with torch.no_grad():
+        ms = events_ms(torch, lambda: card.decode(mel.cuda()), VOCOS_REPS)
+    med = float(np.median(ms))
+    log(f"  Vocos decode of {VOCOS_FRAMES} frames ({n} samples, "
+        f"{n / cfg.sampling_rate:.2f} s at 24 kHz): ms per clip "
+        f"{', '.join(f'{m:.3f}' for m in ms)}; median {med:.3f} ms")
+    del card, cpu
+    torch.cuda.empty_cache()
+    return med
+
+
+def phase_vae_vocoder(torch) -> float:
+    """25c: VaeVocoder.decode of seeded flat latents at the default
+    widths."""
+    import numpy as np
+
+    from v2ap_torch.models.audioldm_vae import VaeVocoder
+    from v2ap_torch.utils.device import seeded_init
+
+    dev = torch.device("cuda")
+    with seeded_init(0, dev):
+        voc = VaeVocoder(device=dev)
+    lat = torch.randn(VAE_VOCODER_LATENTS, device=dev,
+                      generator=torch.Generator(device=dev).manual_seed(25))
+    b, l, _ = VAE_VOCODER_LATENTS
+    want = (b, 160 * 4 * l + 32)
+    with torch.no_grad():
+        wav = voc.decode(lat)
+        torch.cuda.synchronize()
+        if tuple(wav.shape) != want or not torch.isfinite(wav).all():
+            raise RuntimeError(f"VaeVocoder: {tuple(wav.shape)} (want "
+                               f"{want}), finite "
+                               f"{bool(torch.isfinite(wav).all())}")
+        torch.cuda.reset_peak_memory_stats()
+        ms = events_ms(torch, lambda: voc.decode(lat), VAE_VOCODER_REPS)
+    med = float(np.median(ms))
+    log(f"  VaeVocoder.decode {VAE_VOCODER_LATENTS} -> {tuple(wav.shape)} "
+        f"({want[1] / 16_000:.2f} s at 16 kHz each): ms "
+        f"{', '.join(f'{m:.1f}' for m in ms)}; median {med:.1f} ms; peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del voc
+    torch.cuda.empty_cache()
+    return med
+
+
+def _pred_inputs(torch, cfg, b: int, n: int, seed: int, device):
+    import numpy as np
+
+    from v2ap_torch.data.tokenizers import byte_tokenizer
+
+    rng = np.random.default_rng(seed)
+    latents = torch.from_numpy(rng.normal(size=(b, n, cfg.num_channels))
+                               .astype(np.float32)).to(device)
+    enc, _ = byte_tokenizer()
+    tokens = torch.from_numpy(enc([PRED_TEXTS[i % len(PRED_TEXTS)]
+                                   for i in range(b)])).to(device)
+    lens = torch.from_numpy(rng.integers(n // 2, n + 1, size=b)).to(device)
+    return latents, tokens, lens
+
+
+def phase_duration_small(torch) -> None:
+    """25d, small: the predictor in f32 on the card against the CPU, same
+    weights and ``frac``: prediction, loss and every gradient."""
+    from v2ap_torch import config as C
+    from v2ap_torch.models.duration import DurationPredictor
+    from v2ap_torch.utils.device import seeded_init
+
+    base = C.tiny_test().model
+    cfg = dataclasses.replace(base, dim=128, heads=2, dim_head=64,
+                              dim_text=128, text_heads=2, text_dim_head=64,
+                              dim_frames=64, frames_heads=1,
+                              frames_dim_head=64, dim_context=128)
+    with seeded_init(5, torch.device("cpu")):
+        cpu = DurationPredictor(cfg, device="cpu")
+    fill_zero_params(torch, cpu, 27)
+    card = DurationPredictor(cfg, device="cuda")
+    card.load_state_dict(cpu.state_dict())
+    latents, tokens, lens = _pred_inputs(torch, cfg, 3, 96, 25, "cpu")
+    frac = torch.tensor([0.9, 0.5, 0.75])
+    res = {}
+    for name, m in (("card", card), ("cpu", cpu)):
+        dev = next(m.parameters()).device
+        args = (latents.to(dev), tokens.to(dev), lens.to(dev))
+        with torch.no_grad():
+            pred = m(*args)
+        m.zero_grad()
+        loss = m.loss(*args, frac=frac)
+        loss.backward()
+        res[name] = (pred.cpu(), loss.detach().cpu(),
+                     {k: p.grad.cpu() for k, p in m.named_parameters()
+                      if p.grad is not None})
+    worst = max(rel_rms(res["card"][2][k], g)
+                for k, g in res["cpu"][2].items())
+    for what, g, c in (("prediction", res["card"][0], res["cpu"][0]),
+                       ("loss", res["card"][1], res["cpu"][1])):
+        err = rel_rms(g, c)
+        log(f"  small f32 predictor {what}: rel-RMS card vs CPU {err:.2e} "
+            f"(tol {SMALL_REL_RMS})")
+        if err > SMALL_REL_RMS:
+            raise RuntimeError(f"predictor small: {what} disagree ({err})")
+    log(f"  small f32 predictor gradients ({len(res['cpu'][2])} tensors): "
+        f"worst rel-RMS card vs CPU {worst:.2e} (tol {SMALL_REL_RMS})")
+    if res["card"][2].keys() != res["cpu"][2].keys() or worst > SMALL_REL_RMS:
+        raise RuntimeError(f"predictor small: gradients disagree ({worst})")
+
+
+def phase_duration(torch) -> dict:
+    """25d, full width: DurationPredictor at v2a_default()'s transformer
+    (12 layers, bf16 compute, f32 params), byte tokens, PRED_BATCH x 750
+    latents: the forward's K1 launches, timed AdamW steps with K3-K5
+    counted, peak memory, and a profile of one forward + backward."""
+    import numpy as np
+
+    from v2ap_torch import config as C
+    from v2ap_torch.models.duration import DurationPredictor
+    from v2ap_torch.ops.flash_attention import (launch_counts,
+                                                reset_launch_counts)
+    from v2ap_torch.utils.device import seeded_init
+
+    phase_duration_small(torch)
+    cfg = C.v2a_default().model
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    with seeded_init(0, dev):
+        model = DurationPredictor(cfg, device=dev)
+    fill_zero_params(torch, model, 28)
+    opt = torch.optim.AdamW(model.parameters(), lr=1e-4)
+    latents, tokens, lens = _pred_inputs(torch, cfg, PRED_BATCH,
+                                         TRAIN_LATENTS, 0, dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    # per layer: the audio self-attention, the audio cross-attention (with
+    # no prompt and dim_context == dim, a self-attention over the audio
+    # stream), and the text and frames streams' self-attentions
+    per_call = 4 * cfg.depth
+    torch.cuda.synchronize()
+    log(f"  build: {time.perf_counter() - t0:.2f} s, "
+        f"{sum(p.numel() for p in model.parameters()) / 1e6:.1f} M f32 "
+        f"params, {cfg.depth} layers, batch {PRED_BATCH} x {TRAIN_LATENTS} "
+        f"latents, lens {lens.tolist()}, byte tokens {tuple(tokens.shape)}")
+    zero = dict.fromkeys(launch_counts, 0)
+    with torch.no_grad():
+        pred = model(latents, tokens, lens)
+        walls = []
+        for _ in range(PRED_FWD_REPS):
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            pred = model(latents, tokens, lens)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            counts = dict(launch_counts)
+            if counts != {**zero, "flash_attention_packed": per_call}:
+                raise RuntimeError(f"predictor forward: launches {counts}, "
+                                   f"expected K1 {per_call}")
+    if not torch.isfinite(pred).all() or not (pred > 0).all():
+        raise RuntimeError(f"predictor: prediction {pred.tolist()}")
+    fwd = float(np.median(walls))
+    log(f"  forward x{PRED_FWD_REPS}: wall (s) "
+        f"{', '.join(f'{w:.4f}' for w in walls)}; median {fwd:.4f} s; K1 "
+        f"{per_call} a forward (4 attentions x {cfg.depth} layers), nothing "
+        f"else; predictions {', '.join(f'{x:.1f}' for x in pred.tolist())}")
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        loss = model.loss(latents, tokens, lens, generator=gen)
+        loss.backward()
+        opt.step()
+        return loss
+
+    expect = {**zero, "flash_attention_lse": per_call,
+              "flash_attention_bwd_dq": per_call,
+              "flash_attention_bwd_dkv": per_call}
+    watch = model.to_pred.weight.detach().clone()
+    loss = step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    walls, losses = [], []
+    for _ in range(PRED_STEPS):
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        loss = step()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        losses.append(loss.item())
+        if dict(launch_counts) != expect:
+            raise RuntimeError(f"predictor step: launches "
+                               f"{dict(launch_counts)} != {expect}")
+    moved = (model.to_pred.weight - watch).abs().max().item()
+    if not np.isfinite(losses).all() or not moved:
+        raise RuntimeError(f"predictor step: losses {losses}, to_pred moved "
+                           f"{moved}")
+    wall = float(np.median(walls))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"  loss + backward + AdamW x{PRED_STEPS}: wall (s) "
+        f"{', '.join(f'{w:.4f}' for w in walls)}; median {wall:.4f} s; peak "
+        f"{peak:.2f} GiB; losses {', '.join(f'{x:.1f}' for x in losses)}; "
+        f"K3, K4, K5 {per_call} a step, K1 none")
+
+    def profiled():
+        model.zero_grad(set_to_none=True)
+        loss = model.loss(latents, tokens, lens, generator=gen)
+        loss.backward()
+        if not torch.isfinite(loss):
+            raise RuntimeError("predictor profile: non-finite loss")
+
+    phase_profile(torch, "predictor forward + backward", profiled,
+                  ("flash_fwd_sm90_kernel<64>",) + SM90_BWD)
+    del model, opt
+    torch.cuda.empty_cache()
+    return {"fwd": fwd, "step": wall, "peak_gib": peak, "k1": per_call}
+
+
+def phase_25(torch) -> None:
+    log("[25a/25] AudioLDM text-to-audio: small card vs CPU (eta 0, 0.5); "
+        "ldm_s_full() with CLAP, VAE and HiFi-GAN at full width")
+    t0 = time.perf_counter()
+    phase_audioldm(torch)
+    log(f"  phase 25a: {time.perf_counter() - t0:.2f} s")
+    log(f"[25b/25] Vocos vocos_mel_24khz(): {VOCOS_FRAMES} frames, istft vs "
+        f"plain overlap-add, card vs CPU")
+    t0 = time.perf_counter()
+    phase_vocos(torch)
+    log(f"  phase 25b: {time.perf_counter() - t0:.2f} s")
+    log(f"[25c/25] VaeVocoder.decode of {VAE_VOCODER_LATENTS} flat latents")
+    t0 = time.perf_counter()
+    phase_vae_vocoder(torch)
+    log(f"  phase 25c: {time.perf_counter() - t0:.2f} s")
+    log("[25d/25] DurationPredictor at v2a_default()'s transformer: small f32 "
+        "card vs CPU; forward (K1), AdamW steps (K3-K5), profile")
+    t0 = time.perf_counter()
+    phase_duration(torch)
+    log(f"  phase 25d: {time.perf_counter() - t0:.2f} s")
 
 
 def main() -> int:
@@ -4141,7 +4687,7 @@ def main() -> int:
         "error", message="flex_attention called without torch.compile")
     t_start = time.perf_counter()
 
-    log(f"[1/24] build — card: {card_line()}")
+    log(f"[1/25] build — card: {card_line()}")
     log(f"  torch {torch.__version__} (CUDA {torch.version.cuda}), "
         f"{torch.cuda.get_device_name(0)}; f32 matmul and cuDNN TF32 off")
     t0 = time.perf_counter()
@@ -4151,18 +4697,18 @@ def main() -> int:
         f"{', '.join(src.name for src in fa._SOURCES)} in "
         f"{time.perf_counter() - t0:.2f} s")
 
-    log("[2/24] kernels vs plain versions (bf16 in, f32 reference)")
+    log("[2/25] kernels vs plain versions (bf16 in, f32 reference)")
     kern = phase_kernels(torch)
     kern.update(phase_train_kernels(torch))
     log_bwd_more(torch)
-    log("[3/24] P1 probe: packed (b, n, h*d) vs (b, h, n, d) + transposes")
+    log("[3/25] P1 probe: packed (b, n, h*d) vs (b, h, n, d) + transposes")
     kern["P1"] = phase_probe(torch)
-    log("[4/24] small f32 config: card vs CPU")
+    log("[4/25] small f32 config: card vs CPU")
     phase_small(torch)
     import numpy as np
 
     frames = clip_frames()
-    log("[5/24] full-width V2A generate (frame stride 1, empty prompt; the "
+    log("[5/25] full-width V2A generate (frame stride 1, empty prompt; the "
         "sampler as a captured program)")
     pipe = full_pipeline(torch, "V2A", frame_stride=1)
 
@@ -4172,7 +4718,7 @@ def main() -> int:
 
     phase_generate(torch, pipe, "V2A generate", generate_v2a,
                    generate_expect(pipe, len(frames)))
-    log("[6/24] V2A generate profile")
+    log("[6/25] V2A generate profile")
 
     def profiled(gen, check=None):
         def run():
@@ -4186,17 +4732,17 @@ def main() -> int:
     gen_counts = phase_profile(torch, "generate", profiled(generate_v2a),
                                SM90_FWD, generate_expect(pipe, len(frames)),
                                k1_expect(pipe))
-    log("[7/24] full-width sampler: captured programs vs eager, same inputs")
+    log("[7/25] full-width sampler: captured programs vs eager, same inputs")
     phase_captured(torch, pipe, frames)
-    log(f"[8/24] generate_batch: {BATCH} x 10 s clips, frames handed in")
+    log(f"[8/25] generate_batch: {BATCH} x 10 s clips, frames handed in")
     phase_generate_batch(torch, pipe, frames)
-    log(f"[9/24] generate_long: a {LONG_S:.0f} s clip in one batched call")
+    log(f"[9/25] generate_long: a {LONG_S:.0f} s clip in one batched call")
     phase_generate_long(torch, pipe)
-    log(f"[10/24] HTTP server: {BATCH} concurrent POST /v2a")
+    log(f"[10/25] HTTP server: {BATCH} concurrent POST /v2a")
     phase_http(torch, pipe)
     del pipe
     torch.cuda.empty_cache()
-    log("[11/24] full-width V2P generate with a prompt (v2a_default(): frame "
+    log("[11/25] full-width V2P generate with a prompt (v2a_default(): frame "
         "stride 3, strip stride 2; FLAN-T5-large, Video2Roll)")
     pipe = full_pipeline(torch, "V2P")
     strips = np.random.default_rng(1).integers(
@@ -4216,20 +4762,20 @@ def main() -> int:
     roll = pipe.last_roll
     log(f"  roll {tuple(roll.shape)}: min {roll.min().item():.4f}, max "
         f"{roll.max().item():.4f}, mean {roll.mean().item():.4f}")
-    log("[12/24] V2P generate profile")
+    log("[12/25] V2P generate profile")
     phase_profile(torch, "V2P generate", profiled(generate_v2p, check_roll),
                   SM90_FWD, generate_expect(pipe, len(frames)),
                   k1_expect(pipe))
     del pipe, roll
     torch.cuda.empty_cache()
-    log("[13/24] small train: tiny_test() card vs CPU, then "
+    log("[13/25] small train: tiny_test() card vs CPU, then "
         f"{TINY_STEPS} steps")
     phase_small_train(torch)
-    log("[14/24] full-width V2A train step, then with remat full and dots")
+    log("[14/25] full-width V2A train step, then with remat full and dots")
     trainer, batch = full_trainer(torch)
     train_counts = phase_train(torch, trainer, batch)
     phase_train_remat(torch, trainer, batch, train_counts)
-    log("[15/24] train-step profile")
+    log("[15/25] train-step profile")
 
     def train_once():
         loss, _ = trainer.train_step(batch)
@@ -4241,10 +4787,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     root = tempfile.mkdtemp(prefix="v2ap_chip_smoke_")
     try:
-        log("[16/24] train from corpora: TrainingPipeline(v2a_default()), "
+        log("[16/25] train from corpora: TrainingPipeline(v2a_default()), "
             f"remat dots, EMA, batch {TRAIN_BATCH} x {TRAIN_LATENTS}")
         tp, batcher = phase_corpus_train(torch, root)
-        log("[17/24] resume, save the EMA CFM, load_weights, generate")
+        log("[17/25] resume, save the EMA CFM, load_weights, generate")
         held = {"pipe": tp, "batcher": batcher}
         del tp, batcher
         phase_resume_and_serve(torch, held, root, frames)
@@ -4253,7 +4799,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     from v2ap_torch import config as C
 
-    log(f"[18a/24] DPO at full width: crossatt3, TrainConfig(dpo=True), "
+    log(f"[18a/25] DPO at full width: crossatt3, TrainConfig(dpo=True), "
         f"dropout 0.1, no remat, batch {TRAIN_BATCH} x {TRAIN_LATENTS} with "
         f"rows 6 and 7 a pair")
     trainer, batch = full_trainer(torch, train_cfg=C.TrainConfig(dpo=True),
@@ -4261,7 +4807,7 @@ def main() -> int:
     phase_dpo(torch, "DPO train step", trainer, batch)
     del trainer, batch
     torch.cuda.empty_cache()
-    log(f"[18b/24] crossatt6 (FactorCL) with DPO under remat dots, batch "
+    log(f"[18b/25] crossatt6 (FactorCL) with DPO under remat dots, batch "
         f"{TRAIN_BATCH} x {TRAIN_LATENTS}")
     six = C.variant_preset("crossatt6")
     six = six.replace(model=dataclasses.replace(six.model, remat=True,
@@ -4275,11 +4821,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     root = tempfile.mkdtemp(prefix="v2ap_chip_smoke_")
     try:
-        log(f"[19/24] reflow: pairs from the full-width teacher, "
+        log(f"[19/25] reflow: pairs from the full-width teacher, "
             f"{REFLOW_STEPS} distill steps, save_model, load_weights, "
             f"generate(fewstep=2)")
         pipe = phase_reflow(torch, frames, root)
-        log("[20/24] the reference layout: a full-width synthetic crossatt3 "
+        log("[20/25] the reference layout: a full-width synthetic crossatt3 "
             ".pt, python -m v2ap_torch.convert, load_weights, generate; "
             "crossatt6")
         phase_reference(torch, pipe, frames, root)
@@ -4287,7 +4833,7 @@ def main() -> int:
         torch.cuda.empty_cache()
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    log("[21/24] evaluate: Cnn14 and CLAP card vs CPU; run_batch_eval, python "
+    log("[21/25] evaluate: Cnn14 and CLAP card vs CPU; run_batch_eval, python "
         "-m v2ap_torch.evaluate (FAD, IS, KL, CLAP) and python -m "
         "v2ap_torch.inference_v2p from primed caches")
     phase_evaluators(torch)
@@ -4299,26 +4845,30 @@ def main() -> int:
     finally:
         shutil.rmtree(root, ignore_errors=True)
     torch.cuda.empty_cache()
-    log("[22/24] the other video towers: small f32 card vs CPU; full-width "
+    log("[22/25] the other video towers: small f32 card vs CPU; full-width "
         "mixed (ViT-bigG + ViT-L/336 + ConvNeXt-XXLarge + DINOv2-giant, "
         "4608-d) and clip_vit2 generates")
     t0 = time.perf_counter()
     k2_clip_l = phase_towers(torch, frames)
     log(f"  phase 22: {time.perf_counter() - t0:.2f} s")
-    log("[23/24] Audeo: trainer steps card vs CPU; full-width Video2Roll and "
+    log("[23/25] Audeo: trainer steps card vs CPU; full-width Video2Roll and "
         "Roll2Midi training; roll inference, Roll2Midi, synthesis, MIDI, "
         "metrics")
     t0 = time.perf_counter()
     phase_audeo(torch)
     log(f"  phase 23: {time.perf_counter() - t0:.2f} s")
     torch.cuda.empty_cache()
-    log("[24a/24] weights in: seeded tensors in the published layouts of "
+    log("[24a/25] weights in: seeded tensors in the published layouts of "
         "ViT-bigG, FLAN-T5-large, EnCodec 24 kHz, DINOv2-giant, "
         "ConvNeXt-XXLarge, ViT-L/336 and Video2Roll; python -m "
         "v2ap_torch.convert; load_weights; generate")
     t0 = time.perf_counter()
     phase_24(torch, frames)
     log(f"  phase 24: {time.perf_counter() - t0:.2f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    phase_25(torch)
+    log(f"  phase 25: {time.perf_counter() - t0:.2f} s")
 
     main_case = {"K1": "K1 self-attn (2, 800, 16x64)",
                  "K2": "K2 ViT-bigG (64, 16, 257, 104)",

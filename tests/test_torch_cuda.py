@@ -1087,3 +1087,124 @@ def test_dinov2_bf16_attention_products_on_the_tensor_cores(cuda):
     x = torch.randn(3, 17, cfg.hidden_size, generator=gen).bfloat16()
     with torch.no_grad():
         assert rel(card(x.to(cuda)).cpu(), cpu(x)) < 2.0 ** -8
+
+
+# ------------------------------------------------- token path, AudioLDM
+
+def test_duration_predictor_picks_its_kernels(cuda):
+    """The duration predictor in bf16 on the card: a forward launches K1
+    once per attention (per layer the audio self-attention, the audio
+    cross-attention run as self-attention over its own stream when
+    dim_context equals dim, the text and the frames streams') and nothing
+    else; ``loss`` with a backward launches K3, K4 and K5 as often and no
+    K1. In float32 (the CUDA-core kernels, TF32 off) the card's prediction
+    is within 1e-4 relative of the CPU's from the same weights."""
+    import dataclasses
+
+    from v2ap_torch import config as C
+    from v2ap_torch.models.duration import DurationPredictor
+
+    cfg = dataclasses.replace(C.tiny_test().model, dim_context=64,
+                              dtype="bfloat16")
+    torch.manual_seed(0)
+    card = DurationPredictor(cfg, device=cuda)
+    cpu = DurationPredictor(dataclasses.replace(cfg, dtype="float32"),
+                            device="cpu")
+    cpu.load_state_dict(card.state_dict())
+    rng = np.random.default_rng(6)
+    latents = torch.from_numpy(rng.normal(size=(3, 40, cfg.num_channels))
+                               .astype(np.float32))
+    tokens = torch.tensor([[104, 105, -1], [97, 98, 99], [1, -1, -1]])
+    lens = torch.tensor([40, 33, 12])
+    per_call = 4 * cfg.depth
+    fa.reset_launch_counts()
+    with torch.no_grad():
+        got = card(latents.to(cuda), tokens.to(cuda), lens.to(cuda))
+        torch.cuda.synchronize()
+    assert fa.launch_counts == {**dict.fromkeys(fa.launch_counts, 0),
+                                "flash_attention_packed": per_call}
+    assert torch.isfinite(got).all()
+    card32 = DurationPredictor(dataclasses.replace(cfg, dtype="float32"),
+                               device=cuda)
+    card32.load_state_dict(card.state_dict())
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.no_grad():
+            got32 = card32(latents.to(cuda), tokens.to(cuda),
+                           lens.to(cuda)).cpu()
+            want = cpu(latents, tokens, lens)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    assert ((got32 - want).abs() / want.abs()).max().item() < 1e-4
+    fa.reset_launch_counts()
+    loss = card.loss(latents.to(cuda), tokens.to(cuda), lens.to(cuda),
+                     frac=torch.tensor([0.9, 0.5, 0.99]))
+    loss.backward()
+    torch.cuda.synchronize()
+    assert torch.isfinite(loss)
+    assert fa.launch_counts == {**dict.fromkeys(fa.launch_counts, 0),
+                                "flash_attention_lse": per_call,
+                                "flash_attention_bwd_dq": per_call,
+                                "flash_attention_bwd_dkv": per_call}
+
+
+def test_audioldm_path_launches_no_flash_kernel(cuda):
+    """The AudioLDM backend on the card (tiny configs, float32, TF32 off)
+    runs its attention as plain products: no flash wrapper counts; its
+    waveform is within 1e-4 relative RMS of the CPU's from the same weights
+    and x_t."""
+    from v2ap_torch.models import audioldm_vae, clap, hifigan
+    from v2ap_torch.models import latent_diffusion as ldm
+
+    a_cfg, t_cfg = clap.clap_tiny_test()
+    cfg = ldm.LDMConfig(in_channels=2, out_channels=2, model_channels=16,
+                        num_res_blocks=1, attention_resolutions=(2,),
+                        channel_mult=(1, 2), num_head_channels=8,
+                        film_dim=a_cfg.projection_dim, timesteps=20,
+                        latent_t=8, latent_f=4)
+
+    def backend(device):
+        torch.manual_seed(0)
+        return ldm.AudioLDMBackend(
+            cfg, clap=clap.ClapModel(a_cfg, t_cfg, device=device),
+            vae=audioldm_vae.AudioLDMVAE(audioldm_vae.AudioLDMVAEConfig(
+                mel_bins=8, base_channels=8, channel_mults=(1, 2),
+                num_res_blocks=1, latent_channels=2, groups=4),
+                device=device),
+            vocoder=hifigan.HiFiGANGenerator(hifigan.HiFiGANConfig(
+                in_channels=8, upsample_initial_channel=32,
+                upsample_rates=(4, 2), upsample_kernel_sizes=(8, 4),
+                resblock_kernel_sizes=(3,), resblock_dilations=((1, 3),)),
+                device=device), device=device)
+
+    cpu = backend("cpu")
+    with torch.no_grad():
+        for p in cpu.parameters():
+            if not p.abs().sum():
+                p.normal_(std=0.05)
+    card = backend(cuda)
+    card.load_state_dict(cpu.state_dict())
+    ids = torch.tensor([[0, 5, 9, 2]])
+    mask = torch.ones_like(ids)
+    u_ids = torch.tensor([[0, 2, 1, 1]])
+    u_mask = torch.tensor([[1, 1, 0, 0]])
+    x_t = torch.randn(cpu.latent_shape(1),
+                      generator=torch.Generator().manual_seed(1))
+    tf32 = torch.backends.cuda.matmul.allow_tf32, \
+        torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        fa.reset_launch_counts()
+        got = card.text_to_audio(ids.to(cuda), mask.to(cuda), u_ids.to(cuda),
+                                 u_mask.to(cuda), steps=4, x_t=x_t.to(cuda))
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, \
+            torch.backends.cudnn.allow_tf32 = tf32
+    assert fa.launch_counts == dict.fromkeys(fa.launch_counts, 0)
+    want = cpu.text_to_audio(ids, mask, u_ids, u_mask, steps=4, x_t=x_t)
+    rel = ((got.cpu() - want).pow(2).mean().sqrt()
+           / want.pow(2).mean().sqrt()).item()
+    assert rel < 1e-4

@@ -239,8 +239,9 @@ def test_full_width_golden_keys_load_strictly_on_meta(variant):
 def test_convert_cli_then_load_weights(tmp_path, capsys):
     """``python -m v2ap_torch.convert --tiny`` writes OUT/cfm from a .pt in
     the reference's layout; ``V2APipeline.load_weights(OUT)`` serves the
-    loader's weights; ``--audit`` reports; ``--audioldm`` raises (the
-    encoder flags are ported: tests/test_torch_weights_in.py)."""
+    loader's weights; ``--audit`` reports; ``--audioldm`` of a missing
+    file raises (the flag converts: tests/test_torch_audioldm.py; the
+    encoder flags: tests/test_torch_weights_in.py)."""
     from v2ap_torch.models.clip_vit import clip_tiny_test
     from v2ap_torch.models.t5 import t5_tiny_test
     from v2ap_torch.pipelines.generate import V2APipeline
@@ -266,5 +267,6 @@ def test_convert_cli_then_load_weights(tmp_path, capsys):
     got = pipe.cfm.state_dict()
     for name, v in want.state_dict().items():
         assert torch.equal(got[name], v), name
-    with pytest.raises(NotImplementedError, match="--audioldm"):
-        t_convert_cli.main(["--audioldm", "x", "--out", str(out)])
+    with pytest.raises(FileNotFoundError):
+        t_convert_cli.main(["--audioldm", str(tmp_path / "missing.ckpt"),
+                            "--out", str(out)])

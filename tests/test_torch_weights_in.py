@@ -667,8 +667,9 @@ def test_convert_cli_every_flag_then_load_weights(tmp_path):
     """``python -m v2ap_torch.convert --tiny`` with every encoder flag:
     OUT/<name> holds what the in-process reader gives, and the tiny
     pipeline's ``load_weights`` (and ``Predictor.setup(ckpt=)``) loads the
-    encoders; ``--pann`` reads a ``Cnn14*.pth``; ``--audioldm`` raises,
-    naming the unported modules."""
+    encoders; ``--pann`` reads a ``Cnn14*.pth``; ``--audioldm`` of a
+    missing file raises (the flag converts:
+    tests/test_torch_audioldm.py)."""
     from transformers import (CLIPVisionConfig, CLIPVisionModelWithProjection,
                               EncodecConfig, EncodecModel, T5EncoderModel)
 
@@ -734,8 +735,9 @@ def test_convert_cli_every_flag_then_load_weights(tmp_path):
             want, _ = t_convert.build_encoder(flag, tiny=True)
             reader(hf[flag].state_dict(), want)
             _same_params(model, want)
-    with pytest.raises(NotImplementedError, match="latent_diffusion"):
-        t_convert.main(["--audioldm", "x.ckpt", "--out", str(out)])
+    with pytest.raises(FileNotFoundError):
+        t_convert.main(["--audioldm", str(tmp_path / "x.ckpt"), "--out",
+                        str(out)])
 
 
 @pytest.mark.parametrize("package", ["transformers", "safetensors"])

@@ -15,6 +15,9 @@
     # the report of consumed and unconsumed keys, nothing written
     python -m v2ap_torch.convert --cfm-ckpt X.pt --audit
 
+    # the AudioLDM UNet of an audioldm-s-full checkpoint -> DIR/audioldm_unet
+    python -m v2ap_torch.convert --audioldm audioldm-s-full.ckpt --out DIR
+
 Counterpart of ``scripts/convert_checkpoints.py``. Each model is built
 structure-only (``create_model_zeros``) on the host at its published width
 (the miniatures with ``--tiny``), filled, and written with ``save_model``
@@ -25,12 +28,14 @@ under the name that ``V2APipeline.load_weights`` reads in both packages:
 trunk; the open_clip head goes through
 ``utils.torch_convert.load_convnext_state_dict(head_state=)``), ``--pann``
 -> ``pann`` (a ``Cnn14*.pth``: its ``model`` entry), ``--cfm-ckpt`` ->
-``cfm``. A snapshot directory is read by ``utils.torch_convert.read_snapshot``
-(safetensors, sharded or not, or ``pytorch_model.bin``); no
-``transformers`` is needed. The CFM's tensors that the checkpoint does not
-hold (a two-stream checkpoint's frames stream, Video2Roll where the file
-has none) stay zero. ``--audioldm`` raises: the AudioLDM modules it fills
-are not ported.
+``cfm``, ``--audioldm`` -> ``audioldm_unet`` (the ``state_dict`` entry's
+``model.diffusion_model.*`` keys into the UNet of a
+``LatentDiffusion(ldm_s_full())``, ``ldm_tiny_test()`` with ``--tiny``, the
+whole ``LatentDiffusion`` written). A snapshot directory is read by
+``utils.torch_convert.read_snapshot`` (safetensors, sharded or not, or
+``pytorch_model.bin``); no ``transformers`` is needed. The CFM's tensors
+that the checkpoint does not hold (a two-stream checkpoint's frames stream,
+Video2Roll where the file has none) stay zero.
 """
 
 from __future__ import annotations
@@ -132,6 +137,28 @@ def convert_encoder(flag: str, src: str, out: str, tiny: bool = False) -> list:
     return left
 
 
+def convert_audioldm(src: str, out: str, tiny: bool = False) -> list:
+    """Read an AudioLDM checkpoint (its ``state_dict`` entry, or the file's
+    mapping itself), fill the UNet of a ``LatentDiffusion`` and write it to
+    ``out/audioldm_unet``; returns the UNet keys left over."""
+    import torch
+
+    from v2ap_torch.models.latent_diffusion import (
+        LatentDiffusion, ldm_s_full, ldm_tiny_test)
+    from v2ap_torch.utils.checkpoint import save_model
+    from v2ap_torch.utils.jitting import create_model_zeros
+    from v2ap_torch.utils.torch_convert import load_ldm_unet_from_state_dict
+
+    cfg = ldm_tiny_test() if tiny else ldm_s_full()
+    ldm = create_model_zeros(lambda d: LatentDiffusion(cfg, device=d))
+    ckpt = torch.load(src, map_location="cpu", weights_only=True, mmap=True)
+    left = load_ldm_unet_from_state_dict(ckpt.get("state_dict", ckpt),
+                                         ldm.unet,
+                                         prefix="model.diffusion_model.")
+    save_model(os.path.join(out, "audioldm_unet"), ldm)
+    return left
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="python -m v2ap_torch.convert")
     ap.add_argument("--cfm-ckpt", default=None,
@@ -142,28 +169,25 @@ def main(argv=None) -> int:
                     help="51 (shipped, crossatt3) or 88 (crossatt3_2)")
     ap.add_argument("--tiny", action="store_true",
                     help="the miniature models (tiny_tower_test(), the "
-                         "encoders' *_tiny_test())")
+                         "encoders' *_tiny_test(), ldm_tiny_test())")
     ap.add_argument("--audit", action="store_true",
                     help="print the consumed / unconsumed key report for "
                          "--cfm-ckpt and exit without writing")
     for flag, (_, what) in ENCODER_FLAGS.items():
         ap.add_argument(f"--{flag}", default=None, help=what)
     ap.add_argument("--audioldm", default=None,
-                    help="not supported: the AudioLDM UNet and VAE are not "
-                         "ported")
+                    help="AudioLDM checkpoint (audioldm-s-full): its UNet "
+                         "-> OUT/audioldm_unet")
     args = ap.parse_args(argv)
-    if args.audioldm is not None:
-        raise NotImplementedError(
-            "--audioldm: the AudioLDM modules it fills (models/"
-            "latent_diffusion.py, models/audioldm_vae.py) are not ported")
     encoders = [f for f in ENCODER_FLAGS if getattr(args, f) is not None]
     if args.audit:
         if not args.cfm_ckpt:
             ap.error("--audit requires --cfm-ckpt")
     elif not args.out:
         ap.error("--out is required unless --audit")
-    if not args.cfm_ckpt and not encoders:
-        ap.error("nothing to convert: give --cfm-ckpt or an encoder flag")
+    if not args.cfm_ckpt and not encoders and not args.audioldm:
+        ap.error("nothing to convert: give --cfm-ckpt, --audioldm or an "
+                 "encoder flag")
 
     import torch
 
@@ -185,6 +209,14 @@ def main(argv=None) -> int:
         left = convert_encoder(flag, getattr(args, flag), args.out, args.tiny)
         name = os.path.join(args.out, ENCODER_FLAGS[flag][0])
         print(f"converted {flag} -> {name} in "
+              f"{time.perf_counter() - t0:.3f} s; {len(left)} keys not used"
+              + (f", e.g. {left[:3]}" if left else ""))
+
+    if args.audioldm:
+        t0 = time.perf_counter()
+        left = convert_audioldm(args.audioldm, args.out, args.tiny)
+        print(f"converted audioldm ldm unet -> "
+              f"{os.path.join(args.out, 'audioldm_unet')} in "
               f"{time.perf_counter() - t0:.3f} s; {len(left)} keys not used"
               + (f", e.g. {left[:3]}" if left else ""))
 

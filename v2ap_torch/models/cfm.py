@@ -27,6 +27,9 @@ backward: at a training batch of 8 x 251 windows of 5 x 100 x 900 its
 saved activations would otherwise take ~120 GiB. ``sample_multipass`` takes its
 restart noise as a tensor (or draws it from a generator before the first
 step), so a whole multi-pass trajectory can be captured as one CUDA graph.
+``text_num_embeds`` builds the token path's ``embed_text`` (a
+``CharacterEmbed``, or with ``interpolated_text`` an
+``InterpolatedCharacterEmbed``), which ``embed_tokens`` runs.
 """
 
 from __future__ import annotations
@@ -112,7 +115,9 @@ def draw_loss_randoms(b: int, n: int, c: int,
 class CFM(nn.Module):
     def __init__(self, cfg: ModelConfig,
                  cond_cfg: ConditioningConfig | None = None, *, device=None,
-                 with_video2roll: bool = False, dropout_seed: int = 0):
+                 with_video2roll: bool = False, dropout_seed: int = 0,
+                 text_num_embeds: int | None = None,
+                 interpolated_text: bool = False):
         super().__init__()
         device = resolve_device(device)
         self.cfg = cfg
@@ -137,6 +142,16 @@ class CFM(nn.Module):
         self.video2roll = (Video2RollNet(num_classes=cfg.notes, dtype=dtype,
                                          device=device)
                            if with_video2roll else None)
+        # the token path: char / phoneme ids -> text stream (the shipped
+        # configs feed CLIP features there instead)
+        self.embed_text = None
+        if text_num_embeds is not None:
+            from v2ap_torch.models.duration import (
+                CharacterEmbed, InterpolatedCharacterEmbed)
+            klass = (InterpolatedCharacterEmbed if interpolated_text
+                     else CharacterEmbed)
+            self.embed_text = klass(cfg.dim_text, text_num_embeds,
+                                    device=device)
         # every dropout draws from one generator on the model's device; a
         # structure-only build on the meta device (create_model_zeros) has
         # none, and its dropouts draw from the device's default generator
@@ -147,6 +162,14 @@ class CFM(nn.Module):
         for m in self.modules():
             if isinstance(m, Dropout):
                 m.generator = self.dropout_generator
+
+    def embed_tokens(self, tokens: torch.Tensor, length: int) -> torch.Tensor:
+        """Token ids (b, nt), -1 padded -> text-stream features (b, length,
+        dim_text), float32: the token path's conditioning."""
+        if self.embed_text is None:
+            raise ValueError("construct CFM with text_num_embeds for token "
+                             "conditioning")
+        return self.embed_text(tokens, length)
 
     def pred_head(
         self,

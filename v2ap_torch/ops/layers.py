@@ -5,9 +5,10 @@ dtype that inputs and parameters are cast to before the op (so
 ``nnx.Linear(dtype=bf16, param_dtype=f32)``). Initialisers follow nnx's
 defaults; weights loaded from the JAX package replace them
 (``v2ap_torch.utils.convert``). ``Dropout`` is ``nnx.Dropout``;
-``Conv2d`` and ``BatchNorm2d`` are ``nnx.Conv`` and ``nnx.BatchNorm`` in
-PyTorch's NCHW layout (``BatchNorm2d`` in
-training updates its running statistics as flax does)."""
+``Conv2d``, ``Conv1d``, ``GroupNorm`` and ``BatchNorm2d`` are ``nnx.Conv``,
+``nnx.GroupNorm`` and ``nnx.BatchNorm`` in PyTorch's NCHW / NCW layouts
+(``BatchNorm2d`` in training updates its running statistics as flax
+does)."""
 
 from __future__ import annotations
 
@@ -111,6 +112,50 @@ class Conv2d(nn.Module):
         bias = self.bias.to(dt) if self.bias is not None else None
         return F.conv2d(x.to(dt), self.weight.to(dt), bias, stride=self.stride,
                         padding=self.padding, groups=self.groups)
+
+
+class Conv1d(nn.Module):
+    """nnx.Conv over 1D inputs in PyTorch's NCW layout: input and weight
+    cast to ``dtype``, symmetric padding, dilation, ``groups`` as nnx's
+    ``feature_group_count``; weight stored (out, in / groups, k) in
+    float32."""
+
+    def __init__(self, in_features: int, out_features: int, kernel: int, *,
+                 stride: int = 1, padding: int = 0, dilation: int = 1,
+                 groups: int = 1, bias: bool = True,
+                 dtype: torch.dtype = torch.float32, device=None):
+        super().__init__()
+        self.dtype = dtype
+        self.stride, self.padding = stride, padding
+        self.dilation, self.groups = dilation, groups
+        self.weight = nn.Parameter(torch.empty(
+            out_features, in_features // groups, kernel, device=device))
+        lecun_normal_(self.weight, in_features // groups * kernel)
+        self.bias = (nn.Parameter(torch.zeros(out_features, device=device))
+                     if bias else None)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype
+        bias = self.bias.to(dt) if self.bias is not None else None
+        return F.conv1d(x.to(dt), self.weight.to(dt), bias,
+                        stride=self.stride, padding=self.padding,
+                        dilation=self.dilation, groups=self.groups)
+
+
+class GroupNorm(nn.Module):
+    """nnx.GroupNorm over the channels (dim 1) of an NC... input, computed
+    and returned in float32."""
+
+    def __init__(self, num_features: int, num_groups: int, eps: float = 1e-6,
+                 device=None):
+        super().__init__()
+        self.num_groups, self.eps = num_groups, eps
+        self.weight = nn.Parameter(torch.ones(num_features, device=device))
+        self.bias = nn.Parameter(torch.zeros(num_features, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.group_norm(x.float(), self.num_groups, self.weight.float(),
+                            self.bias.float(), self.eps)
 
 
 class BatchNorm2d(nn.Module):

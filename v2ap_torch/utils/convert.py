@@ -8,15 +8,24 @@ decoder and the quantizer's codebooks), ``CLIPVisionModel`` (ViT-bigG,
 ViT-L/336), ``Dinov2Model``, ``ConvNextCLIP``, ``T5Encoder``,
 ``training.contrastive.FactorCL``, the evaluators' ``Cnn14`` or
 ``ClapModel``, and Audeo's ``Roll2MidiGenerator`` /
-``Roll2MidiDiscriminator`` in place. The port mirrors the JAX module tree, so a path
-maps to the module of the same path; only the leaf layout changes:
+``Roll2MidiDiscriminator``, the token path's ``DurationPredictor``, and
+AudioLDM's ``LatentDiffusion`` / ``UNet2D``, ``AudioLDMVAE``,
+``HiFiGANGenerator`` and ``Vocos`` in place. The port mirrors the JAX
+module tree, so a path maps to the module of the same path; only the leaf
+layout changes:
 
   * ``Linear`` kernel (in, out)                 -> weight (out, in)
   * ``nnx.Conv`` kernel (kh, kw, in, out)       -> weight (out, in, kh, kw)
     (``PatchEmbed``, ``Conv2d``; depthwise: in = 1)
-  * ``CausalConv1d`` / depthwise kernel (k, in, out) -> weight (out, in, k)
-  * ``CausalConvTranspose1d`` kernel (k, cout, cin)  -> weight (cin, cout, k)
-  * ``LayerNorm`` scale -> weight, ``Embed`` embedding -> weight
+  * ``CausalConv1d`` / depthwise / ``Conv1d`` kernel (k, in, out)
+    -> weight (out, in, k)
+  * ``CausalConvTranspose1d`` / HiFi-GAN ``ConvTranspose1d`` kernel
+    (k, cout, cin) -> weight (cin, cout, k)
+  * ``LayerNorm`` / ``GroupNorm`` scale -> weight, ``Embed`` embedding
+    -> weight
+  * ``nnx.Linear`` standing for a 1x1 convolution (the LDM UNet's skips and
+    ``proj_in`` / ``proj_out``) -> the port's ``Linear`` subclass
+    ``Conv1x1``, weight (out, in)
   * ``nnx.BatchNorm`` scale / bias / mean / var
     -> weight / bias / running_mean / running_var
   * ``ResidualLSTM`` w_ih.i / w_hh.i / b_ih.i / b_hh.i -> lstm.*_l{i}
@@ -36,7 +45,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from v2ap_torch.ops.layers import BatchNorm2d, Conv2d, Embed, LayerNorm, Linear
+from v2ap_torch.ops.layers import (
+    BatchNorm2d, Conv1d, Conv2d, Embed, GroupNorm, LayerNorm, Linear)
 
 _BN_LEAVES = {"scale": "weight", "bias": "bias", "mean": "running_mean",
               "var": "running_var"}
@@ -49,6 +59,7 @@ def _target(module: nn.Module, key: str):
     from v2ap_torch.models.clip_vit import PatchEmbed
     from v2ap_torch.models.encodec import (
         CausalConv1d, CausalConvTranspose1d, ResidualLSTM)
+    from v2ap_torch.models.hifigan import ConvTranspose1d
     from v2ap_torch.ops.conv import DepthwiseConv1d
 
     parts = key.split(".")
@@ -67,9 +78,10 @@ def _target(module: nn.Module, key: str):
     if isinstance(mod, BatchNorm2d) and leaf in _BN_LEAVES:
         return prefix + _BN_LEAVES[leaf], lambda a: a
     if isinstance(mod, (CausalConv1d, CausalConvTranspose1d,
-                        DepthwiseConv1d)) and leaf == "kernel":
+                        DepthwiseConv1d, Conv1d, ConvTranspose1d)) \
+            and leaf == "kernel":
         return prefix + "weight", lambda a: a.transpose(2, 1, 0)
-    if isinstance(mod, LayerNorm) and leaf == "scale":
+    if isinstance(mod, (LayerNorm, GroupNorm)) and leaf == "scale":
         return prefix + "weight", lambda a: a
     if isinstance(mod, Embed) and leaf == "embedding":
         return prefix + "weight", lambda a: a

@@ -21,7 +21,12 @@ that a snapshot holds (``read_snapshot``), and imports neither
   * ``load_convnext_state_dict``: ``ConvNextModel`` (optionally under
     ``convnext.``) and open_clip's ``mlp.fc*`` head -> ``ConvNextCLIP``;
   * ``load_video2roll_state_dict``: Audeo's ``Video2RollNet.resnet18`` ->
-    ``Video2RollNet``.
+    ``Video2RollNet``;
+  * ``load_vocos_from_state_dict``: charactr/vocos-mel-24khz -> ``Vocos``;
+  * ``load_ldm_unet_from_state_dict``: the AudioLDM UNet's subtree of a
+    checkpoint (``model.diffusion_model.*`` of audioldm-s-full) ->
+    ``UNet2D``, its 1x1 convolutions into the port's ``Conv1x1`` /
+    ``Linear`` weights (out, in).
 
 The port's ``Linear`` and convolutions keep PyTorch's layouts, so tensors
 copy as they are, in the destination's dtype. Every reader raises on a
@@ -423,3 +428,95 @@ def load_video2roll_state_dict(sd: Mapping, model: nn.Module) -> list:
     conv("conv2", "conv2")
     f.pair("fc", "fc")
     return f.done()
+
+
+# --------------------------------------------------------------------- vocos
+
+def load_vocos_from_state_dict(sd: Mapping, model: nn.Module) -> list:
+    """A charactr/vocos-mel-24khz state dict into ``Vocos`` (the keys the
+    JAX package's reader takes; the feature extractor's mel filters and the
+    ISTFT head's window are left over)."""
+    f = _Filler(sd, model)
+    f.pair("embed", "backbone.embed")
+    f.pair("norm", "backbone.norm")
+    for i in range(len(model.blocks)):
+        d, p = f"blocks.{i}", f"backbone.convnext.{i}"
+        for name in ("dwconv", "norm", "pwconv1", "pwconv2"):
+            f.pair(f"{d}.{name}", f"{p}.{name}")
+        f.copy(f"{d}.gamma", f"{p}.gamma")
+    f.pair("final_norm", "backbone.final_layer_norm")
+    f.pair("head", "head.out")
+    return f.done()
+
+
+# ------------------------------------------------------------------ ldm unet
+
+def load_ldm_unet_from_state_dict(state_dict: Mapping, unet: nn.Module,
+                                  prefix: str = "") -> list:
+    """An AudioLDM UNet state dict in the reference's key layout, the keys
+    under ``prefix`` (``"model.diffusion_model."`` for a whole audioldm-s-full
+    checkpoint), into ``UNet2D``. q / k / v projections are bias-free: a
+    bias given for them is left over, as the JAX reader ignores it. Returns
+    the keys under ``prefix`` left over (with the prefix); keys outside it
+    are not looked at."""
+    from v2ap_torch.models import latent_diffusion as ldm
+
+    sd = {k[len(prefix):]: v for k, v in state_dict.items()
+          if k.startswith(prefix)}
+    f = _Filler(sd, unet)
+
+    def lin(dst: str, key: str) -> None:
+        f.copy(f"{dst}.weight", f"{key}.weight")
+        if f"{dst}.bias" in f.tensors:
+            f.copy(f"{dst}.bias", f"{key}.bias")
+
+    def conv1x1(dst: str, key: str) -> None:
+        f.put(f"{dst}.weight", f.take(f"{key}.weight")[:, :, 0, 0],
+              f"{key}.weight")
+        f.copy(f"{dst}.bias", f"{key}.bias")
+
+    def layer(mod: nn.Module, dst: str, key: str) -> None:
+        if isinstance(mod, ldm.ResBlock):
+            f.pair(f"{dst}.norm1", f"{key}.in_layers.0")
+            f.pair(f"{dst}.conv1", f"{key}.in_layers.2")
+            lin(f"{dst}.emb", f"{key}.emb_layers.1")
+            f.pair(f"{dst}.norm2", f"{key}.out_layers.0")
+            f.pair(f"{dst}.conv2", f"{key}.out_layers.3")
+            if mod.skip is not None:
+                conv1x1(f"{dst}.skip", f"{key}.skip_connection")
+        elif isinstance(mod, ldm.SpatialTransformer):
+            f.pair(f"{dst}.norm", f"{key}.norm")
+            conv1x1(f"{dst}.proj_in", f"{key}.proj_in")
+            conv1x1(f"{dst}.proj_out", f"{key}.proj_out")
+            for t in range(len(mod.blocks)):
+                d, k = f"{dst}.blocks.{t}", f"{key}.transformer_blocks.{t}"
+                for nm in ("norm1", "norm2", "norm3"):
+                    f.pair(f"{d}.{nm}", f"{k}.{nm}")
+                for at in ("attn1", "attn2"):
+                    for proj in ("to_q", "to_k", "to_v"):
+                        lin(f"{d}.{at}.{proj}", f"{k}.{at}.{proj}")
+                    lin(f"{d}.{at}.to_out", f"{k}.{at}.to_out.0")
+                lin(f"{d}.ff.proj", f"{k}.ff.net.0.proj")
+                lin(f"{d}.ff.out", f"{k}.ff.net.2")
+        elif isinstance(mod, ldm.Downsample):
+            f.pair(f"{dst}.conv", f"{key}.op")
+        elif isinstance(mod, ldm.Upsample):
+            f.pair(f"{dst}.conv", f"{key}.conv")
+
+    def block(blk: nn.Module, dst: str, key: str) -> None:
+        for j, mod in enumerate(blk.layers):
+            layer(mod, f"{dst}.layers.{j}", f"{key}.{j}")
+
+    lin("time_dense1", "time_embed.0")
+    lin("time_dense2", "time_embed.2")
+    if unet.cfg.film_dim:
+        lin("film_emb", "film_emb")
+    f.pair("conv_in", "input_blocks.0.0")
+    for i, blk in enumerate(unet.input_blocks):
+        block(blk, f"input_blocks.{i}", f"input_blocks.{i + 1}")
+    block(unet.middle_block, "middle_block", "middle_block")
+    for i, blk in enumerate(unet.output_blocks):
+        block(blk, f"output_blocks.{i}", f"output_blocks.{i}")
+    f.pair("norm_out", "out.0")
+    f.pair("conv_out", "out.2")
+    return [prefix + k for k in f.done()]
