@@ -331,20 +331,62 @@ Phases, each of which fails the run (exit 1, no result line) if it fails:
                profiler, failing unless ``flash_fwd_sm90_kernel<64>`` and
                the ``flash_bwd_*_sm90`` kernels ran and no CUDA-core one.
 
+  26. parallelism, the wire modes, determinism — (a) on phase 5's
+               pipeline: ``assert_deterministic`` on the captured 25-step
+               sampler; ViT-bigG's features with ``V2AP_SHIP_YUV420`` (the
+               tower's geometry and the 4:2:0 pack on the host, the unpack
+               on the card) against RGB, the drift and walls printed;
+               ``shard_serving(make_mesh(MeshConfig()))`` over a
+               process group of this process alone under NCCL, then
+               ``generate``: bit-equal to the plain generate, the sampler
+               captured anew (one capture), the launches of phase 5. On
+               phase 11's pipeline: the roll of 251 strips shipped
+               strip-half against exact strips (drift, walls). After
+               phase 15: a fresh v2a_default() CFM from seed 0 and phase
+               14's batch: its eager 25-step sample and one train step
+               (the references of (b), written under the temporary
+               directory);
+               ``assert_deterministic`` on the step (the loss and each
+               updated tensor's float64 sum, runs 2); the step through
+               ``Trainer(mesh=)`` on a world-1 NCCL mesh bit-equal to the
+               plain one (loss, every clipped gradient, every updated
+               tensor). (b) In the background of phase 24a (whose walls
+               are therefore not taken): two ranks
+               (``chip_smoke.py --tp-rank r``) sharing the card through
+               gloo over CUDA tensors at TP 2, each building the same
+               seeded models: ViT-bigG over 64 frames (K2 48 at the
+               TP-local (64, 8, 257, 104); features within TP_FEAT_REL),
+               the 25-step sample (K1 1152; latents within TP_LAT_REL),
+               one train step (K3, K4, K5 48 each; each clipped gradient
+               within TP_GRAD_REL; the worst change of a tensor in the
+               step and the worst updated weight printed),
+               walls and each rank's peak memory; and
+               beside them ``python -m v2ap_torch.parallel.dryrun
+               --world-size 2 --model-parallel 2 --device cuda --backend
+               gloo`` (f32, every phase, its own checks). Phase 2 also
+               holds K2 at the TP-local shape against its plain version.
+
+``python3 chip_smoke.py --tp-limits`` runs only phase 26's references and
+(b), once as it is and once with each planted fault of ``plant_tp_fault``,
+and prints the readings the limits of (b) are set between (no result
+line).
+
 Each phase header line carries the seconds since the start of the run.
 
 The line before the last is a JSON object with one entry per kernel (K1-K5
 and P1; the launches of K1/K2 from the profiled V2A generate, K1's counted
 in its trace (the replayed sampler program), K2's by its wrapper, of K3-K5
-from one train step, of P1 from one new-path probe call) and a second K2
+from one train step, of P1 from one new-path probe call), a second K2
 entry for its case at CLIP ViT-L/336's shape (the launches of phase 22's
-clip_vit2 generate), each naming its ``case``; the
+clip_vit2 generate) and a third at TP 2's local heads (the launches of a
+rank's sharded ViT-bigG chunk, phase 26b), each naming its ``case``; the
 last is {"ok": true, "device": {...}}. Without CUDA, or without the repo
 around it, the script exits non-zero and prints no result.
 """
 
 from __future__ import annotations
 
+import atexit
 import dataclasses
 import json
 import math
@@ -380,7 +422,7 @@ SMALL_REL_RMS = 1e-3               # f32 card vs CPU, other summation orders
 SMALL_PARAM_REL_RMS = 1e-5
 CLIP_S = 10.0
 FPS = 25
-GENERATE_RUNS = 5                  # timed full-width generates (median)
+GENERATE_RUNS = 4                  # timed full-width generates (median)
 TRAIN_BATCH = 8                    # TrainConfig.batch_size
 TRAIN_LATENTS = 750                # DataConfig.target_length, 10 s at 75 Hz
 TRAIN_CONTEXT = 16                 # prompt tokens, as scripts/bench_train.py
@@ -390,7 +432,7 @@ CORPUS_SAVE_STEP = 3               # checkpoints at steps 3 and 6
 CORPUS_WAVS = 4                    # 10 s wavs in each audio manifest
 TINY_STEPS = 20                    # tiny loss-falls check (scripts/train_smoke.py)
 BATCH = 4                          # clips of a generate_batch, HTTP requests
-BATCH_RUNS = 3                     # timed generate_batch calls (median)
+BATCH_RUNS = 2                     # timed generate_batch calls (median)
 # a batch row vs its clip's single generate: read 7.470e-07 to 7.482e-07
 # (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md), about 130x below this
 BATCH_REL_RMS = 1e-4
@@ -400,6 +442,7 @@ MIXED_WAVES = (1, 3, 2, 4)         # concurrent POSTs a wave, mixed traffic
 MIXED_DURATIONS = (5.0, 20.0, 5.0)  # seconds, through the server's batcher
 PROBE_SHAPE = (24, 768, 16, 64)    # the P1 probe's defaults: b, n, h, d
 K2_CLIP_L = "K2 CLIP ViT-L/336 (64, 16, 577, 64)"
+K2_TP = "K2 ViT-bigG TP-local (64, 8, 257, 104)"   # 16 heads over 2 ranks
 PROBE_REPS = 20
 # ten words: with the end token, PROMPT_TOKENS of the tokenizer's 64 tokens
 PROMPT = "a gentle piano melody over soft rain on a window"
@@ -589,12 +632,13 @@ def kernel_cases(torch):
                   f"16x64), context 4-{TRAIN_CONTEXT} valid", "K1",
                   rnd(tb, n, 1024), *kv.chunk(2, dim=-1), ctx_mask,
                   dict(heads=16)))
-    for label, nb, n, dh in (
-            ("K2 ViT-bigG (64, 16, 257, 104)", 64, 257, 104),
+    for label, nb, n, dh, nh in (
+            ("K2 ViT-bigG (64, 16, 257, 104)", 64, 257, 104, 16),
             ("K2 ViT-bigG stride-3 tail chunk (20, 16, 257, 104)", 84 - 64,
-             257, 104),
-            (K2_CLIP_L, 64, 577, 64)):
-        q, k, v = (rnd(nb, n, 16 * dh).unflatten(-1, (16, dh)).transpose(1, 2)
+             257, 104, 16),
+            (K2_CLIP_L, 64, 577, 64, 16),
+            (K2_TP, 64, 257, 104, 8)):
+        q, k, v = (rnd(nb, n, nh * dh).unflatten(-1, (nh, dh)).transpose(1, 2)
                    for _ in range(3))
         cases.append((label, "K2", q, k, v, None, {}))
 
@@ -730,6 +774,8 @@ def phase_kernels(torch) -> dict:
     results["K2_CLIP_L"] = dict(
         cases={K2_CLIP_L: results["K2"]["cases"][K2_CLIP_L]},
         max_abs_err=k2_clip_l_edges(torch))
+    results["K2_TP"] = dict(cases={K2_TP: results["K2"]["cases"][K2_TP]},
+                            max_abs_err=results["K2"]["max_abs_err"])
     log_host_cost(torch)
     return results
 
@@ -1911,6 +1957,22 @@ def full_trainer(torch, cfg=None, train_cfg=None, pair: bool = False):
     with seeded_init(0, dev):
         model = CFM(cfg.model, cfg.conditioning, device=dev)
     trainer = Trainer(model, train_cfg or C.TrainConfig(use_ema=True))
+    batch = train_batch(torch, cfg, pair)
+    b, n, nc = TRAIN_BATCH, TRAIN_LATENTS, TRAIN_CONTEXT
+    torch.cuda.synchronize()
+    log(f"  build: {time.perf_counter() - t0:.2f} s, CFM "
+        f"{sum(p.numel() for p in model.parameters()) / 1e6:.1f} M f32 "
+        f"params, batch {b} x {n} latents (+32 registers), context {nc} "
+        f"with {batch['context_mask'].sum(1).tolist()} valid")
+    return trainer, batch
+
+
+def train_batch(torch, cfg, pair: bool = False, dev="cuda") -> dict:
+    """The synthetic full-width batch from seed 0 (TRAIN_BATCH x
+    TRAIN_LATENTS latents, a context of TRAIN_CONTEXT with 4-16 valid);
+    ``pair`` gives rows 6 and 7 the same conditioning."""
+    import numpy as np
+
     rng = np.random.default_rng(0)
     b, n, nc = TRAIN_BATCH, TRAIN_LATENTS, TRAIN_CONTEXT
     r = lambda *s: torch.from_numpy(rng.normal(size=s).astype(np.float32))
@@ -1923,13 +1985,7 @@ def full_trainer(torch, cfg=None, train_cfg=None, pair: bool = False):
     if pair:
         for k in ("text_embed", "context", "context_mask"):
             batch[k][7] = batch[k][6]
-    batch = {k: v.to(dev) for k, v in batch.items()}
-    torch.cuda.synchronize()
-    log(f"  build: {time.perf_counter() - t0:.2f} s, CFM "
-        f"{sum(p.numel() for p in model.parameters()) / 1e6:.1f} M f32 "
-        f"params, batch {b} x {n} latents (+32 registers), context {nc} "
-        f"with {batch['context_mask'].sum(1).tolist()} valid")
-    return trainer, batch
+    return {k: v.to(dev) for k, v in batch.items()}
 
 
 def phase_train(torch, trainer, batch) -> dict:
@@ -2397,7 +2453,7 @@ def phase_resume_and_serve(torch, held: dict, root: str, frames,
 
 # --------------------------------------------------------------- phase 18
 
-DPO_STEPS = 5                      # timed DPO steps after the first
+DPO_STEPS = 4                      # timed DPO steps after the first
 REFLOW_BATCH = 4                   # scripts' defaults: 4 x 736 latents
 REFLOW_LATENTS = 736
 REFLOW_STEPS = 3                   # distill steps (one pair batch each)
@@ -2908,10 +2964,10 @@ def check_wavs(torch, out: str, same: dict) -> None:
 
 
 def run_cli(args: list, label: str, env: dict | None = None,
-            out: list | None = None) -> float:
+            out: list | None = None, wall_shown: bool = True) -> float:
     """``python -m <args>`` from the repository root, with ``env`` added to
     the environment; returns its wall (its standard output appended to
-    ``out``)."""
+    ``out``), printed unless ``wall_shown`` is false."""
     t0 = time.perf_counter()
     res = subprocess.run([sys.executable, "-m", *args], cwd=ROOT,
                          capture_output=True, text=True, timeout=600,
@@ -2919,7 +2975,8 @@ def run_cli(args: list, label: str, env: dict | None = None,
     wall = time.perf_counter() - t0
     if out is not None:
         out.append(res.stdout)
-    log(f"  python -m {args[0]}: exit {res.returncode} in {wall:.2f} s")
+    log(f"  python -m {args[0]}: exit {res.returncode}"
+        + (f" in {wall:.2f} s" if wall_shown else ""))
     if res.returncode != 0:
         raise RuntimeError(f"{label} failed: {res.stdout[-1500:]}\n"
                            f"{res.stderr[-3000:]}")
@@ -3604,7 +3661,7 @@ def phase_audeo(torch) -> None:
 # -------------------------------------------------------------- phase 24
 
 WEIGHTS_SEED = 24                  # the seeded "published" tensors
-INT8_RUNS = 2                      # timed int8 and bf16 V2A generates each
+INT8_RUNS = 1                      # timed int8 and bf16 V2A generates each
 INT8_MIXED_RUNS = 1                # timed mixed generates in each mode
 INT8_ROWS = 2 * 257                # int8 Linear card vs CPU: two frames'
                                    # tokens through ViT-bigG's fc1
@@ -3723,9 +3780,10 @@ def phase_weights_in(torch, frames, root: str):
     """Phase 24a. Seeded tensors under the published key layouts, written
     as snapshots; ``python -m v2ap_torch.convert`` as its own process; the
     pipeline's ``load_weights``; every loaded tensor against the
-    in-process readers; a V2A generate. Returns (the converted directory,
-    the mixed configuration, what phase 24b takes over: the V2A pipeline
-    under ``pipe``)."""
+    in-process readers; a V2A generate. Its walls are not taken: phase
+    26b's processes share the card and the host with it. Returns (the
+    converted directory, the mixed configuration, what phase 24b takes
+    over: the V2A pipeline under ``pipe``)."""
     import numpy as np
 
     from v2ap_torch import config as C
@@ -3741,7 +3799,6 @@ def phase_weights_in(torch, frames, root: str):
 
     snaps = os.path.join(root, "snapshots")
     out = os.path.join(root, "converted")
-    t0 = time.perf_counter()
     dirs, sizes = {}, {}
     for i, (flag, (name, kind, dtype)) in enumerate(ENCODERS.items()):
         sd = seeded_state(torch, golden_layout(name)["state"],
@@ -3766,13 +3823,12 @@ def phase_weights_in(torch, frames, root: str):
             torch.save(sd, os.path.join(path, "pytorch_model.bin"))
         extra[name] = path
         del sd
-    log(f"  snapshots written in {time.perf_counter() - t0:.2f} s")
 
     args = ["v2ap_torch.convert", "--out", out]
     for flag, path in dirs.items():
         args += [f"--{flag}", path]
     stdout = []
-    wall = run_cli(args, "convert", out=stdout)
+    run_cli(args, "convert", out=stdout, wall_shown=False)
     per_flag = [line for line in stdout[0].splitlines()
                 if line.startswith("converted ")]
     for line in per_flag:
@@ -3781,36 +3837,25 @@ def phase_weights_in(torch, frames, root: str):
             "; 0 keys not used" not in line for line in per_flag):
         raise RuntimeError(f"convert: a flag did not convert or left keys: "
                            f"{per_flag}")
-    log(f"  python -m v2ap_torch.convert ({', '.join(dirs)}): {wall:.2f} s")
     # ViT-L/336 has no flag: the reader in process, save_model under the
     # tower's name (what load_weights reads)
-    t0 = time.perf_counter()
     clip_l = create_model_zeros(
         lambda d: CLIPVisionModel(clip_vit_l_336(), device=d))
     if load_clip_vision_state_dict(read_snapshot(extra["clip_l336"]), clip_l):
         raise RuntimeError("weights in: ViT-L/336 left keys")
     save_model(os.path.join(out, "clip_vit2"), clip_l)
-    log(f"  ViT-L/336 (single model.safetensors) read and saved in "
-        f"{time.perf_counter() - t0:.2f} s")
+    log("  ViT-L/336 (single model.safetensors) read and saved")
 
     base = C.v2a_default()
     cfg = base.replace(conditioning=dataclasses.replace(
         base.conditioning, frame_stride=1, feature_cache=False))
     pred = Predictor(cfg=cfg, device="cuda")
-    t0 = time.perf_counter()
     pred.setup()
-    torch.cuda.synchronize()
-    build_s = time.perf_counter() - t0
     pipe = pred.pipeline
-    t0 = time.perf_counter()
     loaded = pipe.load_weights(out)
-    torch.cuda.synchronize()
-    load_s = time.perf_counter() - t0
-    log(f"  V2A pipeline built in {build_s:.2f} s; load_weights -> "
-        f"{loaded} in {load_s:.2f} s")
+    log(f"  V2A pipeline built; load_weights -> {loaded}")
     if sorted(loaded) != ["clip", "encodec", "t5"]:
         raise RuntimeError(f"weights in: load_weights loaded {loaded}")
-    t0 = time.perf_counter()
     n = 0
     for flag, module in (("clip", pipe.clip), ("t5", pipe.t5),
                          ("encodec", pipe.codec)):
@@ -3826,8 +3871,7 @@ def phase_weights_in(torch, frames, root: str):
     pipe.cfm.video2roll.load_state_dict(v2r.state_dict())
     n += _same_tensors(torch, "video2roll", pipe.cfm.video2roll, v2r)
     log(f"  {n} tensors of ViT-bigG, FLAN-T5, EnCodec and Video2Roll "
-        f"bit-equal to the in-process readers' (in the pipeline's dtypes) "
-        f"in {time.perf_counter() - t0:.2f} s")
+        f"bit-equal to the in-process readers' (in the pipeline's dtypes)")
     # EnCodec's weight norm folded on the host against torch's on the card
     sd = torch.load(os.path.join(dirs["encodec"], "pytorch_model.bin"),
                     weights_only=True)
@@ -3848,12 +3892,10 @@ def phase_weights_in(torch, frames, root: str):
         device="cuda").manual_seed(3), device="cuda")
     with torch.inference_mode():
         logits = pipe.cfm.video2roll(x)
-    t0 = time.perf_counter()
     wav, sr = pipe.generate(None, steps=25, cfg_strength=2.0, seed=0,
                             frames_cache=[(frames, CLIP_S, 1)])
-    log(f"  V2A generate on the loaded weights: {time.perf_counter() - t0:.3f}"
-        f" s (captures), {wav.shape[0]} samples, finite "
-        f"{bool(np.isfinite(wav).all())}, rms "
+    log(f"  V2A generate on the loaded weights: {wav.shape[0]} samples, "
+        f"finite {bool(np.isfinite(wav).all())}, rms "
         f"{float(np.sqrt(np.mean(wav.astype(np.float64) ** 2))):.4f}; the "
         f"loaded Video2Roll's logits on 4 windows finite "
         f"{bool(logits.isfinite().all())}")
@@ -3867,8 +3909,7 @@ def phase_weights_in(torch, frames, root: str):
         conditioning=dataclasses.replace(base.conditioning,
                                          video_encoder="mixed",
                                          frame_stride=1, feature_cache=False))
-    return out, mixed, {"pipe": pipe, "convert_s": wall, "load_s": load_s,
-                        "dirs": dirs, "clip_l": clip_l}
+    return out, mixed, {"pipe": pipe, "dirs": dirs, "clip_l": clip_l}
 
 
 def check_mixed_weights(torch, pipe, held: dict) -> None:
@@ -4111,7 +4152,7 @@ def phase_int8(torch, frames, out: str, mixed_cfg, held: dict,
     del pipe
     torch.cuda.empty_cache()
 
-    log("[24c/25] python -m v2ap_torch.int8_tower_gate --tiny")
+    log("[24c/26] python -m v2ap_torch.int8_tower_gate --tiny")
     clips = os.path.join(root, "clips")
     os.makedirs(clips)
     for i in range(2):                   # FAD needs two clips a set
@@ -4130,15 +4171,18 @@ def phase_int8(torch, frames, out: str, mixed_cfg, held: dict,
         raise RuntimeError(f"int8 gate: verdict {verdict}")
 
 
-def phase_24(torch, frames) -> None:
+def phase_24(torch, frames, after_24a=None) -> None:
+    """Phase 24; ``after_24a()`` runs between 24a and 24b (phase 26b's
+    background processes end there: 24b's profiles count kernels in the
+    card's trace)."""
     root = tempfile.mkdtemp(prefix="v2ap_chip_smoke_")
     os.environ.pop("V2AP_INT8_TOWERS", None)
     os.environ["V2AP_INT8_GATE_FILE"] = os.path.join(root, "none.json")
     try:
-        t0 = time.perf_counter()
         out, mixed, held = phase_weights_in(torch, frames, root)
-        log(f"  phase 24a: {time.perf_counter() - t0:.2f} s")
-        log("[24b/25] int8: the Linear card vs CPU; int8 vs bf16 towers; the "
+        if after_24a is not None:
+            after_24a()
+        log("[24b/26] int8: the Linear card vs CPU; int8 vs bf16 towers; the "
             "tower's profile; drift; mixed towers; V2AP_INT8_CFM=1")
         t0 = time.perf_counter()
         phase_int8(torch, frames, out, mixed, held, root)
@@ -4639,25 +4683,566 @@ def phase_duration(torch) -> dict:
 
 
 def phase_25(torch) -> None:
-    log("[25a/25] AudioLDM text-to-audio: small card vs CPU (eta 0, 0.5); "
+    log("[25a/26] AudioLDM text-to-audio: small card vs CPU (eta 0, 0.5); "
         "ldm_s_full() with CLAP, VAE and HiFi-GAN at full width")
     t0 = time.perf_counter()
     phase_audioldm(torch)
     log(f"  phase 25a: {time.perf_counter() - t0:.2f} s")
-    log(f"[25b/25] Vocos vocos_mel_24khz(): {VOCOS_FRAMES} frames, istft vs "
+    log(f"[25b/26] Vocos vocos_mel_24khz(): {VOCOS_FRAMES} frames, istft vs "
         f"plain overlap-add, card vs CPU")
     t0 = time.perf_counter()
     phase_vocos(torch)
     log(f"  phase 25b: {time.perf_counter() - t0:.2f} s")
-    log(f"[25c/25] VaeVocoder.decode of {VAE_VOCODER_LATENTS} flat latents")
+    log(f"[25c/26] VaeVocoder.decode of {VAE_VOCODER_LATENTS} flat latents")
     t0 = time.perf_counter()
     phase_vae_vocoder(torch)
     log(f"  phase 25c: {time.perf_counter() - t0:.2f} s")
-    log("[25d/25] DurationPredictor at v2a_default()'s transformer: small f32 "
+    log("[25d/26] DurationPredictor at v2a_default()'s transformer: small f32 "
         "card vs CPU; forward (K1), AdamW steps (K3-K5), profile")
     t0 = time.perf_counter()
     phase_duration(torch)
     log(f"  phase 25d: {time.perf_counter() - t0:.2f} s")
+
+
+# --------------------------------------------------------------- phase 26
+
+TP_TIMEOUT_S = 600                 # phase 26b's processes, from their start
+# bf16, TP 2 against the unsharded port on the card (rel-RMS). Each limit
+# lies between its reading and the readings of planted faults (``python3
+# chip_smoke.py --tp-limits``; PERF.md section 6). Each tensor's change in
+# the step and the updated weights are printed, not held: AdamW's first
+# update is about lr x sign(g), blind to a gradient's scale, and a sign
+# flipped by rounding in a 16-element gate bias moves its reading by 0.5
+TP_FEAT_REL = 2e-2                 # tower features
+TP_LAT_REL = 1e-2                  # the 25-step sample's latents
+TP_GRAD_REL = 5e-2                 # each clipped gradient tensor
+# the planted faults of --tp-limits, and the parts of 26b each can move
+TP_FAULTS = {None: ("tower", "sample", "step"),
+             "rowsum": ("tower", "sample", "step"),
+             "gates": ("sample", "step"),
+             "partial": ("step",),
+             "bias": ("step",)}     # the biases are zero before the step
+
+
+def world1_mesh(torch, root: str):
+    """A process group of this process alone under NCCL (``init_distributed``
+    forms none for one process), and the default ``MeshConfig()`` mesh over
+    it (data 1 x model 1)."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from v2ap_torch.config import MeshConfig
+    from v2ap_torch.parallel import make_mesh
+
+    store = os.path.join(root, f"rdzv_{time.monotonic_ns()}")
+    dist.init_process_group("nccl", init_method=f"file://{store}",
+                            world_size=1, rank=0,
+                            timeout=datetime.timedelta(seconds=120))
+    return make_mesh(MeshConfig())
+
+
+def tp_references(torch, pipe, frames, tp_dir: str, inputs=None) -> None:
+    """What phase (b) is held against, from phase 5's pipeline: the
+    sampler's inputs for the clip (``inputs`` (x0, text) when taken
+    already) and ViT-bigG's bf16 features of its first 64 frames."""
+    from v2ap_torch.models.clip_vit import device_normalize
+
+    x0, text = inputs or sampler_inputs(torch, pipe, frames)[:2]
+    torch.save({"x0": x0.cpu(), "text": text.cpu()},
+               os.path.join(tp_dir, "sample_in.pt"))
+    tower = pipe.towers[0]
+    with torch.inference_mode():
+        px = device_normalize(tower.preprocess(
+            torch.from_numpy(frames[:64]).cuda()), tower.mean, tower.std)
+        feats = tower.model(px)
+
+        def nudge(_, args):
+            # every 97th input of the first block one bf16 ulp larger in
+            # magnitude
+            x = args[0].clone()
+            x.view(-1).view(torch.int16)[::97] += 1
+            return (x,)
+
+        hook = tower.model.blocks[0].register_forward_pre_hook(nudge)
+        try:
+            floor = rel_rms(tower.model(px).float(), feats.float())
+        finally:
+            hook.remove()
+    log(f"  bf16 noise floor of the unsharded ViT-bigG: features "
+        f"{floor:.3e} rel-RMS off when 1 % of the first block's inputs "
+        f"move by one bf16 ulp")
+    torch.save(feats.float().cpu(), os.path.join(tp_dir, "tower_ref.pt"))
+
+
+def phase_26_serve(torch, pipe, frames, tp_dir: str) -> None:
+    """(d) the captured sampler is deterministic; (c) YUV 4:2:0 against RGB
+    tower features at full width; the tower features and sampler inputs
+    the two-rank phase (b) is held against; (a) ``shard_serving`` over a
+    world-1 NCCL mesh, then ``generate``, bit-equal to the plain generate,
+    the sampler captured anew."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from v2ap_torch import config as C
+    from v2ap_torch.ops.flash_attention import (launch_counts,
+                                                reset_launch_counts)
+    from v2ap_torch.utils.determinism import assert_deterministic
+
+    x0, text, roll, ctx, cmask, mask = sampler_inputs(torch, pipe, frames)
+    cfg25 = C.SamplerConfig(steps=25, cfg_strength=2.0)
+    t0 = time.perf_counter()
+    assert_deterministic(
+        lambda: pipe._sample(x0, text, roll, ctx, cmask, mask, cfg25))
+    log(f"  (d) assert_deterministic(captured 25-step sampler, runs 2): ok, "
+        f"{time.perf_counter() - t0:.3f} s")
+    tp_references(torch, pipe, frames, tp_dir, (x0, text))
+
+    walls = {}
+    out = {}
+    for mode in (False, True, False):
+        pipe.ship_yuv420 = mode
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out[mode], _ = pipe.encode_video_frames_clip(
+            None, 768, frames_cache=[(frames, CLIP_S, 1)])
+        torch.cuda.synchronize()
+        walls.setdefault(mode, []).append(time.perf_counter() - t0)
+    pipe.ship_yuv420 = False
+    drift = rel_rms(out[True], out[False])
+    log(f"  (c) V2AP_SHIP_YUV420 at full width ({len(frames)} frames, "
+        f"ViT-bigG bf16): feature drift {drift:.4%} rel-RMS against RGB; "
+        f"walls RGB {walls[False][-1]:.4f} s, YUV {walls[True][0]:.4f} s "
+        f"(pack on the host, unpack on the card)")
+    # uniform-noise pixels are the 2x2 chroma averaging's worst case: the
+    # bound is a sanity one (the features are the tower's, not noise)
+    if not torch.isfinite(out[True]).all() or not drift < 1.0:
+        raise RuntimeError(f"YUV features: drift {drift}")
+
+    def gen():
+        return pipe.generate(None, steps=25, cfg_strength=2.0, seed=0,
+                             frames_cache=[(frames, CLIP_S, 1)])
+
+    plain, _ = gen()
+    mesh = world1_mesh(torch, tp_dir)
+    try:
+        pipe.shard_serving(mesh)
+        if pipe.graphs is None:
+            raise RuntimeError("shard_serving under NCCL left the sampler "
+                               "uncaptured")
+        t0 = time.perf_counter()
+        first, _ = gen()                           # captures anew
+        t_first = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        again, _ = gen()                           # replays
+        t_again = time.perf_counter() - t0
+        counts = dict(launch_counts)
+    finally:
+        dist.destroy_process_group()
+    expect = generate_expect(pipe, len(frames))
+    same = np.array_equal(first, plain) and np.array_equal(again, plain)
+    log(f"  (a) shard_serving(make_mesh(MeshConfig())) over a world-1 NCCL "
+        f"group: generate bit-equal to the plain one {same}; walls "
+        f"{t_first:.4f} s (capture) and {t_again:.4f} s; captures "
+        f"{len(pipe.graphs.captures)}; launches {counts}")
+    if not same or len(pipe.graphs.captures) != 1 or counts != expect:
+        raise RuntimeError(f"mesh generate: bit-equal {same}, captures "
+                           f"{len(pipe.graphs.captures)}, launches {counts}")
+
+
+def phase_26_strips(torch, pipe, strips) -> None:
+    """(c) the strip-half shipping mode against exact strips at full width:
+    the roll of a 10 s clip (768 rows) both ways."""
+    rows = pipe.encode_piano_frames(None, 768, strips_cache=[(strips, CLIP_S)])
+    rolls, walls = {}, {}
+    for half in (False, True, False):
+        pipe.ship_strip_half = half
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rolls[half] = pipe._roll_from_strips(pipe._ship_strips(rows), 768)
+        torch.cuda.synchronize()
+        walls[half] = time.perf_counter() - t0
+    pipe.ship_strip_half = False
+    drift = rel_rms(rolls[True], rolls[False])
+    log(f"  (c) V2AP_SHIP_STRIP_HALF at full width ({len(rows)} strips of "
+        f"100x900 -> 100x450 on the wire): roll drift {drift:.4%} rel-RMS "
+        f"against exact strips; walls exact {walls[False]:.4f} s, half "
+        f"{walls[True]:.4f} s")
+    if not torch.isfinite(rolls[True]).all() or not drift < 1.0:
+        raise RuntimeError(f"strip-half roll: drift {drift}")
+
+
+def phase_26_train(torch, tp_dir: str) -> None:
+    """A fresh v2a_default() CFM from seed 0 and phase 14's batch: the
+    25-step sample and one train step that phase (b) is held against;
+    (d) the step is deterministic; (a) the step through a world-1 NCCL mesh
+    (``Trainer(mesh=)``) is bit-equal to the plain one."""
+    import torch.distributed as dist
+
+    from v2ap_torch import config as C
+    from v2ap_torch.training import Trainer
+    from v2ap_torch.utils.determinism import assert_deterministic
+
+    trainer, batch = full_trainer(torch, train_cfg=C.TrainConfig())
+    model = trainer.model
+    del trainer
+    inp = torch.load(os.path.join(tp_dir, "sample_in.pt"))
+    x0, text = inp["x0"].cuda(), inp["text"].cuda()
+    m = model.cfg
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        lat = model.sample(
+            x0, text_embed=text,
+            frames_embed=torch.zeros(1, 768, m.notes, device="cuda"),
+            context=torch.zeros(1, 1, m.dim_context, device="cuda"),
+            context_mask=torch.ones(1, 1, dtype=torch.bool, device="cuda"),
+            mask=torch.arange(768, device="cuda")[None] < 750,
+            sampler=C.SamplerConfig(steps=25, cfg_strength=2.0))
+    torch.cuda.synchronize()
+    t_sample = time.perf_counter() - t0
+    log(f"  unsharded reference: 25-step eager sample {t_sample:.3f} s")
+    torch.save(lat.cpu(), os.path.join(tp_dir, "lat_ref.pt"))
+    s0 = {k: v.clone() for k, v in model.state_dict().items()}
+    g0 = model.dropout_generator.get_state()
+
+    runs = []
+
+    def step(mesh=None):
+        """One step from s0 and the generator's state g0 (a fresh
+        optimizer); the updated tensors stay in ``runs``, the loss and a
+        float64 sum of each updated tensor are returned."""
+        with torch.no_grad():
+            model.load_state_dict(s0)
+        model.dropout_generator.set_state(g0)
+        for p in model.parameters():
+            p.grad = None
+        tr = Trainer(model, C.TrainConfig(), mesh=mesh)
+        loss, _ = tr.train_step(batch)
+        out = {"loss": loss.detach().clone()}
+        out.update({k: p.detach().clone()
+                    for k, p in model.named_parameters()})
+        out.update({f"grad:{k}": p.grad.clone()
+                    for k, p in model.named_parameters()})
+        runs.append(out)
+        return {"loss": out["loss"], "sums": torch.stack(
+            [v.double().sum() for k, v in out.items()
+             if k != "loss" and not k.startswith("grad:")])}
+
+    t0 = time.perf_counter()
+    assert_deterministic(step)
+    plain = runs[0]
+    log(f"  (d) assert_deterministic(one full-width train step: the loss "
+        f"and each updated tensor's float64 sum, runs 2): ok, "
+        f"{time.perf_counter() - t0:.3f} s")
+    del runs[1:]
+    mesh = world1_mesh(torch, tp_dir)
+    try:
+        step(mesh)
+        meshed = runs.pop()
+    finally:
+        dist.destroy_process_group()
+    same = all(torch.equal(meshed[k], v) for k, v in plain.items())
+    log(f"  (a) Trainer(mesh=make_mesh(MeshConfig())) over a world-1 NCCL "
+        f"group: loss {meshed['loss'].item():.6f}, loss, every clipped "
+        f"gradient and every updated tensor bit-equal to the plain step: "
+        f"{same}")
+    if not same:
+        raise RuntimeError("the mesh train step differs from the plain one")
+    # each tensor's change in the step and its clipped gradient, float32
+    # (6.2 GB for the 776.7 M parameters)
+    ref = {f"upd:{k}": (plain[k] - s0[k]).cpu()
+           for k, _ in model.named_parameters()}
+    ref.update({k: v.cpu() for k, v in plain.items()
+                if k.startswith("grad:")})
+    torch.save(ref, os.path.join(tp_dir, "step_ref.pt"))
+    del model, plain, meshed, s0, ref
+    torch.cuda.empty_cache()
+
+
+def plant_tp_fault(fault: str, model) -> None:
+    """A deliberately wrong split, for the upper readings of phase (b)'s
+    limits (``--tp-limits``): ``rowsum``, the row-parallel products' partial
+    outputs not summed over the model group; ``gates``, each rank's value
+    gates taken from the other rank's heads; ``partial``, the partly-used
+    replicated parameters' gradients not summed; ``bias``, each
+    row-parallel layer adding its bias on every rank (twice at TP 2)."""
+    from v2ap_torch.ops.attention import Attention
+    from v2ap_torch.ops.layers import Linear
+    from v2ap_torch.parallel.distributed import row_partial
+
+    def unsummed(lin, x):
+        y = row_partial(x.to(lin.dtype), lin.weight.to(lin.dtype))
+        return (y if lin.bias is None else y + lin.bias.float()).to(lin.dtype)
+
+    for m in model.modules():
+        if fault == "rowsum" and isinstance(m, Linear) and \
+                m.tp is not None and m.tp.mode == "row":
+            m.tp = unsummed
+        elif fault == "gates" and isinstance(m, Attention) and \
+                m.tp is not None and m.to_v_gates is not None:
+            group, h0 = m.tp
+            m.tp = (group, (h0 + m.heads) % (2 * m.heads))
+        elif fault == "partial":
+            for p in m.parameters(recurse=False):
+                if getattr(p, "_tp_partial", False):
+                    del p._tp_partial
+        elif fault == "bias" and isinstance(m, Linear) and \
+                m.tp is not None and m.tp.mode.startswith("row") and \
+                m.bias is not None:
+            m.tp = (lambda lin, x, tp=m.tp:
+                    tp(lin, x) + lin.bias.to(lin.dtype))
+
+
+def tp_rank_main(rank: int, tp_dir: str, fault: str | None = None) -> int:
+    """One of phase (b)'s two ranks: gloo over CUDA tensors on the one card,
+    TP 2. ViT-bigG over 64 frames, the CFM's 25-step sample and one train
+    step, each held against the unsharded results of the same card; the
+    launch counts, walls, readings and this rank's peak memory go to
+    ``rank<r>_<fault>.json``. With ``fault`` (``plant_tp_fault``) only the
+    parts the fault can move run."""
+    import torch
+
+    sys.path.insert(0, ROOT)
+    from v2ap_torch import config as C
+    from v2ap_torch.models.cfm import CFM
+    from v2ap_torch.models.clip_vit import device_normalize
+    from v2ap_torch.models.video_towers import build_video_towers
+    from v2ap_torch.ops.flash_attention import (launch_counts,
+                                                reset_launch_counts)
+    from v2ap_torch.parallel import make_mesh, shard_model
+    from v2ap_torch.parallel.distributed import init_distributed
+    from v2ap_torch.parallel.state import shard_like
+    from v2ap_torch.training import Trainer
+    from v2ap_torch.utils.device import seeded_init
+
+    t_start = time.perf_counter()
+    parts = TP_FAULTS[fault]
+    tag = fault or "none"
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    init_distributed(f"file://{os.path.join(tp_dir, f'rdzv_{tag}')}", 2,
+                     rank, backend="gloo", device=dev,
+                     timeout_s=TP_TIMEOUT_S)
+    mesh = make_mesh(C.MeshConfig(model_parallel=2))
+    res = {"fault": fault}
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, {
+            k: v for k, v in launch_counts.items() if v}
+
+    if "tower" in parts:
+        tower = build_video_towers("clip_vit", seed=3, device=dev)[0]
+        tower.model.to(torch.bfloat16).eval().requires_grad_(False)
+        shard_model(tower.model, mesh)
+        plant_tp_fault(fault, tower.model)
+        px = torch.from_numpy(clip_frames()[:64]).to(dev)
+        with torch.inference_mode():
+            feats, res["tower_s"], res["tower_launches"] = timed(
+                lambda: tower.model(device_normalize(
+                    tower.preprocess(px), tower.mean, tower.std)))
+        res["tower_rel_rms"] = rel_rms(feats.float().cpu(), torch.load(
+            os.path.join(tp_dir, "tower_ref.pt")))
+        del tower, feats
+    cfg = C.v2a_default()
+    with seeded_init(0, dev):
+        model = CFM(cfg.model, cfg.conditioning, device=dev)
+    shard_model(model, mesh)
+    plant_tp_fault(fault, model)
+    m = cfg.model
+
+    if "sample" in parts:
+        inp = torch.load(os.path.join(tp_dir, "sample_in.pt"))
+
+        def sample():
+            with torch.no_grad():
+                return model.sample(
+                    inp["x0"].to(dev), text_embed=inp["text"].to(dev),
+                    frames_embed=torch.zeros(1, 768, m.notes, device=dev),
+                    context=torch.zeros(1, 1, m.dim_context, device=dev),
+                    context_mask=torch.ones(1, 1, dtype=torch.bool,
+                                            device=dev),
+                    mask=torch.arange(768, device=dev)[None] < 750,
+                    sampler=C.SamplerConfig(steps=25, cfg_strength=2.0))
+
+        lat, res["sample_s"], res["sample_launches"] = timed(sample)
+        res["lat_rel_rms"] = rel_rms(lat.cpu(), torch.load(
+            os.path.join(tp_dir, "lat_ref.pt")))
+    w0 = {k: p.detach().clone() for k, p in model.named_parameters()}
+    trainer = Trainer(model, C.TrainConfig(), mesh=mesh)
+    batch = train_batch(torch, cfg, dev=dev)
+    (loss, _), res["step_s"], res["step_launches"] = timed(
+        lambda: trainer.train_step(batch))
+    res["loss"] = loss.item()
+    ref = torch.load(os.path.join(tp_dir, "step_ref.pt"), mmap=True)
+    worst = {"upd": (0.0, None), "param": (0.0, None), "grad": (0.0, None)}
+    for k, p in model.named_parameters():
+        upd = shard_like(p, ref[f"upd:{k}"].to(dev))
+        for kind, got, want in (
+                ("upd", p.detach() - w0[k], upd),
+                ("param", p.detach(), w0[k] + upd),
+                ("grad", p.grad, shard_like(p, ref[f"grad:{k}"].to(dev)))):
+            d = rel_rms(got, want)
+            if d > worst[kind][0]:
+                worst[kind] = (d, k)
+    for kind, (d, k) in worst.items():
+        res[f"{kind}_rel_rms"], res[f"{kind}_worst"] = d, k
+    res.update(peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30,
+               total_s=time.perf_counter() - t_start)
+    with open(os.path.join(tp_dir, f"rank{rank}_{tag}.json"), "w") as f:
+        json.dump(res, f)
+    import torch.distributed as dist
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def phase_26_start(tp_dir: str, fault: str | None = None,
+                   dry_run: bool = True) -> dict:
+    """(b) TP 2 with two ranks sharing the card through gloo over CUDA
+    tensors (``tp_rank_main``), and with ``dry_run`` beside them the
+    multichip dry run (``python -m v2ap_torch.parallel.dryrun``, 2 ranks,
+    TP 2, gloo on the card, f32 tiny, every phase), started in the
+    background: in the full run they run while phase 24a writes and
+    converts its snapshots (24a's walls are not taken), and
+    ``phase_26_finish`` collects them. Walls are no speed figure: gloo
+    stages every collective through the host, and the card is shared."""
+    cmds = [[sys.executable, os.path.abspath(__file__), "--tp-rank", str(r),
+             "--tp-dir", tp_dir] + (["--tp-fault", fault] if fault else [])
+            for r in range(2)]
+    if dry_run:
+        cmds.append([sys.executable, "-m", "v2ap_torch.parallel.dryrun",
+                     "--world-size", "2", "--model-parallel", "2",
+                     "--device", "cuda", "--backend", "gloo", "--out",
+                     os.path.join(tp_dir, "dry"), "--timeout",
+                     str(TP_TIMEOUT_S)])
+    tag = fault or "none"
+    logs = [os.path.join(tp_dir, f"proc{i}_{tag}.log")
+            for i in range(len(cmds))]
+    procs = []
+    for cmd, path in zip(cmds, logs):
+        with open(path, "w") as out:
+            procs.append(subprocess.Popen(cmd, cwd=ROOT, stdout=out,
+                                          stderr=subprocess.STDOUT))
+    return {"procs": procs, "logs": logs, "t0": time.perf_counter(),
+            "dir": tp_dir, "fault": fault}
+
+
+def phase_26_stop(run: dict) -> None:
+    """Kill phase 26b's processes that still run."""
+    for p in run["procs"]:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+
+
+def tp_reading(res: dict) -> str:
+    """One rank's walls, launches, readings and peak memory."""
+    out = []
+    if "tower_s" in res:
+        out.append(f"tower 64 frames {res['tower_s']:.3f} s "
+                   f"{res['tower_launches']}, features "
+                   f"{res['tower_rel_rms']:.3e} rel-RMS (tol {TP_FEAT_REL})")
+    if "sample_s" in res:
+        out.append(f"sample {res['sample_s']:.3f} s "
+                   f"{res['sample_launches']}, latents "
+                   f"{res['lat_rel_rms']:.3e} (tol {TP_LAT_REL})")
+    out.append(
+        f"step {res['step_s']:.3f} s {res['step_launches']}, loss "
+        f"{res['loss']:.6f}; worst clipped gradient {res['grad_rel_rms']:.3e}"
+        f" ({res['grad_worst']}; tol {TP_GRAD_REL}); no limit on the worst "
+        f"update {res['upd_rel_rms']:.3e} ({res['upd_worst']}) and updated "
+        f"weight {res['param_rel_rms']:.3e} ({res['param_worst']})")
+    out.append(f"peak {res['peak_gib']:.2f} GiB; {res['total_s']:.1f} s from "
+               f"the rank's start")
+    return "; ".join(out)
+
+
+def phase_26_finish(run: dict, check: bool = True) -> list:
+    """Wait for phase 26b's processes (at most TP_TIMEOUT_S from their
+    start; every one of them is stopped after), print each rank's readings
+    and, with ``check``, hold them and the dry run."""
+    procs = run["procs"]
+    tag = run["fault"] or "none"
+    try:
+        for p in procs:
+            left = max(1.0, TP_TIMEOUT_S - (time.perf_counter() - run["t0"]))
+            p.wait(timeout=left)
+        outs = [open(path).read() for path in run["logs"]]
+    finally:
+        phase_26_stop(run)
+    for p, out in zip(procs[:2], outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"phase 26b rank failed ({p.returncode}):"
+                               f"\n{out[-3000:]}")
+    ranks = []
+    for r in range(2):
+        with open(os.path.join(run["dir"], f"rank{r}_{tag}.json")) as f:
+            ranks.append(json.load(f))
+        log(f"  (b) rank {r}"
+            + (f", planted fault {run['fault']}" if run["fault"] else "")
+            + ": " + tp_reading(ranks[-1]))
+    if check:
+        _check_26b(ranks, procs, outs)
+    return ranks
+
+
+def _check_26b(ranks, procs, outs) -> None:
+    for r, res in enumerate(ranks):
+        bad = (res["lat_rel_rms"] > TP_LAT_REL
+               or res["grad_rel_rms"] > TP_GRAD_REL
+               or res["tower_rel_rms"] > TP_FEAT_REL
+               or res["tower_launches"] != {"flash_attention": 48}
+               or res["sample_launches"] != {"flash_attention_packed": 1152}
+               or res["step_launches"] != {"flash_attention_lse": 48,
+                                           "flash_attention_bwd_dq": 48,
+                                           "flash_attention_bwd_dkv": 48})
+        if bad:
+            raise RuntimeError(f"phase 26b rank {r}: {res}")
+    if procs[2].returncode != 0:
+        raise RuntimeError(f"the dry run on the card failed "
+                           f"({procs[2].returncode}):\n{outs[2][-3000:]}")
+    summary = json.loads(next(line for line in reversed(
+        outs[2].splitlines()) if line.startswith("{")))
+    log(f"  dry run on the card (2 ranks, TP 2, gloo, f32): "
+        + ", ".join(f"{k} {v:.3e}" if isinstance(v, float) else f"{k} {v}"
+                    for k, v in summary.items() if k != "out"))
+
+
+def tp_limits_main(torch) -> int:
+    """``--tp-limits``: phase 26's references, then phase (b) once as it
+    is and once with each planted fault (``plant_tp_fault``), every
+    reading printed and none held: the lower and upper readings the limits
+    TP_FEAT_REL, TP_LAT_REL and TP_GRAD_REL are set between."""
+    from v2ap_torch.ops import flash_attention as fa
+
+    log(f"[tp-limits] card: {card_line()}")
+    fa.build_library()
+    fa._library()
+    tp_dir = tempfile.mkdtemp(prefix="v2ap_chip_smoke_tp_")
+    try:
+        frames = clip_frames()
+        pipe = full_pipeline(torch, "V2A", frame_stride=1)
+        tp_references(torch, pipe, frames, tp_dir)
+        del pipe
+        torch.cuda.empty_cache()
+        phase_26_train(torch, tp_dir)
+        for fault in TP_FAULTS:
+            log(f"[tp-limits] planted fault {fault}: the parts "
+                f"{TP_FAULTS[fault]}")
+            phase_26_finish(phase_26_start(tp_dir, fault, dry_run=False),
+                            check=False)
+    finally:
+        shutil.rmtree(tp_dir, ignore_errors=True)
+    log(card_line())
+    return 0
 
 
 def main() -> int:
@@ -4669,6 +5254,12 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    if "--tp-rank" in sys.argv:             # a rank of phase 26b
+        arg = sys.argv.index
+        return tp_rank_main(
+            int(sys.argv[arg("--tp-rank") + 1]), sys.argv[arg("--tp-dir") + 1],
+            sys.argv[arg("--tp-fault") + 1] if "--tp-fault" in sys.argv
+            else None)
     sys.path.insert(0, ROOT)
     try:
         from v2ap_torch.ops import flash_attention as fa
@@ -4678,6 +5269,8 @@ def main() -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if "--tp-limits" in sys.argv:
+        return tp_limits_main(torch)
     # each flex_attention yardstick compiles for its own shapes: more than
     # dynamo's default of 8, past which it would quietly time the unfused
     # eager version instead; that fallback fails the run
@@ -4687,7 +5280,7 @@ def main() -> int:
         "error", message="flex_attention called without torch.compile")
     t_start = time.perf_counter()
 
-    log(f"[1/25] build — card: {card_line()}")
+    log(f"[1/26] build — card: {card_line()}")
     log(f"  torch {torch.__version__} (CUDA {torch.version.cuda}), "
         f"{torch.cuda.get_device_name(0)}; f32 matmul and cuDNN TF32 off")
     t0 = time.perf_counter()
@@ -4697,18 +5290,21 @@ def main() -> int:
         f"{', '.join(src.name for src in fa._SOURCES)} in "
         f"{time.perf_counter() - t0:.2f} s")
 
-    log("[2/25] kernels vs plain versions (bf16 in, f32 reference)")
+    log("[2/26] kernels vs plain versions (bf16 in, f32 reference)")
     kern = phase_kernels(torch)
     kern.update(phase_train_kernels(torch))
     log_bwd_more(torch)
-    log("[3/25] P1 probe: packed (b, n, h*d) vs (b, h, n, d) + transposes")
+    log("[3/26] P1 probe: packed (b, n, h*d) vs (b, h, n, d) + transposes")
     kern["P1"] = phase_probe(torch)
-    log("[4/25] small f32 config: card vs CPU")
+    log("[4/26] small f32 config: card vs CPU")
     phase_small(torch)
     import numpy as np
 
     frames = clip_frames()
-    log("[5/25] full-width V2A generate (frame stride 1, empty prompt; the "
+    # phase 26's exchange files (about 6.3 GB of reference tensors)
+    tp_dir = tempfile.mkdtemp(prefix="v2ap_chip_smoke_tp_")
+    atexit.register(shutil.rmtree, tp_dir, True)
+    log("[5/26] full-width V2A generate (frame stride 1, empty prompt; the "
         "sampler as a captured program)")
     pipe = full_pipeline(torch, "V2A", frame_stride=1)
 
@@ -4718,7 +5314,7 @@ def main() -> int:
 
     phase_generate(torch, pipe, "V2A generate", generate_v2a,
                    generate_expect(pipe, len(frames)))
-    log("[6/25] V2A generate profile")
+    log("[6/26] V2A generate profile")
 
     def profiled(gen, check=None):
         def run():
@@ -4732,17 +5328,23 @@ def main() -> int:
     gen_counts = phase_profile(torch, "generate", profiled(generate_v2a),
                                SM90_FWD, generate_expect(pipe, len(frames)),
                                k1_expect(pipe))
-    log("[7/25] full-width sampler: captured programs vs eager, same inputs")
+    log("[7/26] full-width sampler: captured programs vs eager, same inputs")
     phase_captured(torch, pipe, frames)
-    log(f"[8/25] generate_batch: {BATCH} x 10 s clips, frames handed in")
+    log(f"[8/26] generate_batch: {BATCH} x 10 s clips, frames handed in")
     phase_generate_batch(torch, pipe, frames)
-    log(f"[9/25] generate_long: a {LONG_S:.0f} s clip in one batched call")
+    log(f"[9/26] generate_long: a {LONG_S:.0f} s clip in one batched call")
     phase_generate_long(torch, pipe)
-    log(f"[10/25] HTTP server: {BATCH} concurrent POST /v2a")
+    log(f"[10/26] HTTP server: {BATCH} concurrent POST /v2a")
     phase_http(torch, pipe)
+    log("[26a/26] parallelism and the wire on phase 5's pipeline: the "
+        "captured sampler deterministic, YUV 4:2:0 tower features, "
+        "shard_serving over a world-1 NCCL mesh")
+    t0 = time.perf_counter()
+    phase_26_serve(torch, pipe, frames, tp_dir)
+    t26 = time.perf_counter() - t0
     del pipe
     torch.cuda.empty_cache()
-    log("[11/25] full-width V2P generate with a prompt (v2a_default(): frame "
+    log("[11/26] full-width V2P generate with a prompt (v2a_default(): frame "
         "stride 3, strip stride 2; FLAN-T5-large, Video2Roll)")
     pipe = full_pipeline(torch, "V2P")
     strips = np.random.default_rng(1).integers(
@@ -4762,20 +5364,24 @@ def main() -> int:
     roll = pipe.last_roll
     log(f"  roll {tuple(roll.shape)}: min {roll.min().item():.4f}, max "
         f"{roll.max().item():.4f}, mean {roll.mean().item():.4f}")
-    log("[12/25] V2P generate profile")
+    log("[12/26] V2P generate profile")
     phase_profile(torch, "V2P generate", profiled(generate_v2p, check_roll),
                   SM90_FWD, generate_expect(pipe, len(frames)),
                   k1_expect(pipe))
+    log("[26a/26] strip-half against exact strips on phase 11's pipeline")
+    t0 = time.perf_counter()
+    phase_26_strips(torch, pipe, strips)
+    t26 += time.perf_counter() - t0
     del pipe, roll
     torch.cuda.empty_cache()
-    log("[13/25] small train: tiny_test() card vs CPU, then "
+    log("[13/26] small train: tiny_test() card vs CPU, then "
         f"{TINY_STEPS} steps")
     phase_small_train(torch)
-    log("[14/25] full-width V2A train step, then with remat full and dots")
+    log("[14/26] full-width V2A train step, then with remat full and dots")
     trainer, batch = full_trainer(torch)
     train_counts = phase_train(torch, trainer, batch)
     phase_train_remat(torch, trainer, batch, train_counts)
-    log("[15/25] train-step profile")
+    log("[15/26] train-step profile")
 
     def train_once():
         loss, _ = trainer.train_step(batch)
@@ -4785,12 +5391,18 @@ def main() -> int:
     phase_profile(torch, "train step", train_once, SM90_FWD[1:] + SM90_BWD)
     del trainer, batch, train_once
     torch.cuda.empty_cache()
+    log("[26a/26] a fresh full-width CFM: the unsharded sample and step "
+        "for 26b; the step deterministic and through a world-1 NCCL mesh")
+    t0 = time.perf_counter()
+    phase_26_train(torch, tp_dir)
+    t26 += time.perf_counter() - t0
+    log(f"  phase 26a: {t26:.2f} s")
     root = tempfile.mkdtemp(prefix="v2ap_chip_smoke_")
     try:
-        log("[16/25] train from corpora: TrainingPipeline(v2a_default()), "
+        log("[16/26] train from corpora: TrainingPipeline(v2a_default()), "
             f"remat dots, EMA, batch {TRAIN_BATCH} x {TRAIN_LATENTS}")
         tp, batcher = phase_corpus_train(torch, root)
-        log("[17/25] resume, save the EMA CFM, load_weights, generate")
+        log("[17/26] resume, save the EMA CFM, load_weights, generate")
         held = {"pipe": tp, "batcher": batcher}
         del tp, batcher
         phase_resume_and_serve(torch, held, root, frames)
@@ -4799,7 +5411,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     from v2ap_torch import config as C
 
-    log(f"[18a/25] DPO at full width: crossatt3, TrainConfig(dpo=True), "
+    log(f"[18a/26] DPO at full width: crossatt3, TrainConfig(dpo=True), "
         f"dropout 0.1, no remat, batch {TRAIN_BATCH} x {TRAIN_LATENTS} with "
         f"rows 6 and 7 a pair")
     trainer, batch = full_trainer(torch, train_cfg=C.TrainConfig(dpo=True),
@@ -4807,7 +5419,7 @@ def main() -> int:
     phase_dpo(torch, "DPO train step", trainer, batch)
     del trainer, batch
     torch.cuda.empty_cache()
-    log(f"[18b/25] crossatt6 (FactorCL) with DPO under remat dots, batch "
+    log(f"[18b/26] crossatt6 (FactorCL) with DPO under remat dots, batch "
         f"{TRAIN_BATCH} x {TRAIN_LATENTS}")
     six = C.variant_preset("crossatt6")
     six = six.replace(model=dataclasses.replace(six.model, remat=True,
@@ -4821,11 +5433,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     root = tempfile.mkdtemp(prefix="v2ap_chip_smoke_")
     try:
-        log(f"[19/25] reflow: pairs from the full-width teacher, "
+        log(f"[19/26] reflow: pairs from the full-width teacher, "
             f"{REFLOW_STEPS} distill steps, save_model, load_weights, "
             f"generate(fewstep=2)")
         pipe = phase_reflow(torch, frames, root)
-        log("[20/25] the reference layout: a full-width synthetic crossatt3 "
+        log("[20/26] the reference layout: a full-width synthetic crossatt3 "
             ".pt, python -m v2ap_torch.convert, load_weights, generate; "
             "crossatt6")
         phase_reference(torch, pipe, frames, root)
@@ -4833,7 +5445,7 @@ def main() -> int:
         torch.cuda.empty_cache()
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    log("[21/25] evaluate: Cnn14 and CLAP card vs CPU; run_batch_eval, python "
+    log("[21/26] evaluate: Cnn14 and CLAP card vs CPU; run_batch_eval, python "
         "-m v2ap_torch.evaluate (FAD, IS, KL, CLAP) and python -m "
         "v2ap_torch.inference_v2p from primed caches")
     phase_evaluators(torch)
@@ -4845,26 +5457,44 @@ def main() -> int:
     finally:
         shutil.rmtree(root, ignore_errors=True)
     torch.cuda.empty_cache()
-    log("[22/25] the other video towers: small f32 card vs CPU; full-width "
+    log("[22/26] the other video towers: small f32 card vs CPU; full-width "
         "mixed (ViT-bigG + ViT-L/336 + ConvNeXt-XXLarge + DINOv2-giant, "
         "4608-d) and clip_vit2 generates")
     t0 = time.perf_counter()
     k2_clip_l = phase_towers(torch, frames)
     log(f"  phase 22: {time.perf_counter() - t0:.2f} s")
-    log("[23/25] Audeo: trainer steps card vs CPU; full-width Video2Roll and "
+    log("[23/26] Audeo: trainer steps card vs CPU; full-width Video2Roll and "
         "Roll2Midi training; roll inference, Roll2Midi, synthesis, MIDI, "
         "metrics")
     t0 = time.perf_counter()
     phase_audeo(torch)
     log(f"  phase 23: {time.perf_counter() - t0:.2f} s")
     torch.cuda.empty_cache()
-    log("[24a/25] weights in: seeded tensors in the published layouts of "
+    log("[26b/26] TP 2, two ranks sharing the card through gloo over CUDA "
+        "tensors, full width: ViT-bigG 64 frames, the 25-step sample, one "
+        f"train step ({TRAIN_BATCH} x {TRAIN_LATENTS}), each against the "
+        "unsharded port; the multichip dry run beside them; in the "
+        "background of phase 24a")
+    tp_run = phase_26_start(tp_dir)
+    log("[24a/26] weights in: seeded tensors in the published layouts of "
         "ViT-bigG, FLAN-T5-large, EnCodec 24 kHz, DINOv2-giant, "
         "ConvNeXt-XXLarge, ViT-L/336 and Video2Roll; python -m "
         "v2ap_torch.convert; load_weights; generate")
     t0 = time.perf_counter()
-    phase_24(torch, frames)
-    log(f"  phase 24: {time.perf_counter() - t0:.2f} s")
+    tp_ranks = []
+
+    def finish_26b():
+        tp_ranks.extend(phase_26_finish(tp_run))
+        shutil.rmtree(tp_dir, ignore_errors=True)
+        log(f"  phase 26b: {time.perf_counter() - tp_run['t0']:.2f} s from "
+            f"its start (with phase 24a) to its end")
+
+    try:
+        phase_24(torch, frames, after_24a=finish_26b)
+    finally:
+        phase_26_stop(tp_run)     # idempotent; stops them if 24a failed
+        log(f"  phase 24 (24a beside 26b): "
+            f"{time.perf_counter() - t0:.2f} s")
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     phase_25(torch)
@@ -4897,8 +5527,13 @@ def main() -> int:
     # one clip_vit2 generate (phase 22)
     main_case["K2_CLIP_L"] = K2_CLIP_L
     meta["K2_CLIP_L"] = meta["K2"]
+    # and a third: TP's local heads, the launches of one rank's sharded
+    # ViT-bigG chunk (phase 26b)
+    main_case["K2_TP"] = K2_TP
+    meta["K2_TP"] = meta["K2"]
     launches = {**{kid: counts[name] for kid, (name, _, _) in meta.items()},
-                "K2_CLIP_L": k2_clip_l}
+                "K2_CLIP_L": k2_clip_l,
+                "K2_TP": tp_ranks[0]["tower_launches"]["flash_attention"]}
     entries = []
     for kid, (name, source, replaces) in meta.items():
         c = kern[kid]["cases"][main_case[kid]]

@@ -156,12 +156,16 @@ def test_generator_matches_jax(enhance):
     dropout off), then the running statistics after the train call."""
     jm, tm = _gen_pair(enhance, 1)
     roll, _ = _windows(2)
-    want = np.asarray(jm(jnp.asarray(roll)))
+    # each call one compiled program (eager dispatch compiles every
+    # primitive); train mode updates jm's statistics as the eager call does
+    run = nnx.jit(lambda m, x, train: m(x, train=train),
+                  static_argnames="train")
+    want = np.asarray(run(jm, jnp.asarray(roll), False))
     with torch.no_grad():
         got = tm(T(roll))
     assert got.shape == want.shape == roll.shape
     assert rel_rms(N(got), want) < REL_RMS
-    want = np.asarray(jm(jnp.asarray(roll), train=True))
+    want = np.asarray(run(jm, jnp.asarray(roll), True))
     with torch.no_grad():
         got = tm(T(roll), train=True)
     assert rel_rms(N(got), want) < REL_RMS
@@ -207,8 +211,9 @@ def _no_dropout(gen):
 
 
 def _jax_grads(model, loss_fn) -> dict:
-    """{dotted path: gradient} of ``loss_fn`` at a JAX model's parameters."""
-    grads = nnx.grad(loss_fn)(model)
+    """{dotted path: gradient} of ``loss_fn`` at a JAX model's parameters,
+    compiled as one program (eager dispatch compiles every primitive)."""
+    grads = nnx.jit(nnx.grad(loss_fn))(model)
     return {".".join(map(str, p)): np.asarray(v[...])
             for p, v in nnx.to_flat_state(grads)}
 
@@ -423,7 +428,10 @@ def test_video2roll_net_train_flag_matches_jax():
     randomize_params_and_stats(jm, 11)
     tm = _port_state(jm, t_v2r.Video2RollNet)
     x = np.random.default_rng(12).random((2, 5, 100, 900)).astype(np.float32)
-    want = np.asarray(jm(jnp.asarray(x), train=True))
+    # one compiled program (eager dispatch compiles every primitive); the
+    # batch statistics update jm as the eager call does
+    want = np.asarray(nnx.jit(lambda m, x: m(x, train=True))(
+        jm, jnp.asarray(x)))
     with torch.no_grad():
         got = tm(T(x), train=True)
     assert rel_rms(N(got), want) < REL_RMS
@@ -520,7 +528,10 @@ def test_video2roll_infer_chunks_match_jax(tmp_path):
     tm = _port_state(jm, t_v2r.Video2RollNet)
     strips = np.random.default_rng(17).random((60, 100, 900)
                                               ).astype(np.float32)
-    want = j_ds.video2roll_infer_chunks(jm, strips)
+    # the net as one compiled program (eager dispatch compiles every
+    # primitive)
+    fwd = nnx.jit(lambda m, x: m(x))
+    want = j_ds.video2roll_infer_chunks(lambda x: fwd(jm, x), strips)
     got = t_ds.video2roll_infer_chunks(tm, strips)
     for (_, _, gl, gr), (_, _, wl, wr) in zip(got, want):
         assert rel_rms(gl, wl) < REL_RMS
@@ -594,8 +605,10 @@ def test_roll2midi_infer_with_the_generator_matches_jax():
               for _ in range(2)]
     probe = {}
 
+    fwd = nnx.jit(lambda g, x: g(x))     # one compiled program
+
     def j_fn(g, x):
-        probe["j"] = np.asarray(g(x))
+        probe["j"] = np.asarray(fwd(g, x))
         return probe["j"]
 
     def t_fn(g, x):

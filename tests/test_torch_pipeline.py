@@ -723,17 +723,20 @@ def test_int8_tower_default_follows_jax(monkeypatch, tmp_path, env, gate,
 @pytest.mark.parametrize("var", ["V2AP_INT8_CFM", "V2AP_SHIP_YUV420",
                                  "V2AP_SHIP_STRIP_HALF"])
 def test_other_result_switches_raise(monkeypatch, var):
-    """The JAX pipeline's other switches that change its result: the
-    wire-level shipping modes raise when on; the int8 CFM is ported, and
-    V2AP_INT8_CFM=1 builds it (every ``Linear`` of the CFM in int8, the
-    roll cache tagged "int8", as JAX tags it)."""
+    """The JAX pipeline's other switches that change its result, each
+    ported and read as JAX reads it: V2AP_INT8_CFM=1 builds the int8 CFM
+    (every ``Linear`` of the CFM in int8, the roll cache tagged "int8"),
+    the wire-level shipping modes tag the caches as JAX's ("+yuv420" on
+    the features; "+shalf" on the roll, with strip stride 1)."""
     monkeypatch.setenv(var, "1")
+    tp = _port_pipeline(_cfg(t_config))
     if var == "V2AP_INT8_CFM":
-        tp = _port_pipeline(_cfg(t_config))
         assert tp.quantize_cfm and tp._roll_tag == "int8"
-        return
-    with pytest.raises(NotImplementedError, match=var.split("_", 1)[1]):
-        _port_pipeline(_cfg(t_config))
+    elif var == "V2AP_SHIP_YUV420":
+        assert tp.ship_yuv420 and tp._tower_tag.endswith("+yuv420")
+    else:
+        assert tp.ship_strip_half and tp.strip_stride == 1
+        assert tp._roll_tag == "bf16+shalf"
 
 
 def test_generate_to_file_writes_the_wav_without_ffmpeg(pipelines, tmp_path):

@@ -106,11 +106,11 @@ def test_loaded_pred_head_matches_jax(loaded):
     ctx, t = r(B, NC, mc.dim_context), np.array([0.3, 0.8], np.float32)
     mask = np.array([[True] * N_LAT, [True] * (N_LAT - 5) + [False] * 5])
     cmask = np.array([[True] * NC, [True, True, False, False]])
-    want = jm.pred_head(jnp.asarray(x), None, times=jnp.asarray(t),
-                        mask=jnp.asarray(mask), text_embed=jnp.asarray(text),
-                        frames_embed=jnp.asarray(roll),
-                        context=jnp.asarray(ctx),
-                        context_mask=jnp.asarray(cmask))
+    # one compiled program (eager dispatch compiles every primitive)
+    want = nnx.jit(lambda m, *a: m.pred_head(
+        a[0], None, times=a[1], mask=a[2], text_embed=a[3],
+        frames_embed=a[4], context=a[5], context_mask=a[6]))(
+        jm, *map(jnp.asarray, (x, t, mask, text, roll, ctx, cmask)))
     with torch.no_grad():
         got = tm.pred_head(T(x), None, times=T(t), mask=T(mask),
                            text_embed=T(text), frames_embed=T(roll),

@@ -208,9 +208,10 @@ def test_duration_predictor_forward_matches_jax(predictor_pair, kind):
     latents, tokens, lens = _predictor_inputs(cfg)
     tok = None if kind == "no_tokens" else tokens
     le = None if kind == "no_lens" else lens
-    want = np.asarray(jm(jnp.asarray(latents),
-                         None if tok is None else jnp.asarray(tok),
-                         None if le is None else jnp.asarray(le)))
+    # one compiled program (eager dispatch compiles every primitive)
+    want = np.asarray(nnx.jit(lambda m, *a: m(*a))(
+        jm, jnp.asarray(latents), None if tok is None else jnp.asarray(tok),
+        None if le is None else jnp.asarray(le)))
     with torch.no_grad():
         got = N(tm(T(latents), None if tok is None else T(tok),
                    None if le is None else T(le)))
@@ -236,7 +237,8 @@ def test_duration_predictor_loss_and_grads_match_jax(predictor_pair):
         return m.loss(jnp.asarray(latents), jnp.asarray(tokens),
                       jnp.asarray(lens), key)
 
-    want, jgrads = nnx.value_and_grad(jloss)(jm)
+    # one compiled program (eager dispatch compiles every primitive)
+    want, jgrads = nnx.jit(nnx.value_and_grad(jloss))(jm)
     tm.zero_grad()
     got = tm.loss(T(latents), T(tokens), T(lens), frac=T(frac))
     got.backward()

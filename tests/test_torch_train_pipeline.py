@@ -380,9 +380,7 @@ def test_train_cli_config_and_remat(tmp_path):
     assert parse(("remat_policy", "full")).model.remat_policy == "full"
     j_cfg = j_config.variant_preset("crossatt3_2")
     t_cfg = t_config.V2APConfig.from_json(j_cfg.to_json())
-    d = j_cfg.to_dict()
-    d.pop("mesh")
-    assert t_cfg.to_dict() == d
+    assert t_cfg.to_dict() == j_cfg.to_dict()
     assert t_config.V2APConfig.from_json(t_cfg.to_json()) == t_cfg
 
 
@@ -406,9 +404,7 @@ def test_train_cli_video_encoder_matches_jax(mode):
     t_cfg, j_cfg = t_train.build_config(args), j_train.build_config(args)
     assert t_cfg.conditioning.video_encoder == mode
     assert t_cfg.model.dim_text_raw == (4608 if mode == "mixed" else None)
-    d = j_cfg.to_dict()
-    d.pop("mesh")
-    assert t_cfg.to_dict() == d
+    assert t_cfg.to_dict() == j_cfg.to_dict()
 
 
 @pytest.mark.parametrize("args", [
@@ -416,8 +412,9 @@ def test_train_cli_video_encoder_matches_jax(mode):
 def test_train_cli_multihost_options_are_honoured(args, tmp_path, media,
                                                   monkeypatch, capsys):
     """As JAX's ``scripts/train.py`` on one device: ``--host-id`` /
-    ``--num-hosts`` reach ``TrainBatcher`` (defaults 0 and 1), and
-    ``--no-mesh`` trains (the port builds no mesh either way)."""
+    ``--num-hosts`` reach ``TrainBatcher`` (defaults 0 and 1, from
+    ``host_shard_info`` in one process), and ``--no-mesh`` trains (one
+    process builds no mesh either way)."""
     from v2ap_torch.data import dataset as t_data
 
     root = str(tmp_path / "corpus")
@@ -483,14 +480,18 @@ def test_train_cli_two_stream_dpo_contrastive(args, tmp_path, media):
 
 def test_config_presets_match_jax():
     for name in t_config.VARIANTS:
-        assert t_config.variant_preset(name).to_dict() == {
-            k: v for k, v in j_config.variant_preset(name).to_dict().items()
-            if k != "mesh"}
-    t, j = t_config.tiny_tower_test(), j_config.tiny_tower_test()
-    assert t.to_dict() == {k: v for k, v in j.to_dict().items()
-                           if k != "mesh"}
-    with pytest.raises(NotImplementedError, match="mesh"):
-        t_config.V2APConfig.from_dict({"mesh": {"model_parallel": 2}})
+        assert t_config.variant_preset(name).to_dict() == \
+            j_config.variant_preset(name).to_dict()
+    for name in ("tiny_tower_test", "dryrun_test"):
+        assert getattr(t_config, name)().to_dict() == \
+            getattr(j_config, name)().to_dict()
+    mesh = {"data_axis": "d", "model_axis": "m", "data_parallel": 2,
+            "model_parallel": 2}
+    t = t_config.V2APConfig.from_dict({"mesh": mesh})
+    assert t.mesh == t_config.MeshConfig(**mesh)
+    assert t.to_dict()["mesh"] == \
+        j_config.V2APConfig.from_dict({"mesh": mesh}).to_dict()["mesh"]
+    assert t_config.V2APConfig.from_json(t.to_json()) == t
     with pytest.raises(KeyError):
         t_config.V2APConfig.from_dict({"model": {"bogus": 1}})
 

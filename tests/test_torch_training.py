@@ -176,19 +176,30 @@ def loss_pair(request):
     return request.param, jm, tm, jcfg, jcond
 
 
+_VG_PROGRAMS: dict = {}
+
+
 def _jax_value_and_grad(jm, batch, **kw):
-    @nnx.jit
-    def run(m):
-        def f(m):
-            out = m.loss(jnp.asarray(batch["latents"]),
-                         lens=jnp.asarray(batch["lens"]),
-                         text_embed=jnp.asarray(batch["text_embed"]),
-                         context=jnp.asarray(batch["context"]),
-                         context_mask=jnp.asarray(batch["context_mask"]),
-                         **kw)
-            return out.loss, (out.per_sample_flow, out.pred_flow)
-        return nnx.value_and_grad(f, has_aux=True)(m)
-    return run(jm)
+    """JAX's loss (with per_sample_flow and pred_flow) and gradient at
+    ``batch``: one compiled program per set of non-array arguments, the
+    batch and the array arguments passed in, so that equal shapes reuse
+    it."""
+    arrays = {k: v for k, v in kw.items() if isinstance(v, jax.Array)}
+    static = tuple(sorted((k, v) for k, v in kw.items() if k not in arrays))
+    run = _VG_PROGRAMS.get(static)
+    if run is None:
+        @nnx.jit
+        def run(m, b, arrays):
+            def f(m):
+                out = m.loss(b["latents"], lens=b["lens"],
+                             text_embed=b["text_embed"],
+                             context=b["context"],
+                             context_mask=b["context_mask"],
+                             **arrays, **dict(static))
+                return out.loss, (out.per_sample_flow, out.pred_flow)
+            return nnx.value_and_grad(f, has_aux=True)(m)
+        _VG_PROGRAMS[static] = run
+    return run(jm, {k: jnp.asarray(v) for k, v in batch.items()}, arrays)
 
 
 def _check_loss_and_grads(tm, ref, out):

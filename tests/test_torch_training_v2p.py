@@ -91,15 +91,28 @@ def _jax_loss_kw(batch):
                 midis=jnp.asarray(batch["midis"]))
 
 
+_VG_PROGRAMS: dict = {}
+
+
 def _jax_value_and_grad(jm, batch, **kw):
-    @nnx.jit
-    def run(m):
-        def f(m):
-            out = m.loss(jnp.asarray(batch["latents"]), **_jax_loss_kw(batch),
-                         **kw)
-            return out.loss, out.breakdown
-        return nnx.value_and_grad(f, has_aux=True)(m)
-    return run(jm)
+    """JAX's loss (with its breakdown) and gradient at ``batch``: one
+    compiled program per set of non-array arguments, the batch and the
+    array arguments passed in, so that equal shapes reuse it."""
+    arrays = {k: v for k, v in kw.items() if isinstance(v, jax.Array)}
+    static = tuple(sorted((k, v) for k, v in kw.items() if k not in arrays))
+    run = _VG_PROGRAMS.get(static)
+    if run is None:
+        @nnx.jit
+        def run(m, b, arrays):
+            def f(m):
+                out = m.loss(b["latents"], **{k: b[k] for k in b
+                                              if k != "latents"},
+                             **arrays, **dict(static))
+                return out.loss, out.breakdown
+            return nnx.value_and_grad(f, has_aux=True)(m)
+        _VG_PROGRAMS[static] = run
+    return run(jm, {k: v for k, v in _jax_loss_kw(batch).items()}
+               | {"latents": jnp.asarray(batch["latents"])}, arrays)
 
 
 def _port_loss(tm, batch, **kw):

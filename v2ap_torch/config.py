@@ -1,10 +1,10 @@
 """Typed configuration for the PyTorch port.
 
 A copy of ``v2ap_tpu.config`` (the port imports nothing of the JAX
-package) without ``MeshConfig``, which belongs to parallelism, not ported
-yet. The field names, defaults and meanings are the JAX package's, so one
-configuration drives both, and ``V2APConfig.from_json`` reads what the JAX
-package's ``to_json`` writes (its ``mesh`` section must hold the defaults).
+package). The field names, defaults and meanings are the JAX package's, so
+one configuration drives both, and ``V2APConfig.from_json`` reads what the
+JAX package's ``to_json`` writes, its ``mesh`` section included
+(``MeshConfig``: the data x model process mesh of ``v2ap_torch.parallel``).
 ``ModelConfig.dtype`` is the compute dtype: matmul inputs are cast to it,
 parameters stay float32, norms and softmax run in float32.
 """
@@ -141,6 +141,18 @@ class DataConfig:
 
 
 @dataclass(frozen=True)
+class MeshConfig:
+    """The data x model mesh of ``v2ap_torch.parallel.make_mesh``: one rank
+    per device, ``data_parallel`` rows (-1: every rank over
+    ``model_parallel``) of ``model_parallel`` tensor-parallel ranks."""
+
+    data_axis: str = "data"
+    model_axis: str = "model"
+    data_parallel: int = -1                     # -1 == all ranks
+    model_parallel: int = 1
+
+
+@dataclass(frozen=True)
 class TrainConfig:
     learning_rate: float = 7.5e-5
     warmup_steps: int = 20_000
@@ -171,6 +183,7 @@ class V2APConfig:
     sampler: SamplerConfig = field(default_factory=SamplerConfig)
     conditioning: ConditioningConfig = field(default_factory=ConditioningConfig)
     data: DataConfig = field(default_factory=DataConfig)
+    mesh: MeshConfig = field(default_factory=MeshConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
 
     # ------------------------------------------------------------------ io
@@ -195,16 +208,12 @@ class V2APConfig:
                             "mesh", "train"}
         if unknown:
             raise KeyError(f"unknown config sections {sorted(unknown)}")
-        mesh = {k: v for k, v in d.get("mesh", {}).items()
-                if _MESH_DEFAULTS.get(k, object()) != v}
-        if mesh:
-            raise NotImplementedError(f"mesh {mesh}: parallelism is not "
-                                      f"ported yet")
         return cls(
             model=build(ModelConfig, d.get("model", {})),
             sampler=build(SamplerConfig, d.get("sampler", {})),
             conditioning=build(ConditioningConfig, d.get("conditioning", {})),
             data=build(DataConfig, d.get("data", {})),
+            mesh=build(MeshConfig, d.get("mesh", {})),
             train=build(TrainConfig, d.get("train", {})),
         )
 
@@ -214,11 +223,6 @@ class V2APConfig:
 
     def replace(self, **sections: Any) -> "V2APConfig":
         return dataclasses.replace(self, **sections)
-
-
-# the JAX package's MeshConfig defaults: the one mesh section the port reads
-_MESH_DEFAULTS = {"data_axis": "data", "model_axis": "model",
-                  "data_parallel": -1, "model_parallel": 1}
 
 
 def v2a_default() -> V2APConfig:
@@ -286,3 +290,11 @@ def tiny_test() -> V2APConfig:
         conditioning=dataclasses.replace(cfg.conditioning, frame_stride=1,
                                          strip_stride=1),
     )
+
+
+def dryrun_test() -> V2APConfig:
+    """tiny_test at depth 2 (one U-Net down / up pair): the config of the
+    multichip dry run (``python -m v2ap_torch.parallel.dryrun``)."""
+    cfg = tiny_test()
+    return cfg.replace(
+        model=dataclasses.replace(cfg.model, depth=2, text_depth=2))

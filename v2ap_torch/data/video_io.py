@@ -2,9 +2,10 @@
 interpolation plans of the CLIP and piano streams.
 
 A copy of the parts of ``v2ap_tpu/data/video_io.py`` the serving slices
-use. OpenCV is imported only when a file is decoded or frames are turned
-into strips; callers that already hold decoded frames and strips
-(``frames_cache``, ``strips_cache``) need none.
+use, with the streaming reader (``VideoChunkReader``) and the strip-half
+pack of the wire modes. OpenCV is imported only when a file is decoded or
+frames are turned into strips; callers that already hold decoded frames
+and strips (``frames_cache``, ``strips_cache``) need none.
 
 Interpolation: one conditioning row per ``frame_size`` samples; at frame
 stride 1 row i maps to source frame ``round(t_i / frame_dt)`` clamped (the
@@ -22,6 +23,66 @@ import numpy as np
 
 SAMPLE_RATE = 24_000
 FRAME_SIZE = 320
+
+
+class VideoChunkReader:
+    """Streaming decode: yields uint8 RGB chunks of up to ``chunk`` frames,
+    so that each chunk goes through the towers while the decoder reads the
+    next (``V2AP_STREAM_DECODE=1``). ``duration`` is set once the iterator
+    is exhausted; ``failed`` when the frame shape changes mid-stream (as
+    ``read_video_frames`` fails on it). Needs cv2 (OpenCV): without it the
+    constructor raises."""
+
+    def __init__(self, path: str, chunk: int):
+        try:
+            import cv2
+        except ImportError as exc:
+            raise ImportError("VideoChunkReader decodes with cv2 (OpenCV), "
+                              "which is not installed; hand decoded frames "
+                              "in through frames_cache instead") from exc
+        self._cv2 = cv2
+        self.chunk = chunk
+        self.cap = cv2.VideoCapture(path)
+        self.ok = self.cap.isOpened()
+        self.fps = self.cap.get(cv2.CAP_PROP_FPS) if self.ok else 0.0
+        self.frames_read = 0
+        self.failed = False
+        self.duration: Optional[float] = None
+
+    def __iter__(self):
+        if not self.ok:
+            return
+        cv2 = self._cv2
+        buf = None
+        while True:
+            if buf is None:
+                ok, frame = self.cap.read()
+                if not ok:
+                    break
+                buf = np.empty((self.chunk,) + frame.shape, np.uint8)
+                cv2.cvtColor(frame, cv2.COLOR_BGR2RGB, dst=buf[0])
+                n = 1
+            else:
+                n = 0
+            while n < self.chunk:
+                ok, frame = self.cap.read()
+                if not ok:
+                    break
+                if frame.shape != buf.shape[1:]:
+                    self.failed = True
+                    break
+                cv2.cvtColor(frame, cv2.COLOR_BGR2RGB, dst=buf[n])
+                n += 1
+            if n == 0 or self.failed:
+                break
+            self.frames_read += n
+            yield buf[:n]
+            if n < self.chunk:
+                break
+            buf = np.empty_like(buf)     # the last chunk may still be in use
+        self.cap.release()
+        self.duration = (self.frames_read / self.fps if self.fps > 0
+                         else self.frames_read / 25.0)
 
 
 def read_video_frames(path: str, max_frames: Optional[int] = None,
@@ -196,6 +257,17 @@ def piano_preprocess(frames: np.ndarray, width: int = 900, height: int = 100
         for i in range(len(frames)):
             work(i)
     return out
+
+
+def pack_strips_half(strips: np.ndarray) -> np.ndarray:
+    """Keyboard strips halved along the key axis (the last dim) by exact
+    uint8 pair means, rounding half up: the host side of the strip-half
+    shipping mode (``V2AP_SHIP_STRIP_HALF``); the device upsamples back
+    (``models.video2roll.upsample_strips_2x``)."""
+    assert strips.shape[-1] % 2 == 0, strips.shape
+    a = strips[..., 0::2].astype(np.uint16)
+    b = strips[..., 1::2].astype(np.uint16)
+    return ((a + b + 1) >> 1).astype(np.uint8)
 
 
 def probe_duration(path: str) -> Optional[float]:

@@ -391,6 +391,7 @@ class CFM(nn.Module):
         train_video_encoder: bool = True,
         use_midi_gt: bool = False,
         collect_hidden_layer: Optional[int] = None,
+        psum=None,
     ) -> CFMOutput:
         """Flow-matching training objective: span mask, x0 and t,
         w = (1-t) x0 + t x1 against the flow x1 - x0, per-sample dropout of
@@ -406,7 +407,13 @@ class CFM(nn.Module):
         ``train_video_encoder=False`` feeds the ground truth instead and
         adds no MIDI loss, ``use_midi_gt`` feeds the ground truth while
         still training Video2Roll. ``collect_hidden_layer`` puts that
-        layer's (audio, CLIP-stream) hiddens in ``CFMOutput.hiddens``."""
+        layer's (audio, CLIP-stream) hiddens in ``CFMOutput.hiddens``.
+
+        ``psum`` (the data-parallel train step's sum over the data group,
+        its gradient passed through) reduces each masked sum and masked
+        count, and the roll metrics' counts, before the ratio: the losses
+        are the global batch's, not a mean of the ranks' means."""
+        psum = psum or (lambda t: t)
         cc = self.cond_cfg
         b, n, c = x1.shape
         dev = x1.device
@@ -444,9 +451,10 @@ class CFM(nn.Module):
             if train_video_encoder:
                 roll = self.encode_frames(frames.to(dev), n)
                 per = (roll - midis_eff) ** 2 * (midis_eff - 0.10).abs()
-                loss_midi = torch.where(mask[..., None], per, 0.0).sum() / \
-                    torch.clamp(mask.sum() * self.cfg.notes, min=1)
-                pre, rec, f1, acc = roll_metrics(roll, midis_eff, mask)
+                num = torch.where(mask[..., None], per, 0.0).sum()
+                loss_midi = psum(num) / torch.clamp(
+                    psum(mask.sum() * self.cfg.notes), min=1)
+                pre, rec, f1, acc = roll_metrics(roll, midis_eff, mask, psum)
                 if not use_midi_gt:
                     frames_embed = roll
 
@@ -473,8 +481,8 @@ class CFM(nn.Module):
         if collect_hidden_layer is not None:
             pred, hiddens = pred
         per = (pred - flow) ** 2
-        loss_flow = torch.where(span_mask[..., None], per, 0.0).sum() / \
-            torch.clamp(span_mask.sum() * c, min=1)
+        loss_flow = psum(torch.where(span_mask[..., None], per, 0.0).sum()) / \
+            torch.clamp(psum(span_mask.sum() * c), min=1)
         per_sample = (per.mean(-1) * span_mask).mean(-1)
         breakdown = LossBreakdown(loss_flow, loss_midi, pre, rec, f1, acc)
         return CFMOutput(loss_flow + loss_midi * midi_loss_weight, pred,
@@ -488,20 +496,23 @@ class CFM(nn.Module):
         return self.loss(*args, **kwargs)
 
 
-def roll_metrics(probs: torch.Tensor, gt: torch.Tensor, mask: torch.Tensor):
+def roll_metrics(probs: torch.Tensor, gt: torch.Tensor, mask: torch.Tensor,
+                 psum=None):
     """Precision, recall, F1 and accuracy of a roll at 25 Hz: rolls and
     mask mean-pooled over 3 frames, a note on where the prediction is
     >= 0.4 and the ground truth >= 0.5, pooled frames whose mask mean is
-    >= 0.99 counted; each 0 where its denominator is."""
+    >= 0.99 counted; each 0 where its denominator is. ``psum`` sums the
+    counts over the data group (the global batch's metrics)."""
+    psum = psum or (lambda t: t)
     b, t, f = probs.shape
     t3 = (t // 3) * 3
     p3 = probs[:, :t3].reshape(b, t3 // 3, 3, f).mean(dim=2)
     g3 = gt[:, :t3].reshape(b, t3 // 3, 3, f).mean(dim=2)
     m3 = (mask[:, :t3].reshape(b, t3 // 3, 3).float().mean(dim=2)
           >= 0.99)[..., None]
-    tp = ((p3 >= 0.4) & (g3 >= 0.5) & m3).sum().float()
-    fp = ((p3 >= 0.4) & (g3 < 0.5) & m3).sum().float()
-    fn = ((p3 < 0.4) & (g3 >= 0.5) & m3).sum().float()
+    tp = psum(((p3 >= 0.4) & (g3 >= 0.5) & m3).sum().float())
+    fp = psum(((p3 >= 0.4) & (g3 < 0.5) & m3).sum().float())
+    fn = psum(((p3 < 0.4) & (g3 >= 0.5) & m3).sum().float())
 
     def ratio(num, den):
         return torch.where(den > 0, num / torch.clamp(den, min=1), 0.0)

@@ -118,7 +118,7 @@ class CLIPAttention(nn.Module):
 
         out = flash_attention(split(self.q(x)), split(self.k(x)),
                               split(self.v(x)), scale=self.dh ** -0.5)
-        return self.o(out.to(x.dtype).transpose(1, 2).reshape(b, n, d))
+        return self.o(out.to(x.dtype).transpose(1, 2).reshape(b, n, -1))
 
 
 class CLIPBlock(nn.Module):
@@ -275,4 +275,51 @@ def device_normalize(px: torch.Tensor, mean, std) -> torch.Tensor:
     x = px.float() / 255.0
     mean = torch.as_tensor(mean, dtype=torch.float32, device=px.device)
     std = torch.as_tensor(std, dtype=torch.float32, device=px.device)
+    return (x - mean) / std
+
+
+# ---------------------------------------------------------------- YUV 4:2:0
+# The pixel-shipping mode ``V2AP_SHIP_YUV420``: tower-resolution frames
+# pack on the host to full-range BT.601 YUV with 2x2-averaged chroma (1.5
+# bytes a pixel instead of 3) and unpack on the device before the tower.
+# The forward and inverse transforms are exactly consistent, so the loss is
+# the uint8 rounding and the chroma averaging only.
+
+def pack_yuv420(px: np.ndarray):
+    """uint8 RGB (t, S, S, 3), S even -> (y: (t, S, S) uint8, uv: (t, 2,
+    S/2, S/2) uint8), on the host: the JAX package's numpy path (its native
+    fixed-point one agrees with it to 1 LSB)."""
+    f = px.astype(np.float32)
+    r, g, b = f[..., 0], f[..., 1], f[..., 2]
+    y = 0.299 * r + 0.587 * g + 0.114 * b
+    cb = 128.0 + (b - y) / 1.772
+    cr = 128.0 + (r - y) / 1.402
+    t, s, _ = y.shape
+    h = s // 2
+
+    def sub(c):
+        return c.reshape(t, h, 2, h, 2).mean(axis=(2, 4))
+
+    y8 = np.clip(y + 0.5, 0, 255).astype(np.uint8)
+    uv = np.stack([sub(cb), sub(cr)], axis=1)
+    uv8 = np.clip(uv + 0.5, 0, 255).astype(np.uint8)
+    return y8, uv8
+
+
+def unpack_yuv420(y: torch.Tensor, uv: torch.Tensor, mean, std
+                  ) -> torch.Tensor:
+    """The device-side inverse of ``pack_yuv420`` and the tower's
+    normalisation: (t, S, S) uint8 + (t, 2, S/2, S/2) uint8 -> (t, S, S, 3)
+    normalised float32 on their device."""
+    yf = y.float()
+    uvf = uv.float() - 128.0
+    # nearest 2x upsample of the chroma planes
+    uvf = uvf.repeat_interleave(2, dim=-2).repeat_interleave(2, dim=-1)
+    cb, cr = uvf[:, 0], uvf[:, 1]
+    r = yf + 1.402 * cr
+    b = yf + 1.772 * cb
+    g = (yf - 0.299 * r - 0.114 * b) / 0.587
+    x = (torch.stack([r, g, b], dim=-1) / 255.0).clamp(0.0, 1.0)
+    mean = torch.as_tensor(mean, dtype=torch.float32, device=y.device)
+    std = torch.as_tensor(std, dtype=torch.float32, device=y.device)
     return (x - mean) / std

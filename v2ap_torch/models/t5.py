@@ -85,6 +85,8 @@ def relative_position_bucket(rel_pos: np.ndarray, num_buckets: int,
 
 
 class T5Attention(nn.Module):
+    head0 = 0            # the first head of a tensor-parallel rank
+
     def __init__(self, cfg: T5Config, has_bias: bool, *, dtype, device=None):
         super().__init__()
         inner = cfg.num_heads * cfg.d_kv
@@ -106,6 +108,8 @@ class T5Attention(nn.Module):
             return t.view(b, n, self.heads, self.d_kv).transpose(1, 2)
 
         q, k, v = split(self.q(x)), split(self.k(x)), split(self.v(x))
+        if pos_bias.shape[1] != self.heads:      # this rank's heads
+            pos_bias = pos_bias[:, self.head0: self.head0 + self.heads]
         s = torch.matmul(q.float(), k.float().transpose(-1, -2)) + pos_bias
         if mask is not None:            # T5: no 1/sqrt(d) scaling
             s = s.masked_fill(~mask[:, None, None, :], -1e30)

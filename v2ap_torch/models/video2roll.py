@@ -153,3 +153,17 @@ class Video2RollNet(nn.Module):
                             ).view(out1.shape).to(out1.dtype)
         out = self.conv2(att * p4) + p4
         return self.fc(out.mean(dim=(2, 3))).float()
+
+
+def upsample_strips_2x(x: torch.Tensor) -> torch.Tensor:
+    """Linear 2x upsample along the key axis (the last dim): the device side
+    of the strip-half shipping mode (``data.video_io.pack_strips_half``
+    packs on the host). Output j reads source position (j + 0.5) / 2 - 0.5,
+    edge-clamped, as the JAX package's."""
+    w2 = x.shape[-1]
+    pos = ((torch.arange(2 * w2, device=x.device, dtype=torch.float32)
+            + 0.5) / 2.0 - 0.5).clamp(0.0, w2 - 1.0)
+    i0 = pos.floor().long()
+    i1 = (i0 + 1).clamp(max=w2 - 1)
+    w = (pos - i0).to(x.dtype)
+    return x[..., i0] * (1.0 - w) + x[..., i1] * w

@@ -8,7 +8,10 @@ call, self and cross, goes through ``flash_attention_packed`` on the
 head-packed projections (K1 in serving, K3-K5 under autograd). In training
 (``deterministic=False``) dropout applies to the attention output rows
 before the value gates, as in the JAX package (not to the probabilities,
-which the flash kernels never materialise).
+which the flash kernels never materialise). Under tensor parallelism
+(``parallel.sharding``) ``heads`` is this rank's and ``tp`` holds the model
+group and the first head: the gates take those heads' rows of
+``to_v_gates``.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ from v2ap_torch.ops.rope import apply_rope
 
 
 class Attention(nn.Module):
+    tp = None
     def __init__(
         self,
         dim: int,
@@ -87,6 +91,18 @@ class Attention(nn.Module):
                                      softclamp=self.softclamp)
         out = self.dropout(out, deterministic=deterministic)
         if self.to_v_gates is not None:
-            gates = torch.sigmoid(self.to_v_gates(x))      # (b, n, heads)
+            gates = torch.sigmoid(self._gates(x))          # (b, n, heads)
             out = (out.unflatten(-1, (h, d)) * gates[..., None]).flatten(2)
         return self.to_out(out)
+
+    def _gates(self, x: torch.Tensor) -> torch.Tensor:
+        lin = self.to_v_gates
+        if self.tp is None:
+            return lin(x)
+        from v2ap_torch.parallel.distributed import column_product
+
+        group, h0 = self.tp
+        sl = slice(h0, h0 + self.heads)
+        dt = lin.dtype
+        bias = lin.bias[sl].to(dt) if lin.bias is not None else None
+        return column_product(x.to(dt), lin.weight[sl].to(dt), bias, group)

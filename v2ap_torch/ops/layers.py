@@ -30,9 +30,12 @@ def lecun_normal_(w: torch.Tensor, fan_in: int) -> torch.Tensor:
 class Linear(nn.Module):
     """y = x W^T + b computed in ``dtype``; W stored (out, in) in float32.
     ``int8`` (set by ``utils.quantize.quantize_linears_int8``) runs the
-    product as AQT's int8 one on the same stored weights."""
+    product as AQT's int8 one on the same stored weights. ``tp`` (set by
+    ``parallel.sharding.shard_model``) runs it tensor-parallel on this
+    rank's shard of W."""
 
     int8 = False
+    tp = None
 
     def __init__(self, in_features: int, out_features: int, *,
                  bias: bool = True, dtype: torch.dtype = torch.float32,
@@ -51,6 +54,8 @@ class Linear(nn.Module):
                      if bias else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.tp is not None:
+            return self.tp(self, x)
         dt = self.dtype
         bias = self.bias.to(dt) if self.bias is not None else None
         if self.int8:
@@ -215,7 +220,13 @@ class Dropout(nn.Module):
     with probability 1 - rate and scale the kept ones by 1 / (1 - rate).
     The keep-mask is drawn from ``generator``, an explicit seeded
     ``torch.Generator`` on the model's device (the owning model sets it);
-    with ``generator=None`` the device's default generator is used."""
+    with ``generator=None`` the device's default generator is used. Under
+    a mesh (``parallel.sharding.shard_model``) ``rows`` and ``cols`` are
+    (ranks, this rank's index) over the data and model axes: the mask is
+    drawn at the global shape, ``ranks`` times the local rows and columns,
+    and this rank takes its block of each, the unsharded model's mask."""
+
+    rows = cols = (1, 0)
 
     def __init__(self, rate: float = 0.0):
         super().__init__()
@@ -229,6 +240,11 @@ class Dropout(nn.Module):
         if deterministic or self.rate == 0.0:
             return x
         keep_prob = 1.0 - self.rate
-        keep = torch.rand(x.shape, generator=self.generator,
+        (nr, ir), (nc, ic) = self.rows, self.cols
+        b, c = x.shape[0], x.shape[-1]
+        shape = (nr * b,) + tuple(x.shape[1:-1]) + (nc * c,)
+        keep = torch.rand(shape, generator=self.generator,
                           device=x.device) < keep_prob
+        if nr > 1 or nc > 1:
+            keep = keep.narrow(0, ir * b, b).narrow(-1, ic * c, c)
         return torch.where(keep, x / keep_prob, 0.0)

@@ -10,8 +10,10 @@ Counterpart of ``v2ap_tpu/pipelines/merge.py``:
   * ``merge_wav_files``, the offline concat tool, with an optional
     crossfade.
 
-``generate_long`` has no ``mesh`` argument yet: spreading the chunk batch
-over several cards waits for the port of ``parallel/``.
+With ``mesh`` (``parallel.make_mesh``; the pipeline sharded first, by
+``V2APipeline.shard_serving``) the chunk batch pads to a multiple of the
+data axis's size, each data rank samples its block of chunks, and an
+all-gather rebuilds the batch before the decode and the crossfade.
 """
 
 from __future__ import annotations
@@ -23,7 +25,9 @@ import torch
 
 from v2ap_torch.config import SamplerConfig
 from v2ap_torch.data.audio_io import read_wav, write_wav
+from v2ap_torch.parallel.mesh import batch_sharding
 from v2ap_torch.pipelines.generate import bucket_length
+from v2ap_torch.utils.jitting import pad_batch
 
 
 def chunk_plan(duration_s: float, chunk_s: float = 10.0,
@@ -69,14 +73,15 @@ def generate_long(pipeline, video_path: Optional[str], prompt: str = "", *,
                   max_duration_s: float = 600.0,
                   frames_cache: Optional[list] = None,
                   strips_cache: Optional[list] = None,
-                  ) -> Tuple[np.ndarray, int]:
+                  mesh=None) -> Tuple[np.ndarray, int]:
     """Audio for a video of any length: one frame-feature pass over the
     whole video, the chunks of ``chunk_plan`` as one batch through the
     pipeline's sampler (x0 from ``pipeline._normal(seed, ...)``), then
     ``crossfade_concat``. The video comes as a path or decoded, through
     ``frames_cache`` / ``strips_cache`` as ``V2APipeline.generate`` takes
     them. An empty prompt is a zero context (T5 does not run); a prompt
-    goes through T5 once per chunk. Returns (float32 waveform, 24000)."""
+    goes through T5 once per chunk. ``mesh`` spreads the chunks over the
+    data axis (module docstring). Returns (float32 waveform, 24000)."""
     cfg = pipeline.cfg
     cond = cfg.conditioning
     sr = cond.sampling_rate
@@ -124,8 +129,16 @@ def generate_long(pipeline, video_path: Optional[str], prompt: str = "", *,
     mask = (torch.arange(n, device=dev)[None, :] < n_chunk).repeat(b, 1)
     x0 = pipeline._normal(seed, (b, n, cfg.model.num_channels))
     sampler = SamplerConfig(steps=steps, cfg_strength=cfg_strength)
-    latents = pipeline._sample(x0, text, frames_roll, ctx, ctx_mask, mask,
-                               sampler)
+    inputs = (x0, text, frames_roll, ctx, ctx_mask, mask)
+    if mesh is not None:
+        # the chunks pad to a multiple of the data axis (the last one
+        # repeated) and each data rank samples its block
+        rows = batch_sharding(mesh)
+        size = -(-b // rows.size) * rows.size
+        inputs = tuple(rows.shard(pad_batch(t, size)) for t in inputs)
+    latents = pipeline._sample(*inputs, sampler)
+    if mesh is not None:
+        latents = rows.gather(latents)[:b]
     wavs = pipeline.codec.decode(latents[:, :n_chunk]).cpu().numpy()
     wavs = wavs[:, : n_chunk * cond.frame_size]
     merged = crossfade_concat(wavs, int(overlap_s * sr)) if b > 1 else wavs[0]

@@ -26,10 +26,21 @@ the preference-pair corpus ``<root>/pairs.scp``), the host ``TrainBatcher``
 ``--work-dir/ckpts``. Remat is on with the ``dots`` policy unless
 ``--no-remat`` or ``--tiny``, as in JAX. ``--video-encoder`` picks the
 video tower(s) (``mixed``: the four concatenated, 4608-d through the CFM's
-``proj_text``). ``--host-id`` / ``--num-hosts`` stride the video and
-pair corpora per host in ``TrainBatcher`` (defaults 0 and 1, as JAX's on
-one process); ``--no-mesh`` is accepted and changes nothing, since the
-port trains on one device and builds no mesh.
+``proj_text``).
+
+Several processes, one per card (``torchrun``):
+
+    torchrun --nproc-per-node 8 -m v2ap_torch.train --corpora-root /data/scps
+
+``init_distributed`` forms the process group first (a single process
+forms none), and with more than one rank the ``MeshConfig`` of the config
+(``--config``'s ``mesh`` section; by default every rank data-parallel)
+becomes the mesh the CFM trains on, unless ``--no-mesh``. ``--host-id`` /
+``--num-hosts`` stride the video and pair corpora per rank in
+``TrainBatcher``; they default to ``host_shard_info()`` (rank, world size)
+without a mesh and to the rank's data index and the data axis's size with
+one (the ranks of a model group train on the same rows). Metrics are
+averaged over the ranks (``all_hosts_mean``) and written by rank 0.
 """
 
 from __future__ import annotations
@@ -118,14 +129,20 @@ def main(argv=None) -> int:
                     help="the miniature model and frozen towers")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda)")
-    ap.add_argument("--host-id", type=int, default=0,
-                    help="this host's index: the video and pair corpora "
-                         "are strided per host")
-    ap.add_argument("--num-hosts", type=int, default=1,
-                    help="hosts sharing the corpora")
+    ap.add_argument("--host-id", type=int, default=None,
+                    help="this process's index: the video and pair corpora "
+                         "are strided per host (default: from the process "
+                         "group, see above)")
+    ap.add_argument("--num-hosts", type=int, default=None,
+                    help="processes sharing the corpora")
     ap.add_argument("--no-mesh", action="store_true",
-                    help="build no device mesh (the port never builds one)")
+                    help="build no mesh over several ranks (single-device "
+                         "debugging)")
     args = ap.parse_args(argv)
+
+    from v2ap_torch.parallel.distributed import (host_shard_info,
+                                                 init_distributed)
+    init_distributed(device=args.device)
 
     from v2ap_torch.data.dataset import TrainBatcher
     from v2ap_torch.data.manifests import (CorpusSpec, default_corpora,
@@ -133,6 +150,18 @@ def main(argv=None) -> int:
     from v2ap_torch.training.pipeline import TrainingPipeline
 
     cfg = build_config(args)
+    host_id, num_hosts = host_shard_info()
+    mesh = None
+    if not args.no_mesh and num_hosts > 1:
+        from v2ap_torch.parallel import make_mesh
+        from v2ap_torch.parallel.mesh import mesh_axes
+
+        mesh = make_mesh(cfg.mesh)
+        _, num_hosts, host_id, *_ = mesh_axes(mesh)
+    if args.host_id is not None:
+        host_id = args.host_id
+    if args.num_hosts is not None:
+        num_hosts = args.num_hosts
     specs = default_corpora(args.corpora_root)
     if cfg.train.dpo:
         # the preference pairs: a*/b* files of one clip (winner / loser)
@@ -145,7 +174,7 @@ def main(argv=None) -> int:
         return 2
     batcher = TrainBatcher(samples, cfg.data,
                            batch_size=cfg.train.batch_size,
-                           host_id=args.host_id, num_hosts=args.num_hosts,
+                           host_id=host_id, num_hosts=num_hosts,
                            seed=args.seed, dpo=cfg.train.dpo,
                            micro_batches=cfg.train.grad_accum)
     eval_batcher = None
@@ -161,7 +190,7 @@ def main(argv=None) -> int:
         from v2ap_torch.models.t5 import t5_tiny_test
         tower_kw = dict(t5_config=t5_tiny_test(), clip_config=clip_tiny_test())
     pipeline = TrainingPipeline(cfg, seed=args.seed, work_dir=args.work_dir,
-                                device=args.device, **tower_kw)
+                                device=args.device, mesh=mesh, **tower_kw)
     final = pipeline.fit(batcher, num_steps=args.steps,
                          eval_batcher=eval_batcher, seed=args.seed)
     print(f"finished at step {final}")

@@ -1,8 +1,13 @@
 """End-to-end training: corpora -> batches -> device encoders -> train step
 -> eval and checkpoints.
 
-Counterpart of ``v2ap_tpu/training/pipeline.py`` on one device (the JAX
-package's device mesh belongs to parallelism, not ported yet):
+Counterpart of ``v2ap_tpu/training/pipeline.py``. With ``mesh``
+(``parallel.make_mesh``) the CFM is sharded by the tensor-parallel rules
+and the trainer steps on the mesh (``Trainer(mesh=)``): each rank encodes
+its own batcher's batch (``TrainBatcher(host_id=, num_hosts=)`` over the
+data axis; the ranks of one model group share theirs), which is its
+rows of the global batch, and metrics are averaged over the ranks
+(``all_hosts_mean``):
 
   host:   TrainBatcher (manifests, mixing, blacklists, 50 % video-prompt
           flip)
@@ -30,6 +35,7 @@ import numpy as np
 import torch
 
 from v2ap_torch.config import V2APConfig
+from v2ap_torch.parallel.distributed import all_hosts_mean, host_shard_info
 from v2ap_torch.pipelines.generate import V2APipeline
 from v2ap_torch.training.resilience import AutoResumer, Watchdog
 from v2ap_torch.training.trainer import Trainer
@@ -42,11 +48,14 @@ class TrainingPipeline:
     MIDI loss), its frozen encoders (bf16 towers, never int8), a ``Trainer``
     with ``cfg.train``, checkpoints under ``work_dir/ckpts``, the heartbeat
     ``work_dir/heartbeat.json`` and metrics under ``work_dir/logs``.
-    ``device=None`` means CUDA."""
+    ``device=None`` means CUDA. ``mesh`` shards the CFM and the step over
+    the mesh's ranks (module docstring); only rank 0 writes the heartbeat,
+    the metrics and (gathered) checkpoints."""
 
     def __init__(self, cfg: V2APConfig | None = None, *, seed: int = 0,
                  work_dir: str = "runs/v2ap", t5_config=None,
-                 clip_config=None, encodec_config=None, device=None):
+                 clip_config=None, encodec_config=None, device=None,
+                 mesh=None):
         self.cfg = cfg or V2APConfig()
         self.work_dir = work_dir
         os.makedirs(work_dir, exist_ok=True)
@@ -55,7 +64,9 @@ class TrainingPipeline:
                                 encodec_config=encodec_config,
                                 quantize_towers=False, trainable_cfm=True)
         self.device = self.pipe.device
-        self.trainer = Trainer(self.pipe.cfm, self.cfg.train, seed=seed)
+        self.mesh = mesh
+        self.trainer = Trainer(self.pipe.cfm, self.cfg.train, seed=seed,
+                               mesh=mesh)
         self.resumer = AutoResumer(self.trainer,
                                    os.path.join(work_dir, "ckpts"),
                                    save_every=self.cfg.train.save_step)
@@ -144,8 +155,10 @@ class TrainingPipeline:
                     scalars["dpo"] = float(breakdown.dpo)
                 if self.cfg.train.contrastive:
                     scalars["contrastive"] = float(breakdown.contrastive)
-                self.metrics.log(step, **scalars)
-                self.watchdog.beat(step, loss=float(loss))
+                scalars = {k: all_hosts_mean(v) for k, v in scalars.items()}
+                if host_shard_info()[0] == 0:
+                    self.metrics.log(step, **scalars)
+                    self.watchdog.beat(step, loss=scalars["loss"])
             se = self.cfg.train.switch_ema_every
             if se and step % se == 0 and self.trainer.ema is not None:
                 self.trainer.switch_ema()
@@ -154,8 +167,11 @@ class TrainingPipeline:
                 eloss, ebk, pred = self.trainer.eval_step(
                     eb, return_pred=True,
                     generator=torch.Generator(self.device).manual_seed(0))
-                self.metrics.log(step, val_loss=float(eloss),
-                                 val_f1=float(ebk.f1))
-                self.metrics.log_spectrogram(step, "target", eb["latents"][0])
-                self.metrics.log_spectrogram(step, "pred", pred[0])
+                val = dict(val_loss=all_hosts_mean(float(eloss)),
+                           val_f1=all_hosts_mean(float(ebk.f1)))
+                if host_shard_info()[0] == 0:
+                    self.metrics.log(step, **val)
+                    self.metrics.log_spectrogram(step, "target",
+                                                 eb["latents"][0])
+                    self.metrics.log_spectrogram(step, "pred", pred[0])
         return self.trainer.step

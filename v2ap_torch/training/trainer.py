@@ -19,6 +19,22 @@ EMA shadow as the reference model) and FactorCL fold into the same step.
 state (parameters, buffers, the model's dropout generator, the optimizer's
 moments and count, the EMA shadow, FactorCL and its optimizer, the step)
 for ``v2ap_torch.utils.checkpoint``.
+
+Under a mesh (``Trainer(mesh=)``, the counterpart of JAX's ``jit`` over a
+sharded batch) the model is sharded by ``parallel.shard_model`` and each
+rank takes its data index's rows of every micro-batch. Every rank draws
+the global micro-batch's seven loss values (and the dropout masks) from
+the same generator and takes its rows, so the step equals the unsharded
+one. The flow and MIDI losses are a masked sum over a masked count of
+the global batch, both summed over the data group (``CFM.loss(psum=)``);
+DPO's per-sample scores and FactorCL's hiddens are gathered over it (the
+pair is the global micro-batch's last two rows, the critic replicated).
+Gradients of partly-used replicated parameters are summed over the model
+group, then every gradient over the data group; the clip's global norm
+sums the squares of the shards over the model group and counts replicated
+tensors once; AdamW and EMA act on the local shards. ``state_dict``
+gathers the shards (the state is the unsharded one) and
+``load_state_dict`` shards it.
 """
 
 from __future__ import annotations
@@ -34,6 +50,11 @@ from v2ap_torch.models.cfm import (CFM, LossBreakdown, LossDraws,
                                    draw_loss_randoms)
 from v2ap_torch.training.contrastive import (FactorCL, FactorCLAdamW,
                                              sample_contrastive_features)
+from v2ap_torch.parallel import distributed as pd
+from v2ap_torch.parallel.mesh import batch_sharding, mesh_axes
+from v2ap_torch.parallel.sharding import shard_model
+from v2ap_torch.parallel.state import (full_state_dict, gather_like,
+                                       load_full_state_dict, shard_like)
 from v2ap_torch.training.dpo import dpo_pair_loss
 from v2ap_torch.utils.device import seeded_init
 
@@ -63,8 +84,35 @@ def make_lr_schedule(cfg: TrainConfig) -> Callable[[int], float]:
     return schedule
 
 
-def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
-    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(tensors)))
+def sharded_global_norm(tensors: Sequence[torch.Tensor],
+                        sharded: Sequence[bool], group=None) -> torch.Tensor:
+    """The global norm of ``tensors``, some of which (``sharded``) may be
+    tensor-parallel shards over ``group``: the shards' squares summed over
+    the group, the rest counted once. ``group`` None: no reduction (no
+    tensor is sharded, or the model group is of one rank)."""
+    def sq(ts):
+        if not ts:
+            return torch.zeros((), device=tensors[0].device)
+        return torch.stack(torch._foreach_norm(ts)).square().sum()
+
+    part = sq([t for t, s in zip(tensors, sharded) if s])
+    rest = sq([t for t, s in zip(tensors, sharded) if not s])
+    if group is not None:
+        part = pd.all_reduce_sum(part, group)
+    return torch.sqrt(part + rest)
+
+
+def _all_reduce_grads(params: Sequence[nn.Parameter], group) -> None:
+    """Sum the gradients of ``params`` over ``group``, one flat buffer per
+    dtype."""
+    by_dtype: dict = {}
+    for p in params:
+        by_dtype.setdefault(p.grad.dtype, []).append(p.grad)
+    for grads in by_dtype.values():
+        flat = pd.all_reduce_sum(torch.cat([g.reshape(-1) for g in grads]),
+                                 group)
+        for g, v in zip(grads, flat.split([g.numel() for g in grads])):
+            g.copy_(v.view_as(g))
 
 
 B1, B2, EPS, WEIGHT_DECAY = 0.9, 0.999, 1e-8, 0.01
@@ -124,7 +172,8 @@ class ClippedAdamW:
     """optax's clip_by_global_norm then adamw over ``params`` (the first
     moment in bf16 with ``cfg.mu_bf16``) with ``cfg``'s schedule and clip;
     ``step()`` returns the global gradient norm before the clip (a device
-    tensor). ``weight_decay`` is the trainer's 0.01 unless given (reflow
+    tensor; the shards of a tensor-parallel model, known by their
+    ``_tp_layout``, summed over its model group). ``weight_decay`` is the trainer's 0.01 unless given (reflow
     distillation keeps optax's default, 1e-4)."""
 
     def __init__(self, params: Iterable[nn.Parameter], cfg: TrainConfig, *,
@@ -148,7 +197,10 @@ class ClippedAdamW:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
         grads = [p.grad for p in self.params]
-        norm = global_norm(grads)
+        layouts = [getattr(p, "_tp_layout", None) for p in self.params]
+        group = next((lay.group for lay in layouts if lay is not None), None)
+        norm = sharded_global_norm(
+            grads, [lay is not None for lay in layouts], group)
         torch._foreach_mul_(grads, torch.where(
             norm < self.grad_clip, 1.0, self.grad_clip / norm))
         lr = self.schedule(self.count)
@@ -161,12 +213,31 @@ class ClippedAdamW:
         self.count += 1
         return norm
 
-    def state_dict(self) -> dict:
-        return {"count": self.count, "adamw": self.adamw.state_dict()}
+    def state_dict(self, fn=None) -> dict:
+        """The count and AdamW's state; ``fn(param, moment)`` maps each
+        per-parameter moment (gathering shards under a mesh)."""
+        state = self.adamw.state_dict()
+        if fn is not None:
+            state = self._map(state, fn)
+        return {"count": self.count, "adamw": state}
 
-    def load_state_dict(self, state: dict) -> None:
+    def load_state_dict(self, state: dict, fn=None) -> None:
         self.count = int(state["count"])
-        self.adamw.load_state_dict(state["adamw"])
+        adamw = state["adamw"]
+        if fn is not None:
+            adamw = self._map(adamw, fn)
+        self.adamw.load_state_dict(adamw)
+
+    def _map(self, state: dict, fn) -> dict:
+        if isinstance(self.adamw, _AdamWBf16Mu):
+            return {k: [fn(p, t) for p, t in zip(self.params, v)]
+                    for k, v in state.items()}
+        out = dict(state)
+        out["state"] = {
+            i: {k: (fn(self.params[i], v) if isinstance(v, torch.Tensor)
+                    and v.ndim > 0 else v) for k, v in st.items()}
+            for i, st in state["state"].items()}
+        return out
 
 
 def make_tx(cfg: TrainConfig, params: Iterable[nn.Parameter]) -> ClippedAdamW:
@@ -198,7 +269,7 @@ class EMA:
 
 def _loss(model: CFM, batch: dict, *, generator, draws, midi_loss_weight,
           val: bool = False, times=None, collect_hidden_layer=None,
-          params: Optional[dict] = None):
+          params: Optional[dict] = None, psum=None):
     """``model.loss`` on a batch dict; with ``frames`` in it (a V2P batch)
     also its ``midis``, as JAX's ``has_frames``. With ``params`` the model
     runs on those parameters instead of its own (``functional_call``)."""
@@ -210,7 +281,7 @@ def _loss(model: CFM, batch: dict, *, generator, draws, midi_loss_weight,
         frames=batch["frames"] if has_frames else None,
         midis=batch.get("midis") if has_frames else None,
         midi_loss_weight=midi_loss_weight,
-        collect_hidden_layer=collect_hidden_layer)
+        collect_hidden_layer=collect_hidden_layer, psum=psum)
     if params is not None:
         return torch.func.functional_call(model, params,
                                           (batch["latents"],), kwargs)
@@ -225,7 +296,7 @@ def _micro(batch: dict, i: int, accum: int) -> dict:
 
 @torch.no_grad()
 def _ref_scores(model: CFM, ref: dict, batch: dict, draws: LossDraws,
-                midi_loss_weight: float) -> torch.Tensor:
+                midi_loss_weight: float, psum=None) -> torch.Tensor:
     """The DPO reference's per-sample scores: the loss of ``model`` run on
     the parameters ``ref`` (the EMA shadow) at the policy's ``draws``. The
     model's dropout generator is put back to its state before the call, so
@@ -236,14 +307,20 @@ def _ref_scores(model: CFM, ref: dict, batch: dict, draws: LossDraws,
     state = gen.get_state() if gen is not None else None
     try:
         out = _loss(model, batch, generator=None, draws=draws,
-                    midi_loss_weight=midi_loss_weight, params=ref)
+                    midi_loss_weight=midi_loss_weight, params=ref, psum=psum)
     finally:
         if gen is not None:
             gen.set_state(state)
     return out.per_sample_flow
 
 
-def make_train_step(train_cfg: TrainConfig):
+def _rows(draws: LossDraws, rows) -> LossDraws:
+    """This data rank's rows of the global micro-batch's draws (the batch
+    draw ``drop_text`` is shared)."""
+    return LossDraws(*(x if x.ndim == 0 else rows.shard(x) for x in draws))
+
+
+def make_train_step(train_cfg: TrainConfig, mesh=None):
     """Build the train step ``step(model, optimizer, batch, *, generator,
     draws=None, ref=None, fcl=None, fcl_opt=None, feature_t=None) ->
     (loss, breakdown, grad_norm)``. The batch dict carries latents
@@ -267,10 +344,22 @@ def make_train_step(train_cfg: TrainConfig):
         loss, times ``contrastive_weight``, when the micro-batch has at
         least 8 rows. One backward reaches the CFM (through the hiddens)
         and FactorCL; ``optimizer`` clips and steps the CFM's gradients,
-        ``fcl_opt`` FactorCL's."""
+        ``fcl_opt`` FactorCL's.
+
+    With ``mesh`` the batch is this rank's rows (``batch_sharding(mesh)
+    .shard(global, micro=grad_accum)``), ``draws`` when given are the
+    global micro-batches', and the step runs as the module docstring
+    says."""
     accum = max(1, train_cfg.grad_accum)
     use_dpo, use_con = train_cfg.dpo, train_cfg.contrastive
     collect = train_cfg.contrastive_layer if use_con else None
+    dgroup, dp, _, mgroup, mp, _ = mesh_axes(mesh)
+    rows = batch_sharding(mesh) if mesh is not None else None
+    psum = ((lambda t: pd.reduce_from_group(t, dgroup)) if dp > 1
+            else None)
+
+    def gather(t):
+        return pd.gather_from_group(t, dgroup, 0) if dp > 1 else t
 
     def train_step(model: CFM, optimizer: ClippedAdamW, batch: dict, *,
                    generator: Optional[torch.Generator] = None,
@@ -293,31 +382,36 @@ def make_train_step(train_cfg: TrainConfig):
         for i in range(accum):
             mb = batch if accum == 1 else _micro(batch, i, accum)
             d = draws if accum == 1 or draws is None else draws[i]
-            if d is None and use_dpo:
-                # one set of draws for the policy and the reference
-                x1 = mb["latents"]
+            x1 = mb["latents"]
+            rows_global = x1.shape[0] * dp
+            if d is None and (use_dpo or dp > 1):
+                # one set of draws for the policy and the reference; under
+                # a mesh the global micro-batch's
                 d = draw_loss_randoms(
-                    *x1.shape, model.cond_cfg.frac_lengths_mask,
-                    generator=generator, device=x1.device)
-            ref_per = (_ref_scores(model, ref, mb, d,
-                                   train_cfg.midi_loss_weight)
+                    rows_global, *x1.shape[1:],
+                    model.cond_cfg.frac_lengths_mask, generator=generator,
+                    device=x1.device)
+            if d is not None and dp > 1:
+                d = _rows(d, rows)
+            ref_per = (gather(_ref_scores(model, ref, mb, d,
+                                          train_cfg.midi_loss_weight, psum))
                        if use_dpo else None)
             out = _loss(model, mb, generator=generator, draws=d,
                         midi_loss_weight=train_cfg.midi_loss_weight,
-                        collect_hidden_layer=collect)
+                        collect_hidden_layer=collect, psum=psum)
             total, bk = out.loss, out.breakdown
-            if use_con and mb["latents"].shape[0] >= 8:
+            if use_con and rows_global >= 8:
                 ft = (feature_t if accum == 1 or feature_t is None
                       else feature_t[i])
                 fa, fb, labels = sample_contrastive_features(
-                    out.hiddens[0], out.hiddens[1], model.cfg.num_registers,
-                    ft, generator=generator)
+                    gather(out.hiddens[0]), gather(out.hiddens[1]),
+                    model.cfg.num_registers, ft, generator=generator)
                 loss_con = fcl(fa, fb, labels) + fcl.learning_loss(
                     fa, fb, labels)
                 total = total + train_cfg.contrastive_weight * loss_con
                 bk = bk._replace(contrastive=loss_con)
             if use_dpo:
-                per = out.per_sample_flow
+                per = gather(out.per_sample_flow)
                 loss_dpo = dpo_pair_loss(per[-2], per[-1], ref_per[-2],
                                          ref_per[-1],
                                          scale=-train_cfg.dpo_beta)
@@ -329,6 +423,9 @@ def make_train_step(train_cfg: TrainConfig):
             loss_sum = loss_sum + total.detach()
             bk_sum = bk if bk_sum is None else LossBreakdown(
                 *(a + c for a, c in zip(bk_sum, bk)))
+        if mesh is not None:
+            _sync_grads(optimizer.params, mgroup if mp > 1 else None,
+                        dgroup if dp > 1 else None)
         grad_norm = optimizer.step()
         if use_con:
             fcl_opt.step()
@@ -338,18 +435,47 @@ def make_train_step(train_cfg: TrainConfig):
     return train_step
 
 
-def make_eval_step(train_cfg: TrainConfig | None = None):
+@torch.no_grad()
+def _sync_grads(params, model_group, data_group) -> None:
+    """Sum the partly-used replicated parameters' gradients over the model
+    group, then every gradient over the data group (a parameter outside the
+    loss gets a zero gradient first, as the optimizer gives it)."""
+    for p in params:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    if model_group is not None:
+        partial = [p for p in params if getattr(p, "_tp_partial", False)]
+        if partial:
+            _all_reduce_grads(partial, model_group)
+    if data_group is not None:
+        _all_reduce_grads(params, data_group)
+
+
+def make_eval_step(train_cfg: TrainConfig | None = None, mesh=None):
     """Deterministic validation forward: times 0.5, the centred span, no
     condition dropout or transformer dropout, no autograd.
-    ``step(model, batch, *, generator, draws=None, return_pred=False)``."""
+    ``step(model, batch, *, generator, draws=None, return_pred=False)``;
+    with ``mesh`` the batch is this rank's rows and the loss the global
+    batch's."""
     midi_loss_weight = (train_cfg or TrainConfig()).midi_loss_weight
+    dgroup, dp = mesh_axes(mesh)[:2]
+    psum = ((lambda t: pd.reduce_from_group(t, dgroup)) if dp > 1
+            else None)
 
     @torch.no_grad()
     def eval_step(model: CFM, batch: dict, *,
                   generator: Optional[torch.Generator] = None,
                   draws: Optional[LossDraws] = None, return_pred: bool = False):
+        if dp > 1:
+            x1 = batch["latents"]
+            if draws is None:
+                draws = draw_loss_randoms(
+                    x1.shape[0] * dp, *x1.shape[1:],
+                    model.cond_cfg.frac_lengths_mask, generator=generator,
+                    device=x1.device)
+            draws = _rows(draws, batch_sharding(mesh))
         out = _loss(model, batch, generator=generator, draws=draws, val=True,
-                    times=0.5, midi_loss_weight=midi_loss_weight)
+                    times=0.5, midi_loss_weight=midi_loss_weight, psum=psum)
         if return_pred:
             return out.loss, out.breakdown, out.pred_data
         return out.loss, out.breakdown
@@ -365,14 +491,20 @@ class Trainer:
     turns EMA on (the shadow is the DPO reference model);
     ``TrainConfig.contrastive`` builds ``fcl`` (FactorCL over the model's
     audio and CLIP-stream widths, initialised from seed 0 on the model's
-    device) and its optimizer ``fcl_opt`` (JAX's ``optax.adamw(lr)``)."""
+    device) and its optimizer ``fcl_opt`` (JAX's ``optax.adamw(lr)``).
+    ``mesh`` (``parallel.make_mesh``) shards the model with
+    ``parallel.shard_model`` unless it already is, and ``train_step`` then
+    takes this rank's rows of the global batch."""
 
     def __init__(self, model: CFM, train_cfg: TrainConfig | None = None, *,
-                 seed: int = 0):
+                 seed: int = 0, mesh=None):
         self.cfg = train_cfg or TrainConfig()
         self.model = model
-        self._train_step = make_train_step(self.cfg)
-        self._eval_step = make_eval_step(self.cfg)
+        self.mesh = mesh
+        if mesh is not None and getattr(model, "_tp_mesh", None) is not mesh:
+            shard_model(model, mesh)
+        self._train_step = make_train_step(self.cfg, mesh)
+        self._eval_step = make_eval_step(self.cfg, mesh)
         self.optimizer = make_tx(self.cfg, model.parameters())
         self.ema = (EMA(model, self.cfg.ema_decay)
                     if self.cfg.use_ema or self.cfg.dpo else None)
@@ -427,12 +559,20 @@ class Trainer:
         """The exact training state: the model's parameters and buffers and
         its dropout generator's state, the optimizer's, the EMA shadow,
         FactorCL and its optimizer (which JAX's checkpoint leaves out), the
-        step. The tensors are the live ones (no copies)."""
+        step. The tensors are the live ones (no copies); under a mesh the
+        shards gathered (every rank of it calls this)."""
         gen = self.model.dropout_generator
-        return {"model": self.model.state_dict(),
+        sharded = self.mesh is not None
+        params = dict(self.model.named_parameters())
+        ema = self.ema.shadow if self.ema is not None else None
+        if sharded and ema is not None:
+            ema = {k: gather_like(params[k], v) for k, v in ema.items()}
+        return {"model": (full_state_dict(self.model) if sharded
+                          else self.model.state_dict()),
                 "rng": gen.get_state() if gen is not None else None,
-                "opt": self.optimizer.state_dict(),
-                "ema": self.ema.shadow if self.ema is not None else None,
+                "opt": self.optimizer.state_dict(
+                    gather_like if sharded else None),
+                "ema": ema,
                 "fcl": self.fcl.state_dict() if self.fcl is not None else None,
                 "fcl_opt": (self.fcl_opt.state_dict()
                             if self.fcl_opt is not None else None),
@@ -440,13 +580,22 @@ class Trainer:
 
     @torch.no_grad()
     def load_state_dict(self, state: dict) -> None:
-        self.model.load_state_dict(state["model"])
+        """Restore ``state_dict``'s state (under a mesh, an unsharded state
+        is sharded into this rank's parts)."""
+        sharded = self.mesh is not None
+        params = dict(self.model.named_parameters())
+        if sharded:
+            load_full_state_dict(self.model, state["model"])
+        else:
+            self.model.load_state_dict(state["model"])
         if state["rng"] is not None:
             self.model.dropout_generator.set_state(state["rng"])
-        self.optimizer.load_state_dict(state["opt"])
+        self.optimizer.load_state_dict(state["opt"],
+                                       shard_like if sharded else None)
         if self.ema is not None and state["ema"] is not None:
             for name, s in self.ema.shadow.items():
-                s.copy_(state["ema"][name])
+                full = state["ema"][name]
+                s.copy_(shard_like(params[name], full) if sharded else full)
         if self.fcl is not None and state.get("fcl") is not None:
             self.fcl.load_state_dict(state["fcl"])
             self.fcl_opt.load_state_dict(state["fcl_opt"])

@@ -12,6 +12,12 @@ gives: parameters, buffers, the dropout generator, the AdamW moments and
 count, the EMA shadow and the step. The JAX package's orbax directories
 are not read: the machines the port runs on have no orbax, so weights
 cross between the packages through ``v2ap_torch.utils.convert``.
+
+Under a process group every rank calls these functions: the state of a
+tensor-parallel model (``parallel.shard_model``) is gathered to its
+unsharded tensors, rank 0 writes the file and the others wait for it, so
+a checkpoint written under a mesh is the one written without, and each
+rank loads (and shards) the whole file.
 """
 
 from __future__ import annotations
@@ -21,16 +27,26 @@ import re
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 from torch import nn
+
+from v2ap_torch.parallel.state import (full_state_dict, is_sharded,
+                                       load_full_state_dict)
 
 MODEL_FILE = "model.pt"
 _STEP_FILE = re.compile(r"^(\d+)\.pt$")
 
 
 def _atomic_save(obj, path: str) -> None:
-    tmp = path + ".tmp"
-    torch.save(obj, tmp)
-    os.replace(tmp, path)
+    """Write ``obj`` (rank 0 only under a process group, the others wait
+    until it is in place)."""
+    distributed = dist.is_initialized()
+    if not distributed or dist.get_rank() == 0:
+        tmp = path + ".tmp"
+        torch.save(obj, tmp)
+        os.replace(tmp, path)
+    if distributed:
+        dist.barrier()
 
 
 def _generator(model: nn.Module) -> Optional[torch.Generator]:
@@ -43,7 +59,9 @@ def save_model(path: str, model: nn.Module, *, step: int = 0,
     state, where it has one) to the directory ``path``."""
     os.makedirs(path, exist_ok=True)
     gen = _generator(model)
-    payload = {"state": model.state_dict(),
+    state = full_state_dict(model) if is_sharded(model) else \
+        model.state_dict()
+    payload = {"state": state,
                "rng": gen.get_state() if gen is not None else None,
                "step": step}
     if extra:
@@ -58,7 +76,10 @@ def load_model(path: str, model: nn.Module) -> int:
     saved step."""
     payload = torch.load(os.path.join(path, MODEL_FILE), map_location="cpu",
                          weights_only=True, mmap=True)
-    model.load_state_dict(payload["state"])
+    if is_sharded(model):
+        load_full_state_dict(model, payload["state"])
+    else:
+        model.load_state_dict(payload["state"])
     gen = _generator(model)
     if gen is not None and payload["rng"] is not None:
         gen.set_state(payload["rng"])
@@ -89,8 +110,11 @@ class CheckpointManager:
         """Write ``trainer.state_dict()`` as step ``step``, then delete all
         but the newest ``max_to_keep`` checkpoints."""
         _atomic_save(trainer.state_dict(), self.path(step))
-        for old in self.all_steps()[:-self.max_to_keep]:
-            os.remove(self.path(old))
+        if not dist.is_initialized() or dist.get_rank() == 0:
+            for old in self.all_steps()[:-self.max_to_keep]:
+                os.remove(self.path(old))
+        if dist.is_initialized():
+            dist.barrier()
 
     def restore(self, trainer, step: Optional[int] = None) -> int:
         """Load step ``step`` (the latest when None) into ``trainer``;
