@@ -366,6 +366,29 @@ Phases, each of which fails the run (exit 1, no result line) if it fails:
                gloo`` (f32, every phase, its own checks). Phase 2 also
                holds K2 at the TP-local shape against its plain version.
 
+  27. host library and tokenizers — (a) after phase 4: the host library
+               (``v2ap_torch/native``) built with g++ on the card's host;
+               ``read_wav`` of 16-, 24- and 32-bit PCM, 32-bit float and
+               EXTENSIBLE WAVs bit-equal to the samples they were written
+               from, ``max_energy_start`` to its plain prefix sum,
+               ``clip_preprocess_batch`` (``preprocess_frames``) at 224 from
+               phase 5's frames and from HD_FRAMES 1280x720 ones to
+               ``resize_center_crop`` on the card, ``pack_yuv420`` within 1
+               LSB of its numpy version; host walls, each beside the card
+               line: the native against the numpy pack over phase 5's 250
+               frames, the native host geometry against the card's GEMMs
+               (and the upload) from 1280x720. Phase 26a's YUV features go
+               through this pack. (b) after phase 26a's strips: the
+               committed tokenizer directories (``tests/golden/
+               tokenizers``) encode the golden prompts to the ids
+               ``transformers`` gave (``tests/golden/tokenizer_ids.json``);
+               a V2P pipeline built with ``tokenizer_path=`` the golden T5
+               directory generates with PROMPT: a new sampler capture keyed
+               on the prompt's width (not 64), whose eager warm-up (one CFG
+               eval) launches K1 ``k1_expect / 24`` times by the counters,
+               and a replay bit-equal to the capturing call. Phase 2 holds
+               K1 at that width (no library yardstick).
+
 ``python3 chip_smoke.py --tp-limits`` runs only phase 26's references and
 (b), once as it is and once with each planted fault of ``plant_tp_fault``,
 and prints the readings the limits of (b) are set between (no result
@@ -448,6 +471,10 @@ PROBE_REPS = 20
 PROMPT = "a gentle piano melody over soft rain on a window"
 PROMPT_TOKENS = 11
 HOST_CALLS = 200                   # calls per host-time sample
+GOLDEN = os.path.join(ROOT, "tests", "golden")
+T5_TOKENIZER = os.path.join(GOLDEN, "tokenizers", "t5")
+HD_FRAMES = 32                     # 1280x720 frames of phase 27a's geometry
+HOST_WALL_REPS = 2                 # alternating timed runs of each route
 HOST_ROUNDS = 6                    # host-time samples per dtype
 # bf16 times of the CUDA-core kernels that the tensor-core ones replaced
 # (CUDA events, NVIDIA H100 80GB HBM3, 700.00 W; PERF.md §6, the bracketed
@@ -615,6 +642,15 @@ def kernel_cases(torch):
     cases.append((f"K1 cross-attn nk=64, {PROMPT_TOKENS} valid "
                   "(2, 800x64, 16x64)", "K1", rnd(2, 800, 1024),
                   *kv.chunk(2, dim=-1), prompt, dict(heads=16)))
+    # the same prompt through the committed T5 tokenizer (phase 27b): one
+    # prompt, so every one of its tokens is valid. No library yardstick:
+    # compiling flex_attention for one more shape costs ~20 s of the run
+    width = golden_prompt_width()
+    kv = rnd(2, width, 2048)
+    cases.append((k1_prompt_label(width), "K1", rnd(2, 800, 1024),
+                  *kv.chunk(2, dim=-1),
+                  torch.ones(2, width, dtype=torch.bool, device=dev),
+                  dict(heads=16, library=False)))
     # the DPO reference forward (phases 18a-b): K1 at the training shapes,
     # 750 latents + 32 registers, and the prompt context with 4-16 valid
     n, tb = TRAIN_LATENTS + 32, TRAIN_BATCH
@@ -661,7 +697,9 @@ def kernel_cases(torch):
                 return fa.attention_reference(*un, m, softclamp=50.0
                                               ).transpose(1, 2).flatten(2)
 
-            if k.shape[1] > 1:
+            if not kw.get("library", True):
+                library = None
+            elif k.shape[1] > 1:
                 library = flex_softclamp(torch, q, k, v, m, h)
             else:       # one key: its weight is 1 whatever the softclamp
                 def library(q=q, k=k, v=v, h=h):
@@ -689,6 +727,18 @@ def kernel_cases(torch):
             shape = tuple(q.shape[:3]) + (k.shape[2], q.shape[3])
         out.append((label, kid, run, plain, ref32, library, shape, m))
     return out
+
+
+def golden_prompt_width() -> int:
+    """PROMPT's tokens through the committed T5 tokenizer, ``</s>``
+    included: the context width of phase 27b's generate."""
+    from v2ap_torch.data.hf_tokenizer import load_t5
+    return int(load_t5(T5_TOKENIZER)([PROMPT])[0].shape[1])
+
+
+def k1_prompt_label(width: int) -> str:
+    return (f"K1 cross-attn nk={width}, the T5 tokenizer's prompt "
+            f"(2, 800x{width}, 16x64)")
 
 
 def flex_softclamp(torch, q, k, v, mask, heads: int):
@@ -1026,10 +1076,11 @@ def phase_small(torch) -> None:
 
 # --------------------------------------------------------------- phase 5
 
-def full_pipeline(torch, label: str, **conditioning):
+def full_pipeline(torch, label: str, tokenizer_path=None, **conditioning):
     """The shipped configuration, v2a_default(), with ``conditioning``
     changed and no feature caches, from seed 0 on the card, bf16 towers
-    (JAX's ``V2AP_INT8_TOWERS=0``)."""
+    (JAX's ``V2AP_INT8_TOWERS=0``), prompts through ``tokenizer_path``'s
+    tokenizer when given."""
     from v2ap_torch import config as C
     from v2ap_torch.pipelines.generate import V2APipeline
 
@@ -1037,7 +1088,8 @@ def full_pipeline(torch, label: str, **conditioning):
     cfg = base.replace(conditioning=dataclasses.replace(
         base.conditioning, feature_cache=False, **conditioning))
     t0 = time.perf_counter()
-    pipe = V2APipeline(cfg, seed=0, device="cuda", quantize_towers=False)
+    pipe = V2APipeline(cfg, seed=0, device="cuda", quantize_towers=False,
+                       tokenizer_path=tokenizer_path)
     torch.cuda.synchronize()
 
     def m(module):
@@ -4152,7 +4204,7 @@ def phase_int8(torch, frames, out: str, mixed_cfg, held: dict,
     del pipe
     torch.cuda.empty_cache()
 
-    log("[24c/26] python -m v2ap_torch.int8_tower_gate --tiny")
+    log("[24c/27] python -m v2ap_torch.int8_tower_gate --tiny")
     clips = os.path.join(root, "clips")
     os.makedirs(clips)
     for i in range(2):                   # FAD needs two clips a set
@@ -4182,7 +4234,7 @@ def phase_24(torch, frames, after_24a=None) -> None:
         out, mixed, held = phase_weights_in(torch, frames, root)
         if after_24a is not None:
             after_24a()
-        log("[24b/26] int8: the Linear card vs CPU; int8 vs bf16 towers; the "
+        log("[24b/27] int8: the Linear card vs CPU; int8 vs bf16 towers; the "
             "tower's profile; drift; mixed towers; V2AP_INT8_CFM=1")
         t0 = time.perf_counter()
         phase_int8(torch, frames, out, mixed, held, root)
@@ -4683,21 +4735,21 @@ def phase_duration(torch) -> dict:
 
 
 def phase_25(torch) -> None:
-    log("[25a/26] AudioLDM text-to-audio: small card vs CPU (eta 0, 0.5); "
+    log("[25a/27] AudioLDM text-to-audio: small card vs CPU (eta 0, 0.5); "
         "ldm_s_full() with CLAP, VAE and HiFi-GAN at full width")
     t0 = time.perf_counter()
     phase_audioldm(torch)
     log(f"  phase 25a: {time.perf_counter() - t0:.2f} s")
-    log(f"[25b/26] Vocos vocos_mel_24khz(): {VOCOS_FRAMES} frames, istft vs "
+    log(f"[25b/27] Vocos vocos_mel_24khz(): {VOCOS_FRAMES} frames, istft vs "
         f"plain overlap-add, card vs CPU")
     t0 = time.perf_counter()
     phase_vocos(torch)
     log(f"  phase 25b: {time.perf_counter() - t0:.2f} s")
-    log(f"[25c/26] VaeVocoder.decode of {VAE_VOCODER_LATENTS} flat latents")
+    log(f"[25c/27] VaeVocoder.decode of {VAE_VOCODER_LATENTS} flat latents")
     t0 = time.perf_counter()
     phase_vae_vocoder(torch)
     log(f"  phase 25c: {time.perf_counter() - t0:.2f} s")
-    log("[25d/26] DurationPredictor at v2a_default()'s transformer: small f32 "
+    log("[25d/27] DurationPredictor at v2a_default()'s transformer: small f32 "
         "card vs CPU; forward (K1), AdamW steps (K3-K5), profile")
     t0 = time.perf_counter()
     phase_duration(torch)
@@ -4813,7 +4865,8 @@ def phase_26_serve(torch, pipe, frames, tp_dir: str) -> None:
     log(f"  (c) V2AP_SHIP_YUV420 at full width ({len(frames)} frames, "
         f"ViT-bigG bf16): feature drift {drift:.4%} rel-RMS against RGB; "
         f"walls RGB {walls[False][-1]:.4f} s, YUV {walls[True][0]:.4f} s "
-        f"(pack on the host, unpack on the card)")
+        f"(geometry and pack on the host through the host library, unpack "
+        f"on the card)")
     # uniform-noise pixels are the 2x2 chroma averaging's worst case: the
     # bound is a sanity one (the features are the tower's, not noise)
     if not torch.isfinite(out[True]).all() or not drift < 1.0:
@@ -5245,6 +5298,225 @@ def tp_limits_main(torch) -> int:
     return 0
 
 
+# --------------------------------------------------------------- phase 27
+
+def wav_file(samples, sr: int, fmt: int, bits: int,
+             extensible: bool = False) -> bytes:
+    """A RIFF WAV of (n, channels) ``samples`` already in the sample type,
+    ``fmt`` 1 (PCM) or 3 (IEEE float), as a plain or an EXTENSIBLE "fmt "
+    chunk."""
+    import struct
+
+    import numpy as np
+
+    ch = samples.shape[1]
+    if bits == 24:
+        v = samples.astype(np.int32).reshape(-1)
+        data = np.stack([v & 0xFF, (v >> 8) & 0xFF, (v >> 16) & 0xFF],
+                        1).astype(np.uint8).tobytes()
+    else:
+        data = samples.tobytes()
+    block = ch * bits // 8
+    head = struct.pack("<HHIIHH", 0xFFFE if extensible else fmt, ch, sr,
+                       sr * block, block, bits)
+    if extensible:
+        head += struct.pack("<HHI", 22, bits, (1 << ch) - 1) + struct.pack(
+            "<H", fmt) + bytes.fromhex("000000001000800000aa00389b71")
+    body = (b"WAVE" + b"fmt " + struct.pack("<I", len(head)) + head
+            + b"data" + struct.pack("<I", len(data)) + data)
+    return b"RIFF" + struct.pack("<I", len(body)) + body
+
+
+def host_walls(fns: dict) -> dict:
+    """Host seconds of each route, HOST_WALL_REPS runs each, the routes
+    taking turns: name -> every wall."""
+    walls = {name: [] for name in fns}
+    for _ in range(HOST_WALL_REPS):
+        for name, fn in fns.items():
+            t0 = time.perf_counter()
+            fn()
+            walls[name].append(time.perf_counter() - t0)
+    return walls
+
+
+def phase_host_library(torch, frames) -> None:
+    """27a: the host library built here, each entry point the port's main
+    paths call held against its plain version; the host walls."""
+    import numpy as np
+
+    from v2ap_torch import native
+    from v2ap_torch.data import audio_io
+    from v2ap_torch.models import clip_vit
+
+    t0 = time.perf_counter()
+    lib = native.build_library()
+    native.lib()
+    log(f"  built {os.path.relpath(lib, ROOT)} ({native._CXX} "
+        f"{' '.join(native._CXX_FLAGS)}) in {time.perf_counter() - t0:.2f} s")
+
+    # read_wav: each format against the samples it was written from
+    rng = np.random.default_rng(27)
+    x = rng.uniform(-0.9, 0.9, (16000 * 2, 2))
+    plain = {16: (np.int16, 32768.0), 24: (np.int32, 8388608.0),
+             32: (np.int32, 2147483648.0)}
+    with tempfile.TemporaryDirectory() as tmp:
+        for label, fmt, bits, ext in (("pcm16", 1, 16, False),
+                                      ("pcm24", 1, 24, False),
+                                      ("pcm32", 1, 32, False),
+                                      ("float32", 3, 32, False),
+                                      ("float32 extensible", 3, 32, True),
+                                      ("pcm16 extensible", 1, 16, True)):
+            if fmt == 3:
+                samples = x.astype(np.float32)
+                want = samples
+            else:
+                kind, scale = plain[bits]
+                samples = np.round(x * (scale - 1)).astype(kind)
+                want = samples.astype(np.float32) / np.float32(scale)
+            path = os.path.join(tmp, "clip.wav")
+            with open(path, "wb") as f:
+                f.write(wav_file(samples, 16000, fmt, bits, ext))
+            got, sr = audio_io.read_wav(path)
+            if sr != 16000 or not np.array_equal(got, want.T):
+                raise RuntimeError(f"read_wav {label}: not the samples")
+    env = 0.2 + 0.7 * np.exp(-((np.arange(24000 * 12) - 0.6 * 288000)
+                               / 28800.0) ** 2)
+    mono = (env * rng.uniform(-1, 1, env.shape)).astype(np.float32)[None]
+    start = native.max_energy_start(mono[0], 320, 750)
+    if start != audio_io.max_energy_start_plain(mono, 750):
+        raise RuntimeError("max_energy_start: not its plain version's")
+    log(f"  read_wav (16-, 24-, 32-bit PCM, float32, EXTENSIBLE) bit-equal "
+        f"to the written samples; max_energy_start {start} = the plain "
+        f"prefix sum's")
+
+    # geometry: phase 5's frames (already 224) and 1280x720 frames, host
+    # library against the card's PIL-exact GEMMs
+    hd = np.random.default_rng(28).integers(0, 256, (HD_FRAMES, 720, 1280, 3),
+                                            dtype=np.uint8)
+    for label, src in (("phase 5's 224x224", frames), ("1280x720", hd)):
+        host = clip_vit.preprocess_frames(src, 224)
+        card = clip_vit.resize_center_crop(torch.from_numpy(src).cuda(), 224)
+        if not np.array_equal(host, card.cpu().numpy()):
+            raise RuntimeError(f"clip_preprocess_batch {label}: not the "
+                               f"card's resize_center_crop")
+    y, uv = clip_vit.pack_yuv420(frames)
+    py, puv = clip_vit.pack_yuv420_plain(frames)
+    lsb = max(int(np.abs(y.astype(int) - py).max()),
+              int(np.abs(uv.astype(int) - puv).max()))
+    if lsb > 1:
+        raise RuntimeError(f"pack_yuv420: {lsb} LSB from its numpy version")
+    log(f"  clip_preprocess_batch at 224 bit-equal to resize_center_crop on "
+        f"the card ({len(frames)} frames of 224x224, {HD_FRAMES} of "
+        f"1280x720); pack_yuv420 within {lsb} LSB of its numpy version "
+        f"({len(frames)} frames)")
+
+    card = card_line()
+    walls = host_walls({"native": lambda: clip_vit.pack_yuv420(frames),
+                        "numpy": lambda: clip_vit.pack_yuv420_plain(frames)})
+    nat, npy = (float(np.median(walls[k])) for k in ("native", "numpy"))
+    log(f"  host wall, pack_yuv420 of {len(frames)} frames at 224x224: "
+        f"native {nat:.4f} s, numpy {npy:.4f} s ({npy / nat:.2f}x); every "
+        f"wall {walls}; {card}")
+    hd_dev = torch.from_numpy(hd).cuda()
+
+    def card_gemms():
+        clip_vit.resize_center_crop(hd_dev, 224)
+        torch.cuda.synchronize()
+
+    def upload():
+        torch.from_numpy(hd).cuda()
+        torch.cuda.synchronize()
+
+    card_gemms()
+    walls = host_walls({"native": lambda: clip_vit.preprocess_frames(hd, 224),
+                        "card": card_gemms, "upload": upload})
+    nat, gem, up = (float(np.median(walls[k]))
+                    for k in ("native", "card", "upload"))
+    log(f"  host wall, geometry of {HD_FRAMES} frames 1280x720 -> 224: "
+        f"native on the host {nat:.4f} s, the card's float64 GEMMs "
+        f"{gem:.4f} s (+ upload {up:.4f} s); every wall {walls}; {card}")
+    del hd_dev
+
+
+def phase_golden_tokenizers() -> None:
+    """27b: the committed tokenizer directories against the ids
+    ``transformers`` gave for them on the CPU."""
+    import numpy as np
+
+    from v2ap_torch.data.hf_tokenizer import load_clap, load_t5
+
+    with open(os.path.join(GOLDEN, "tokenizer_ids.json"),
+              encoding="utf-8") as f:
+        golden = json.load(f)
+    for kind, load in (("t5", load_t5), ("roberta", load_clap)):
+        t0 = time.perf_counter()
+        ids, mask = load(os.path.join(GOLDEN, "tokenizers", kind))(
+            golden["prompts"])
+        seconds = time.perf_counter() - t0
+        if not (np.array_equal(ids, golden[kind]["input_ids"])
+                and np.array_equal(mask, golden[kind]["attention_mask"])):
+            raise RuntimeError(f"{kind} tokenizer: not the golden ids")
+        log(f"  {kind}: {len(golden['prompts'])} prompts, ids {ids.shape} "
+            f"and masks equal to transformers'; {seconds:.3f} s with the "
+            f"load")
+
+
+def phase_prompt_tokenizer(torch, frames, strips) -> None:
+    """27b: a V2P pipeline with ``tokenizer_path=`` the golden T5
+    directory: a new capture keyed on the prompt's width, whose eager
+    warm-up (one CFG eval) the wrappers count, and a bit-equal replay."""
+    import numpy as np
+
+    from v2ap_torch.ops.flash_attention import (launch_counts,
+                                                reset_launch_counts)
+
+    pipe = full_pipeline(torch, "V2P, golden T5 tokenizer",
+                         tokenizer_path=T5_TOKENIZER)
+    width = golden_prompt_width()
+    ids, mask = pipe.tokenize([PROMPT])
+    if ids.shape != (1, width) or width == 64 or not mask.all():
+        raise RuntimeError(f"tokenizer_path: ids {ids.shape}, width {width}")
+
+    def gen():
+        return pipe.generate(None, PROMPT, steps=25, cfg_strength=2.0, seed=0,
+                             piano=True, frames_cache=[(frames, CLIP_S, 1)],
+                             strips_cache=[(strips, CLIP_S)])
+
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    first, _ = gen()
+    t_first = time.perf_counter() - t0
+    counts = dict(launch_counts)
+    keys = [c.key for c in pipe.graphs.captures]
+    ctx = [k[5][0] for k in keys]         # the context's (b, L, d)
+    # the capturing call: the towers' K2 and the warm-up's one CFG eval
+    expect = generate_expect(pipe, len(frames))
+    expect["flash_attention_packed"] = k1_expect(pipe) // (25 - 1)
+    if len(keys) != 1 or ctx[0][1] != width or counts != expect:
+        raise RuntimeError(f"tokenizer_path: captures {keys}, launches "
+                           f"{counts} (expected {expect})")
+    t0 = time.perf_counter()
+    again, _ = gen()
+    t_again = time.perf_counter() - t0
+    same = np.array_equal(first, again)
+    log(f"  V2P generate, prompt of {width} tokens (FLAN-T5-large, context "
+        f"{ctx[0]}): capture {t_first:.3f} s (1 new key; launches {counts}: "
+        f"K1 {expect['flash_attention_packed']} in the eager warm-up's CFG "
+        f"eval, {m_cross(pipe)} of them the cross-attention at nk = "
+        f"{width}, so {k1_expect(pipe)} a replay), replay {t_again:.3f} s, "
+        f"bit-equal {same}; finite {bool(np.isfinite(again).all())}")
+    if not same or not np.isfinite(again).all():
+        raise RuntimeError(f"tokenizer_path generate: bit-equal {same}")
+    check_roll(pipe)
+
+
+def m_cross(pipe) -> int:
+    """Cross-attentions (to the prompt's context) in one transformer eval."""
+    m = pipe.cfg.model
+    return m.depth if m.if_cross_attn else 0
+
+
 def main() -> int:
     try:
         import torch
@@ -5280,7 +5552,7 @@ def main() -> int:
         "error", message="flex_attention called without torch.compile")
     t_start = time.perf_counter()
 
-    log(f"[1/26] build — card: {card_line()}")
+    log(f"[1/27] build — card: {card_line()}")
     log(f"  torch {torch.__version__} (CUDA {torch.version.cuda}), "
         f"{torch.cuda.get_device_name(0)}; f32 matmul and cuDNN TF32 off")
     t0 = time.perf_counter()
@@ -5290,21 +5562,27 @@ def main() -> int:
         f"{', '.join(src.name for src in fa._SOURCES)} in "
         f"{time.perf_counter() - t0:.2f} s")
 
-    log("[2/26] kernels vs plain versions (bf16 in, f32 reference)")
+    log("[2/27] kernels vs plain versions (bf16 in, f32 reference)")
     kern = phase_kernels(torch)
     kern.update(phase_train_kernels(torch))
     log_bwd_more(torch)
-    log("[3/26] P1 probe: packed (b, n, h*d) vs (b, h, n, d) + transposes")
+    log("[3/27] P1 probe: packed (b, n, h*d) vs (b, h, n, d) + transposes")
     kern["P1"] = phase_probe(torch)
-    log("[4/26] small f32 config: card vs CPU")
+    log("[4/27] small f32 config: card vs CPU")
     phase_small(torch)
     import numpy as np
 
     frames = clip_frames()
+    log("[27a/27] the host library on the card's host: read_wav, "
+        "max_energy_start, clip_preprocess_batch, pack_yuv420 against their "
+        "plain versions; host walls")
+    t0 = time.perf_counter()
+    phase_host_library(torch, frames)
+    t27 = time.perf_counter() - t0
     # phase 26's exchange files (about 6.3 GB of reference tensors)
     tp_dir = tempfile.mkdtemp(prefix="v2ap_chip_smoke_tp_")
     atexit.register(shutil.rmtree, tp_dir, True)
-    log("[5/26] full-width V2A generate (frame stride 1, empty prompt; the "
+    log("[5/27] full-width V2A generate (frame stride 1, empty prompt; the "
         "sampler as a captured program)")
     pipe = full_pipeline(torch, "V2A", frame_stride=1)
 
@@ -5314,7 +5592,7 @@ def main() -> int:
 
     phase_generate(torch, pipe, "V2A generate", generate_v2a,
                    generate_expect(pipe, len(frames)))
-    log("[6/26] V2A generate profile")
+    log("[6/27] V2A generate profile")
 
     def profiled(gen, check=None):
         def run():
@@ -5328,15 +5606,15 @@ def main() -> int:
     gen_counts = phase_profile(torch, "generate", profiled(generate_v2a),
                                SM90_FWD, generate_expect(pipe, len(frames)),
                                k1_expect(pipe))
-    log("[7/26] full-width sampler: captured programs vs eager, same inputs")
+    log("[7/27] full-width sampler: captured programs vs eager, same inputs")
     phase_captured(torch, pipe, frames)
-    log(f"[8/26] generate_batch: {BATCH} x 10 s clips, frames handed in")
+    log(f"[8/27] generate_batch: {BATCH} x 10 s clips, frames handed in")
     phase_generate_batch(torch, pipe, frames)
-    log(f"[9/26] generate_long: a {LONG_S:.0f} s clip in one batched call")
+    log(f"[9/27] generate_long: a {LONG_S:.0f} s clip in one batched call")
     phase_generate_long(torch, pipe)
-    log(f"[10/26] HTTP server: {BATCH} concurrent POST /v2a")
+    log(f"[10/27] HTTP server: {BATCH} concurrent POST /v2a")
     phase_http(torch, pipe)
-    log("[26a/26] parallelism and the wire on phase 5's pipeline: the "
+    log("[26a/27] parallelism and the wire on phase 5's pipeline: the "
         "captured sampler deterministic, YUV 4:2:0 tower features, "
         "shard_serving over a world-1 NCCL mesh")
     t0 = time.perf_counter()
@@ -5344,7 +5622,7 @@ def main() -> int:
     t26 = time.perf_counter() - t0
     del pipe
     torch.cuda.empty_cache()
-    log("[11/26] full-width V2P generate with a prompt (v2a_default(): frame "
+    log("[11/27] full-width V2P generate with a prompt (v2a_default(): frame "
         "stride 3, strip stride 2; FLAN-T5-large, Video2Roll)")
     pipe = full_pipeline(torch, "V2P")
     strips = np.random.default_rng(1).integers(
@@ -5364,24 +5642,32 @@ def main() -> int:
     roll = pipe.last_roll
     log(f"  roll {tuple(roll.shape)}: min {roll.min().item():.4f}, max "
         f"{roll.max().item():.4f}, mean {roll.mean().item():.4f}")
-    log("[12/26] V2P generate profile")
+    log("[12/27] V2P generate profile")
     phase_profile(torch, "V2P generate", profiled(generate_v2p, check_roll),
                   SM90_FWD, generate_expect(pipe, len(frames)),
                   k1_expect(pipe))
-    log("[26a/26] strip-half against exact strips on phase 11's pipeline")
+    log("[26a/27] strip-half against exact strips on phase 11's pipeline")
     t0 = time.perf_counter()
     phase_26_strips(torch, pipe, strips)
     t26 += time.perf_counter() - t0
     del pipe, roll
     torch.cuda.empty_cache()
-    log("[13/26] small train: tiny_test() card vs CPU, then "
+    log("[27b/27] the golden tokenizers; a full-width V2P generate with "
+        "tokenizer_path= the golden T5 directory")
+    t0 = time.perf_counter()
+    phase_golden_tokenizers()
+    phase_prompt_tokenizer(torch, frames, strips)
+    torch.cuda.empty_cache()
+    t27 += time.perf_counter() - t0
+    log(f"  phase 27: {t27:.2f} s")
+    log("[13/27] small train: tiny_test() card vs CPU, then "
         f"{TINY_STEPS} steps")
     phase_small_train(torch)
-    log("[14/26] full-width V2A train step, then with remat full and dots")
+    log("[14/27] full-width V2A train step, then with remat full and dots")
     trainer, batch = full_trainer(torch)
     train_counts = phase_train(torch, trainer, batch)
     phase_train_remat(torch, trainer, batch, train_counts)
-    log("[15/26] train-step profile")
+    log("[15/27] train-step profile")
 
     def train_once():
         loss, _ = trainer.train_step(batch)
@@ -5391,7 +5677,7 @@ def main() -> int:
     phase_profile(torch, "train step", train_once, SM90_FWD[1:] + SM90_BWD)
     del trainer, batch, train_once
     torch.cuda.empty_cache()
-    log("[26a/26] a fresh full-width CFM: the unsharded sample and step "
+    log("[26a/27] a fresh full-width CFM: the unsharded sample and step "
         "for 26b; the step deterministic and through a world-1 NCCL mesh")
     t0 = time.perf_counter()
     phase_26_train(torch, tp_dir)
@@ -5399,10 +5685,10 @@ def main() -> int:
     log(f"  phase 26a: {t26:.2f} s")
     root = tempfile.mkdtemp(prefix="v2ap_chip_smoke_")
     try:
-        log("[16/26] train from corpora: TrainingPipeline(v2a_default()), "
+        log("[16/27] train from corpora: TrainingPipeline(v2a_default()), "
             f"remat dots, EMA, batch {TRAIN_BATCH} x {TRAIN_LATENTS}")
         tp, batcher = phase_corpus_train(torch, root)
-        log("[17/26] resume, save the EMA CFM, load_weights, generate")
+        log("[17/27] resume, save the EMA CFM, load_weights, generate")
         held = {"pipe": tp, "batcher": batcher}
         del tp, batcher
         phase_resume_and_serve(torch, held, root, frames)
@@ -5411,7 +5697,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     from v2ap_torch import config as C
 
-    log(f"[18a/26] DPO at full width: crossatt3, TrainConfig(dpo=True), "
+    log(f"[18a/27] DPO at full width: crossatt3, TrainConfig(dpo=True), "
         f"dropout 0.1, no remat, batch {TRAIN_BATCH} x {TRAIN_LATENTS} with "
         f"rows 6 and 7 a pair")
     trainer, batch = full_trainer(torch, train_cfg=C.TrainConfig(dpo=True),
@@ -5419,7 +5705,7 @@ def main() -> int:
     phase_dpo(torch, "DPO train step", trainer, batch)
     del trainer, batch
     torch.cuda.empty_cache()
-    log(f"[18b/26] crossatt6 (FactorCL) with DPO under remat dots, batch "
+    log(f"[18b/27] crossatt6 (FactorCL) with DPO under remat dots, batch "
         f"{TRAIN_BATCH} x {TRAIN_LATENTS}")
     six = C.variant_preset("crossatt6")
     six = six.replace(model=dataclasses.replace(six.model, remat=True,
@@ -5433,11 +5719,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     root = tempfile.mkdtemp(prefix="v2ap_chip_smoke_")
     try:
-        log(f"[19/26] reflow: pairs from the full-width teacher, "
+        log(f"[19/27] reflow: pairs from the full-width teacher, "
             f"{REFLOW_STEPS} distill steps, save_model, load_weights, "
             f"generate(fewstep=2)")
         pipe = phase_reflow(torch, frames, root)
-        log("[20/26] the reference layout: a full-width synthetic crossatt3 "
+        log("[20/27] the reference layout: a full-width synthetic crossatt3 "
             ".pt, python -m v2ap_torch.convert, load_weights, generate; "
             "crossatt6")
         phase_reference(torch, pipe, frames, root)
@@ -5445,7 +5731,7 @@ def main() -> int:
         torch.cuda.empty_cache()
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    log("[21/26] evaluate: Cnn14 and CLAP card vs CPU; run_batch_eval, python "
+    log("[21/27] evaluate: Cnn14 and CLAP card vs CPU; run_batch_eval, python "
         "-m v2ap_torch.evaluate (FAD, IS, KL, CLAP) and python -m "
         "v2ap_torch.inference_v2p from primed caches")
     phase_evaluators(torch)
@@ -5457,26 +5743,26 @@ def main() -> int:
     finally:
         shutil.rmtree(root, ignore_errors=True)
     torch.cuda.empty_cache()
-    log("[22/26] the other video towers: small f32 card vs CPU; full-width "
+    log("[22/27] the other video towers: small f32 card vs CPU; full-width "
         "mixed (ViT-bigG + ViT-L/336 + ConvNeXt-XXLarge + DINOv2-giant, "
         "4608-d) and clip_vit2 generates")
     t0 = time.perf_counter()
     k2_clip_l = phase_towers(torch, frames)
     log(f"  phase 22: {time.perf_counter() - t0:.2f} s")
-    log("[23/26] Audeo: trainer steps card vs CPU; full-width Video2Roll and "
+    log("[23/27] Audeo: trainer steps card vs CPU; full-width Video2Roll and "
         "Roll2Midi training; roll inference, Roll2Midi, synthesis, MIDI, "
         "metrics")
     t0 = time.perf_counter()
     phase_audeo(torch)
     log(f"  phase 23: {time.perf_counter() - t0:.2f} s")
     torch.cuda.empty_cache()
-    log("[26b/26] TP 2, two ranks sharing the card through gloo over CUDA "
+    log("[26b/27] TP 2, two ranks sharing the card through gloo over CUDA "
         "tensors, full width: ViT-bigG 64 frames, the 25-step sample, one "
         f"train step ({TRAIN_BATCH} x {TRAIN_LATENTS}), each against the "
         "unsharded port; the multichip dry run beside them; in the "
         "background of phase 24a")
     tp_run = phase_26_start(tp_dir)
-    log("[24a/26] weights in: seeded tensors in the published layouts of "
+    log("[24a/27] weights in: seeded tensors in the published layouts of "
         "ViT-bigG, FLAN-T5-large, EnCodec 24 kHz, DINOv2-giant, "
         "ConvNeXt-XXLarge, ViT-L/336 and Video2Roll; python -m "
         "v2ap_torch.convert; load_weights; generate")

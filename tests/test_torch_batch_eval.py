@@ -135,16 +135,26 @@ def test_clap_filter_matches_jax(scorers):
 
 
 def test_clap_scorer_tokenizer_switch(tmp_path, monkeypatch):
-    """A tokenizer path that exists raises (JAX would load a RoBERTa BPE
-    tokenizer); a missing one falls back to the hash tokenizer, as in JAX."""
+    """A tokenizer directory that exists is read (RoBERTa's byte-level BPE,
+    where JAX loads it with transformers); an existing path that holds no
+    tokenizer raises, as in JAX; a missing one falls back to the hash
+    tokenizer, as in JAX."""
+    import dataclasses
+
+    from tests.test_torch_hf_tokenizer import GOLDEN
     from v2ap_torch.models.clap import clap_tiny_test
     a, t = clap_tiny_test()
+    wav = np.random.default_rng(2).normal(size=48_000) * 0.1
+    monkeypatch.setenv("V2AP_CLAP_TOKENIZER", str(GOLDEN / "roberta"))
+    wide = dataclasses.replace(t, vocab_size=512, max_position_embeddings=80)
+    scorer = t_scorer.make_clap_scorer(a, wide, device="cpu")
+    assert -1.0 <= scorer(wav, "a dog barks at the piano") <= 1.0
     monkeypatch.setenv("V2AP_CLAP_TOKENIZER", str(tmp_path))
-    with pytest.raises(NotImplementedError, match="tokenizer"):
+    with pytest.raises(OSError):
         t_scorer.make_clap_scorer(a, t, device="cpu")
     monkeypatch.setenv("V2AP_CLAP_TOKENIZER", str(tmp_path / "missing"))
     scorer = t_scorer.make_clap_scorer(a, t, device="cpu")
-    s = scorer(np.random.default_rng(2).normal(size=48_000) * 0.1, "a dog")
+    s = scorer(wav, "a dog")
     assert -1.0 <= s <= 1.0
 
 

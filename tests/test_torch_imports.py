@@ -1,5 +1,7 @@
 """The port stands alone: it imports no JAX, no flax and nothing of the
-JAX package, and its entry points refuse to run without CUDA unless asked
+JAX package, nor the Hugging Face tokenizer packages (``transformers``,
+``tokenizers``, ``sentencepiece``) or ``regex``, none of which the card's
+machine has; and its entry points refuse to run without CUDA unless asked
 for the CPU."""
 
 import ast
@@ -11,7 +13,8 @@ import pytest
 import torch
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "v2ap_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "v2ap_tpu",
+             "transformers", "tokenizers", "sentencepiece", "regex")
 
 
 def test_port_loads_no_jax_modules():
@@ -36,9 +39,10 @@ def test_port_sources_import_no_jax(path):
     """Static check of every import statement, lazy ones included."""
     tree = ast.parse((ROOT / path).read_text())
     for node in ast.walk(tree):
+        # a relative import names a module of the port itself
         names = ([a.name for a in node.names] if isinstance(node, ast.Import)
                  else [node.module or ""] if isinstance(node, ast.ImportFrom)
-                 else [])
+                 and not node.level else [])
         for name in names:
             assert name.split(".")[0] not in FORBIDDEN, (path, name)
 
@@ -210,3 +214,16 @@ def test_new_entry_points_refuse_missing_cuda(build):
             "roll2midi": Roll2MidiGenerator, "video2roll": Video2RollNet}
     with pytest.raises(RuntimeError, match="CUDA"):
         make[build]()
+
+
+def test_host_library_and_tokenizer_sources_are_checked():
+    """The static check and the import walk cover the host library's
+    bindings and the tokenizer reader, and the C++ source is the port's
+    own copy beside them."""
+    checked = {p.relative_to(ROOT).as_posix()
+               for p in (ROOT / "v2ap_torch").rglob("*.py")}
+    assert {"v2ap_torch/native/__init__.py",
+            "v2ap_torch/data/hf_tokenizer.py",
+            "v2ap_torch/data/audio_io.py",
+            "v2ap_torch/models/clip_vit.py"} <= checked
+    assert (ROOT / "v2ap_torch/native/v2ap_native.cpp").is_file()

@@ -207,15 +207,25 @@ def test_generate_runs_on_cpu(pipelines):
 
 @pytest.mark.parametrize("mode", ["prompt", "piano", "passes"])
 def test_generate_refuses_unported_modes(pipelines, mode):
-    """What the port cannot serve raises, never falls back: a tokenizer
-    path (its sentencepiece assets are not supported), piano=True with no
-    strips and no video to decode (never a zero roll). passes > 1 is
-    ported: restart sampling serves finite audio that differs from one
-    pass, the same on every call."""
+    """What the port cannot serve raises, never falls back: piano=True with
+    no strips and no video to decode (never a zero roll). A tokenizer path
+    is served as JAX serves it: one that does not exist falls back to the
+    hash tokenizer, a tokenizer directory is read, and a path that holds
+    none raises. passes > 1 is ported: restart sampling serves finite audio
+    that differs from one pass, the same on every call."""
     _, tp = pipelines
     if mode == "prompt":
-        with pytest.raises(NotImplementedError, match="sentencepiece"):
-            _port_pipeline(_cfg(t_config), tokenizer_path="/t5/spiece.model")
+        from tests.test_torch_hf_tokenizer import GOLDEN
+        missing = _port_pipeline(_cfg(t_config),
+                                 tokenizer_path="/t5/spiece.model")
+        assert isinstance(missing.tokenize, t_generate.FallbackTokenizer)
+        read = _port_pipeline(_cfg(t_config),
+                              tokenizer_path=str(GOLDEN / "t5"))
+        ids, mask = read.tokenize([PROMPT])
+        assert ids.dtype == np.int32 and ids.shape == mask.shape
+        assert ids[0, -1] == 1 and mask.all()            # ... </s>
+        with pytest.raises(OSError):
+            _port_pipeline(_cfg(t_config), tokenizer_path=str(GOLDEN))
     elif mode == "piano":
         with pytest.raises(ValueError, match="strips"):
             tp.generate(None, duration_s=0.5, steps=2, piano=True)
@@ -663,12 +673,16 @@ def test_roll_cache_written_by_jax_serves_the_port(pipelines, tmp_path,
 # --------------------------------------------------------- environment switches
 
 def test_tokenizer_switch_raises_where_jax_loads_one(monkeypatch, tmp_path):
-    """V2AP_T5_TOKENIZER naming an existing path (where JAX loads the HF
-    tokenizer) raises; naming a missing one, JAX falls back to the hash
-    tokenizer, and so does the port."""
-    monkeypatch.setenv("V2AP_T5_TOKENIZER", str(tmp_path))
-    with pytest.raises(NotImplementedError, match="sentencepiece"):
-        _port_pipeline(_cfg(t_config))
+    """V2AP_T5_TOKENIZER naming a tokenizer directory (where JAX loads the
+    HF tokenizer) gives JAX's ids and masks exactly; naming a missing path,
+    JAX falls back to the hash tokenizer, and so does the port."""
+    from tests.test_torch_hf_tokenizer import GOLDEN
+    prompts = [PROMPT, "", "the sound of rain on a roof, then thunder"]
+    monkeypatch.setenv("V2AP_T5_TOKENIZER", str(GOLDEN / "t5"))
+    tp = _port_pipeline(_cfg(t_config))
+    want = j_generate.load_t5_tokenizer(None, tp.t5_cfg.vocab_size)
+    for x, y in zip(tp.tokenize(prompts), want(prompts)):
+        np.testing.assert_array_equal(x, y)
     monkeypatch.setenv("V2AP_T5_TOKENIZER", str(tmp_path / "missing"))
     tp = _port_pipeline(_cfg(t_config))
     want = j_generate.load_t5_tokenizer(None, tp.t5_cfg.vocab_size)

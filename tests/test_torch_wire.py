@@ -1,8 +1,9 @@
 """The wire-level shipping modes and the streaming decode of the port
 against the JAX package's, on the CPU.
 
-``pack_yuv420`` equals the JAX package's numpy path bit for bit and its
-native fixed-point path within 1 LSB; ``unpack_yuv420`` and
+``pack_yuv420`` equals the JAX package's default (its native fixed-point
+path) bit for bit, its plain version JAX's numpy path bit for bit and the
+native one within 1 LSB; ``unpack_yuv420`` and
 ``upsample_strips_2x`` equal JAX's within 1e-6 (float32);
 ``pack_strips_half`` is exact. In the pipeline, ``V2AP_SHIP_YUV420=1`` and
 ``V2AP_SHIP_STRIP_HALF=1`` run and tag the caches as JAX's, and the
@@ -43,13 +44,18 @@ def frames():
 def test_pack_yuv420_matches_jax(frames, monkeypatch):
     y, uv = t_clip.pack_yuv420(frames)
     assert y.shape == (3, 28, 28) and uv.shape == (3, 2, 14, 14)
-    jy, juv = j_clip.pack_yuv420(frames)          # native where built
-    assert np.abs(y.astype(int) - jy).max() <= 1
-    assert np.abs(uv.astype(int) - juv).max() <= 1
+    assert native.available()
+    jy, juv = j_clip.pack_yuv420(frames)           # JAX's default: native
+    np.testing.assert_array_equal(y, jy)
+    np.testing.assert_array_equal(uv, juv)
+    py, puv = t_clip.pack_yuv420_plain(frames)
+    assert np.abs(py.astype(int) - y).max() <= 1
+    assert np.abs(puv.astype(int) - uv).max() <= 1
+    # the plain versions of both packages: JAX's numpy path
     monkeypatch.setattr(native, "pack_yuv420", lambda px: None)
-    ny, nuv = j_clip.pack_yuv420(frames)           # the numpy fallback
-    np.testing.assert_array_equal(y, ny)
-    np.testing.assert_array_equal(uv, nuv)
+    ny, nuv = j_clip.pack_yuv420(frames)
+    np.testing.assert_array_equal(py, ny)
+    np.testing.assert_array_equal(puv, nuv)
 
 
 def test_unpack_yuv420_matches_jax(frames):

@@ -1,13 +1,13 @@
 """Host-side audio IO: WAV decode and encode, resampling, normalisation,
 max-energy segment selection, length shaping.
 
-A copy of ``v2ap_tpu/data/audio_io.py``: 16-, 24- and 32-bit PCM in,
-16-bit PCM out, with the standard library's ``wave``; scipy polyphase
-resampling to 24 kHz mono; mean removal and peak normalisation to 0.5; the
-max-energy window of ``target_frames`` hops by a prefix sum; short clips
-padded by repetition. The JAX package's native decoder and max-energy
-search (``v2ap_tpu/native``) are not ported; they give the same samples
-and the same window start.
+A copy of ``v2ap_tpu/data/audio_io.py``: WAVs decode through the host
+library (``v2ap_torch.native``: 16-, 24- and 32-bit PCM, 32-bit float,
+WAVE_FORMAT_EXTENSIBLE), and a format it does not take through the
+standard library's ``wave``; 16-bit PCM out; scipy polyphase resampling to
+24 kHz mono; mean removal and peak normalisation to 0.5; the max-energy
+window of ``target_frames`` hops, its start found by the library; short
+clips padded by repetition.
 """
 
 from __future__ import annotations
@@ -19,13 +19,21 @@ from fractions import Fraction
 
 import numpy as np
 
+from v2ap_torch import native
+
 SAMPLE_RATE = 24_000
 HOP_SIZE = 320
 TARGET_FRAMES = 750          # 10 s of 75 Hz latent frames
 
 
 def read_wav(path: str) -> tuple[np.ndarray, int]:
-    """A PCM WAV file -> (float32 (channels, n) in [-1, 1], sample rate)."""
+    """A WAV file -> (float32 (channels, n), sample rate): through the host
+    library, else (a format it does not take) through ``wave``, which reads
+    16-, 24- and 32-bit PCM."""
+    with open(path, "rb") as f:
+        out = native.wav_decode(f.read())
+    if out is not None:
+        return out
     with wave.open(path, "rb") as w:
         sr = w.getframerate()
         ch = w.getnchannels()
@@ -95,16 +103,26 @@ def frame_energy(audio: np.ndarray, hop: int = HOP_SIZE) -> np.ndarray:
 def select_max_energy_segment(audio: np.ndarray, target_frames: int,
                               hop: int = HOP_SIZE) -> np.ndarray:
     """The ``target_frames``-hop window of the largest summed hop energy
-    (the first on a tie), by a prefix sum; shorter clips are padded by
-    repetition."""
+    of the first channel (the first on a tie), found by the host library;
+    shorter clips are padded by repetition."""
     total = audio.shape[-1] // hop
     if total <= target_frames:
         return pad_or_repeat(audio, target_frames * hop)
+    start = native.max_energy_start(audio[0], hop, target_frames)
+    return audio[..., start * hop: (start + target_frames) * hop]
+
+
+def max_energy_start_plain(audio: np.ndarray, target_frames: int,
+                           hop: int = HOP_SIZE) -> int:
+    """The plain version of the library's ``max_energy_start`` (the JAX
+    package's numpy path): a prefix sum over the hop energies. The library
+    sums in float64 from float32 samples, this in numpy's pairwise order, so
+    two windows within rounding of each other may tie differently."""
+    total = audio.shape[-1] // hop
     e = frame_energy(audio, hop)
     csum = np.concatenate([[0.0], np.cumsum(e)])
     window = csum[target_frames:] - csum[:-target_frames]   # sums of windows
-    start = int(np.argmax(window[: total - target_frames + 1]))
-    return audio[..., start * hop: (start + target_frames) * hop]
+    return int(np.argmax(window[: total - target_frames + 1]))
 
 
 def load_training_clip(path: str, target_frames: int = TARGET_FRAMES,

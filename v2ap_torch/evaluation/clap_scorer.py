@@ -9,11 +9,12 @@ port's ``utils/checkpoint.py`` layout (``save_model``; the published
 ``models.clap.load_clap_state_dict``). Without weights the scorer runs from
 a seed-0 init: scores for plumbing tests, not for filtering.
 
-Tokenizer: the deterministic hash fallback of the JAX package (stable ids;
-pad 1, <s> 0, </s> 2, RoBERTa's special tokens). JAX loads a RoBERTa BPE
-tokenizer when ``tokenizer_path`` / ``$V2AP_CLAP_TOKENIZER`` names an
-existing path; the port has no such tokenizer yet and raises there rather
-than score other ids. A path that does not exist falls back, as in JAX.
+Tokenizer: RoBERTa's byte-level BPE when ``tokenizer_path`` /
+``$V2AP_CLAP_TOKENIZER`` names an existing Hugging Face tokenizer directory
+(``data.hf_tokenizer``, called as JAX calls ``transformers``: at most 64
+tokens, padded to the longest); otherwise the deterministic hash fallback
+of the JAX package (stable ids; pad 1, <s> 0, </s> 2, RoBERTa's special
+tokens).
 """
 
 from __future__ import annotations
@@ -51,16 +52,16 @@ def make_clap_scorer(audio_cfg=None, text_cfg=None,
     ``device`` (CUDA unless asked for the CPU) in float32."""
     from v2ap_torch.models.clap import ClapModel, clap_htsat_unfused, clap_logmel
 
-    tokenizer_path = tokenizer_path or os.environ.get("V2AP_CLAP_TOKENIZER")
-    if tokenizer_path and os.path.exists(tokenizer_path):
-        raise NotImplementedError(
-            f"CLAP tokenizer {tokenizer_path!r}: the RoBERTa BPE tokenizer is "
-            "not supported yet; captions go through the JAX package's hash "
-            "fallback when no tokenizer path exists (unset "
-            "V2AP_CLAP_TOKENIZER)")
     device = resolve_device(device)
     if audio_cfg is None or text_cfg is None:
         audio_cfg, text_cfg = clap_htsat_unfused()
+    tokenizer_path = tokenizer_path or os.environ.get("V2AP_CLAP_TOKENIZER")
+    if tokenizer_path and os.path.exists(tokenizer_path):
+        from v2ap_torch.data.hf_tokenizer import load_clap
+        tokenize = load_clap(tokenizer_path)
+    else:
+        def tokenize(captions):
+            return _fallback_tokenize(captions, text_cfg.vocab_size)
     with seeded_init(0, device):
         model = ClapModel(audio_cfg, text_cfg, device=device)
     weights_path = weights_path or os.environ.get("V2AP_CLAP_WEIGHTS")
@@ -77,7 +78,7 @@ def make_clap_scorer(audio_cfg=None, text_cfg=None,
         feats = clap_logmel(wav, n_mels=audio_cfg.num_mel_bins)
         if feats.shape[2] > tmax:
             feats = feats[:, :, :tmax]             # the 10 s window
-        ids, mask = _fallback_tokenize([caption], text_cfg.vocab_size)
+        ids, mask = tokenize([caption])
         s = model.similarity(feats, torch.from_numpy(ids).long().to(device),
                              torch.from_numpy(mask).to(device))
         return float(s[0].item())

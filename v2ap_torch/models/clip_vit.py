@@ -19,6 +19,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from v2ap_torch import native
 from v2ap_torch.ops.flash_attention import flash_attention
 from v2ap_torch.ops.layers import LayerNorm, Linear, lecun_normal_
 from v2ap_torch.utils.device import resolve_device
@@ -269,6 +270,35 @@ def crop_to_tower(px: torch.Tensor, image_size: int) -> torch.Tensor:
     return resize_center_crop(px, image_size)
 
 
+def preprocess_frames(frames: np.ndarray, image_size: int = 224,
+                      normalize: bool = False) -> np.ndarray:
+    """uint8 RGB frames (t, H, W, 3) -> (t, S, S, 3) on the host, through
+    the host library's ``clip_preprocess_batch`` (the JAX package's route):
+    the geometry of ``resize_center_crop``, bit-equal to it and to PIL.
+    With ``normalize`` the pixels are rescaled by 1/255 and normalised by
+    CLIP's mean and std to float32; else they stay uint8. Frames the
+    library does not take (not RGB) go through ``resize_center_crop`` on
+    the CPU."""
+    out = native.clip_preprocess_batch(frames, image_size)
+    if out is None:
+        out = resize_center_crop(torch.from_numpy(np.ascontiguousarray(
+            frames, np.uint8)), image_size).numpy()
+    if not normalize:
+        return out
+    mean = np.asarray(CLIP_MEAN, np.float32)
+    std = np.asarray(CLIP_STD, np.float32)
+    return (out.astype(np.float32) / 255.0 - mean) / std
+
+
+def host_crop_to_tower(frames: np.ndarray, image_size: int) -> np.ndarray:
+    """``crop_to_tower`` on the host (the YUV wire's route): unchanged when
+    the frames are ``image_size`` square already, else
+    ``preprocess_frames``."""
+    if tuple(frames.shape[1:3]) == (image_size, image_size):
+        return frames
+    return preprocess_frames(frames, image_size)
+
+
 def device_normalize(px: torch.Tensor, mean, std) -> torch.Tensor:
     """uint8 pixels -> normalised float32 on px's device: rescaled by 1/255,
     then CLIPImageProcessor's (or the tower's) mean and std."""
@@ -287,8 +317,16 @@ def device_normalize(px: torch.Tensor, mean, std) -> torch.Tensor:
 
 def pack_yuv420(px: np.ndarray):
     """uint8 RGB (t, S, S, 3), S even -> (y: (t, S, S) uint8, uv: (t, 2,
-    S/2, S/2) uint8), on the host: the JAX package's numpy path (its native
-    fixed-point one agrees with it to 1 LSB)."""
+    S/2, S/2) uint8), on the host: the host library's fixed-point pack, the
+    JAX package's default, bit-equal to it; other shapes go through
+    ``pack_yuv420_plain``, within 1 LSB of it."""
+    out = native.pack_yuv420(px)
+    return pack_yuv420_plain(px) if out is None else out
+
+
+def pack_yuv420_plain(px: np.ndarray):
+    """The plain version of ``pack_yuv420``: the JAX package's numpy path,
+    in float32."""
     f = px.astype(np.float32)
     r, g, b = f[..., 0], f[..., 1], f[..., 2]
     y = 0.299 * r + 0.587 * g + 0.114 * b

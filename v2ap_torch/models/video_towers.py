@@ -12,9 +12,9 @@ Counterpart of ``v2ap_tpu/models/video_towers.py``:
 | mixed         | concat of all four -> CFM ``proj_text``| 4608      |
 
 Each tower carries its own geometry (uint8 frames resized and cropped to its
-image size, 224, 336, 256 or 224, on their device, bit-equal to PIL's) and
-the normalisation constants applied after it (CLIP's, ImageNet's for
-DINOv2).
+image size, 224, 336, 256 or 224, on their device, bit-equal to PIL's; or on
+the host through the host library, for the YUV wire) and the normalisation
+constants applied after it (CLIP's, ImageNet's for DINOv2).
 """
 
 from __future__ import annotations
@@ -23,12 +23,13 @@ import dataclasses
 import functools
 from typing import Callable, List, Optional
 
+import numpy as np
 import torch
 from torch import nn
 
 from v2ap_torch.models.clip_vit import (
     CLIP_MEAN, CLIP_STD, CLIPVisionModel, clip_vit_bigg, clip_vit_l_336,
-    crop_to_tower,
+    crop_to_tower, host_crop_to_tower,
 )
 from v2ap_torch.models.convnext import ConvNextCLIP, convnext_xxlarge
 from v2ap_torch.models.dinov2 import (
@@ -44,6 +45,9 @@ class VideoTower:
     # uint8 (t, H, W, 3) -> uint8 (t, S, S, 3), geometry only, on the
     # frames' device
     preprocess: Callable[[torch.Tensor], torch.Tensor]
+    # the same geometry on numpy frames on the host, through the host
+    # library (the YUV wire's route), bit-equal to ``preprocess``
+    host_preprocess: Callable[[np.ndarray], np.ndarray]
     embed_dim: int
     mean: tuple               # normalisation applied after the geometry
     std: tuple
@@ -98,6 +102,8 @@ def build_video_towers(video_encoder: str, *, seed: int = 0,
             name=name, model=model,
             preprocess=functools.partial(crop_to_tower,
                                          image_size=pre_kw["image_size"]),
+            host_preprocess=functools.partial(
+                host_crop_to_tower, image_size=pre_kw["image_size"]),
             embed_dim=dim, mean=tuple(pre_kw["mean"]),
             std=tuple(pre_kw["std"])))
     return towers
