@@ -1,0 +1,146 @@
+"""Readings that the correctness limits are set from, on the card.
+
+    python3 benchmark/control.py --workload <cell> --sound 11 12 13 \
+        --control 21 22 23 [--fp8ref 31 32 33] [--fault step 41 42 43]
+
+For each seed, in one process: the cell's pipeline loads that seed's
+weights and serves ``checked`` calls of the seed's traffic (after the
+warm-up calls), and the plain reference judges them as a run does.
+"sound" runs the pipeline as the configuration states; "control" runs the
+port's own int8 product in every ``Linear`` of the towers, T5 and the
+flow model (``System(int8=True)``), the precision below the
+configuration's bf16; "fp8ref" puts the reference itself, with every
+product's inputs rounded to fp8 e4m3 (``reference.nn.emulated_fp8``), in
+the pipeline's place; "fault NAME" runs the configured path with one of
+``benchmark/faults.py``'s faults planted (``--fault`` may be repeated).
+One JSON line a seed: mode, seed, and the numbers ``benchmark/check.py``
+compares. Not part of a benchmark run.
+"""
+
+from __future__ import annotations
+
+import argparse
+import gc
+import json
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path[:] = [str(ROOT)] + [p for p in sys.path
+                             if Path(p or ".").resolve() != ROOT / "benchmark"]
+
+
+def readings(workload: str, seeds, *, int8: bool, device="cuda",
+             root: Path = ROOT):
+    """Yield (seed, readings) for each seed, one pipeline for all."""
+    import torch
+
+    from benchmark import harness, weights
+    from benchmark.system import System
+    from benchmark.traffic import Traffic
+
+    c = harness.cell(workload, root)
+    device = torch.device(device)
+    system = System(c.config, device, int8=int8)
+    for seed in seeds:
+        system.load(weights.make(c.config, harness.weights_seed(seed),
+                                 device,
+                                 with_t5=c.traffic["prompt_words"][1] > 0))
+        traffic = Traffic(c.traffic, seed)
+        pool = traffic.make_pool(device)
+        run = harness.Run(c)
+        first = c.traffic["warmup"]
+        for i in range(first):
+            req = traffic.request(i, pool)
+            system.serve(req, traffic.kind,
+                         system.x0(req) if traffic.kind == "batch" else None)
+        for i in range(first, first + c.traffic["checked"]):
+            req = traffic.request(i, pool)
+            waves, roll, timings = system.serve(
+                req, traffic.kind,
+                system.x0(req) if traffic.kind == "batch" else None)
+            run.records.append(harness.Record(i, req, 0.0,
+                                              traffic.clips_per_call,
+                                              timings, waves, roll))
+        del pool
+        gc.collect()
+        yield seed, harness.reference_readings(c, run, seed, device)
+
+
+def fp8_readings(workload: str, seeds, device="cuda", root: Path = ROOT):
+    """Yield (seed, readings) of the reference computed in emulated fp8,
+    judged as the pipeline's answers are."""
+    import numpy as np
+    import torch
+
+    from benchmark import harness, weights
+    from benchmark.reference import pipeline as reference
+    from benchmark.reference.nn import emulated_fp8
+    from benchmark.traffic import Traffic
+
+    c = harness.cell(workload, root)
+    device = torch.device(device)
+    for seed in seeds:
+        traffic = Traffic(c.traffic, seed)
+        pool = traffic.make_pool(device)
+        w = weights.make(c.config, harness.weights_seed(seed), device,
+                         with_t5=c.traffic["prompt_words"][1] > 0)
+        run = harness.Run(c)
+        first = c.traffic["warmup"]
+        for i in range(first + c.traffic["checked"]):
+            req = traffic.request(i, pool)    # the pipeline's request stream
+            if i < first:
+                continue
+            with emulated_fp8():
+                if traffic.kind == "batch":
+                    waves = reference.batch(c.config, w, req, device)
+                    roll = None
+                else:
+                    wave, roll = reference.single(c.config, w, req, device)
+                    waves = wave[None]
+            run.records.append(harness.Record(
+                i, req, 0.0, traffic.clips_per_call, {}, waves,
+                None if roll is None else torch.from_numpy(np.asarray(roll))))
+        del w, pool
+        gc.collect()
+        yield seed, harness.reference_readings(c, run, seed, device)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--workload", required=True)
+    ap.add_argument("--sound", type=int, nargs="*", default=[])
+    ap.add_argument("--control", type=int, nargs="*", default=[])
+    ap.add_argument("--fp8ref", type=int, nargs="*", default=[])
+    ap.add_argument("--fault", nargs="+", action="append", default=[],
+                    metavar="NAME SEED", help="a fault's name, then seeds")
+    args = ap.parse_args(argv)
+    import torch
+
+    from benchmark import faults
+
+    for mode, seeds in (("sound", args.sound), ("control", args.control)):
+        if seeds:
+            for seed, r in readings(args.workload, seeds,
+                                    int8=mode == "control"):
+                print(json.dumps({"workload": args.workload, "mode": mode,
+                                  "seed": seed, **r}), flush=True)
+            gc.collect()
+            torch.cuda.empty_cache()
+    for name, *seeds in args.fault:
+        with faults.planted(name):
+            for seed, r in readings(args.workload, map(int, seeds),
+                                    int8=False):
+                print(json.dumps({"workload": args.workload,
+                                  "mode": f"fault:{name}", "seed": seed,
+                                  **r}), flush=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    for seed, r in fp8_readings(args.workload, args.fp8ref):
+        print(json.dumps({"workload": args.workload, "mode": "fp8ref",
+                          "seed": seed, **r}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,155 @@
+"""The harness on the CPU at miniature sizes: cells, configurations and
+metrics found from files; a cell made of new files runs; the window's
+statistics count a stall; planted faults in the timed path make
+``correct`` false.
+
+    python -m pytest benchmark/tests -q
+"""
+
+from __future__ import annotations
+
+import json
+import types
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from benchmark import faults, harness
+from benchmark.tests.tiny import make_root
+
+REPO = Path(__file__).resolve().parents[2]
+SEED = 2 ** 31 + 12345
+
+
+def test_cells_configs_and_metrics_come_from_files():
+    spec = harness.load_benchmark(REPO)
+    for w in spec["workloads"]:
+        c = harness.cell(w["name"], REPO)
+        assert c.config["name"] == w["config"]
+        assert c.traffic["kind"] in ("single", "batch")
+        assert set(c.limits) >= {"wave_gap"}
+        assert any(m["name"] == "setup_s" for m in c.end_to_end)
+        assert len(c.end_to_end) >= 2 and c.per_layer
+        for m in c.end_to_end + c.per_layer:
+            assert callable(harness.reader(m["name"], REPO))
+    for m in spec["per_layer"]:
+        moved = next(e for e in spec["end_to_end"] if e["name"] == m["moves"])
+        for w in m["workloads"]:
+            assert w in moved.get("workloads", [w])
+
+
+@pytest.fixture(scope="module")
+def root(tmp_path_factory):
+    return make_root(tmp_path_factory.mktemp("bench"))
+
+
+def test_new_cell_from_files_runs_on_cpu(root):
+    # a metric that exists only as a new file and a new entry
+    (root / "benchmark" / "metrics" / "calls.tiny.py").write_text(
+        "def read(run):\n    return float(len(run.records))\n")
+    spec = json.loads((root / "BENCHMARK.json").read_text())
+    spec["per_layer"].append({
+        "name": "calls.tiny", "unit": "calls", "better": "higher",
+        "source": "host_clock", "layer": "pipeline",
+        "moves": "clip_latency_p50_s", "workloads": ["tiny.v2a"]})
+    (root / "BENCHMARK.json").write_text(json.dumps(spec))
+    out = harness.run_cell("tiny.v2a", SEED, 0.5, False, "cpu", root)
+    assert out["correct"] and out["failed"] == 0 and out["attempted"] >= 1
+    assert set(out["metrics"]) == {"clip_latency_p50_s",
+                                   "clip_latency_p90_s", "setup_s"}
+    assert out["checks"]["wave_gap"]["value"] < 1e-4
+    traced = harness.run_cell("tiny.v2a", SEED + 1, 0.2, True, "cpu", root)
+    assert traced["correct"]
+    assert traced["metrics"]["calls.tiny"]["value"] >= 2.0
+    assert "sample_s.single" in traced["metrics"]
+
+
+@pytest.mark.parametrize("cell", ["tiny.v2p", "tiny.batch", "tiny-mixed.v2a"])
+def test_each_kind_of_cell_is_correct_on_cpu(root, cell):
+    out = harness.run_cell(cell, SEED + 2, 0.1, False, "cpu", root)
+    assert out["correct"], out["checks"]
+    for c in out["checks"].values():
+        assert c["value"] < 1e-4
+
+
+def _run(records, window_s=10.0, clip_s=10.0):
+    cell = types.SimpleNamespace(traffic={"clip_s": clip_s})
+    recs = [harness.Record(i, {}, lat, clips, {}, np.zeros(1), None)
+            for i, (lat, clips) in enumerate(records)]
+    return harness.Run(cell, window_s=window_s, records=recs)
+
+
+def test_window_statistics_count_a_planted_stall():
+    p50, p90 = (harness.reader(n, REPO) for n in
+                ("clip_latency_p50_s", "clip_latency_p90_s"))
+    rate = harness.reader("audio_s_per_s", REPO)
+    steady = _run([(1.0, 8)] * 20, window_s=20.0)
+    stalled = _run([(1.0, 8)] * 17 + [(6.0, 8)] * 3, window_s=35.0)
+    assert p50(steady) == p50(stalled) == 1.0
+    assert p90(steady) == 1.0 and p90(stalled) == 6.0
+    assert rate(steady) == pytest.approx(160 * 10 / 20.0)
+    # the stall's time stays in the window: the rate falls with it
+    assert rate(stalled) == pytest.approx(160 * 10 / 35.0)
+
+
+def test_shares_of_the_chip_divide_by_the_untraced_window():
+    mfu, idle, stage = (harness.reader(n, REPO) for n in
+                        ("mfu.single", "idle_pct.single", "sample_s.single"))
+    run = _run([(1.0, 1)] * 10, window_s=10.0)
+    for r in run.records:
+        r.timings = {"sample_s": 0.5}
+    # two calls under the profiler, each 1.5 s long with 0.8 s of device work
+    for i in range(2):
+        run.records.append(harness.Record(10 + i, {}, 1.5, 1,
+                                          {"sample_s": 0.9}, np.zeros(1),
+                                          None, traced=True))
+    run.trace = types.SimpleNamespace(device_ops=[("k", 0.0, 1.6e6)],
+                                      busy_s=lambda: 1.6, window_s=3.0)
+    run.traced_calls = 2
+    run.flops = lambda: {"cfm": 0.5 * 989e12}
+    # 10 calls of 0.5 peak-seconds each over the 10 s window
+    assert mfu(run) == pytest.approx(50.0)
+    # 0.8 device-seconds a call over the window's 1 s a call, not the
+    # profiled 1.5 s
+    assert idle(run) == pytest.approx(20.0)
+    assert stage(run) == 0.5
+    assert harness.profiler_cost_pct(run) == pytest.approx(50.0)
+
+
+@pytest.mark.parametrize("cell,fault", [
+    ("tiny.v2a", "answer"),
+    ("tiny.v2a", "step"),
+    ("tiny.v2a", "step-mid"),
+    ("tiny.batch", "half-batch"),
+    ("tiny.batch", "step"),
+    ("tiny.v2p", "roll"),
+])
+def test_a_broken_timed_path_is_not_correct(root, monkeypatch, cell, fault):
+    faults.FAULTS[fault](monkeypatch.setattr)
+    out = harness.run_cell(cell, SEED + 3, 0.1, False, "cpu", root)
+    assert not out["correct"]
+
+
+@pytest.mark.parametrize("name", sorted(faults.FAULTS))
+def test_a_planted_fault_is_undone(name):
+    import v2ap_torch.models.cfm as cfm
+
+    before = (harness.System.serve, cfm.euler_integrate,
+              cfm.CFM.encode_frames)
+    with faults.planted(name):
+        during = (harness.System.serve, cfm.euler_integrate,
+                  cfm.CFM.encode_frames)
+    assert during != before
+    assert (harness.System.serve, cfm.euler_integrate,
+            cfm.CFM.encode_frames) == before
+
+
+def test_no_card_means_no_result(monkeypatch, capsys):
+    from benchmark import run
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert run.main(["--workload", "crossatt3.v2a-single", "--seed", "1",
+                     "--seconds", "1"]) != 0
+    assert capsys.readouterr().out == ""
