@@ -65,9 +65,9 @@ Phases, each of which fails the run (exit 1, no result line) if it fails:
                GENERATE_RUNS times timed (every wall, the median, stage
                medians, the realtime factor). The launch counters are
                zeroed just before each timed run and read just after: K2
-               must run 48 x (tower chunks) times in each and no other
-               kernel from the host (K1 runs in the replayed sampler
-               program, which calls no wrapper);
+               must run 48 x (tower chunks) times in each, K1 (steps-1) x
+               48 = 1152 times (the replayed sampler program's, which its
+               capture recorded) and no other kernel;
   6. profile — one more generate under the profiler, the counters zeroed
                just before it and read just after: CUDA time by kernel
                group and by kernel, its share of that run's wall,
@@ -75,7 +75,7 @@ Phases, each of which fails the run (exit 1, no result line) if it fails:
                unless the tensor-core forward ran (d 104 and d 64), no bf16
                instance of the CUDA-core forward did, K2 ran 48 x (tower
                chunks) times by the counters and K1 (steps-1) x 48 = 1152
-               times by the trace;
+               times by the trace and by the counters;
   7. captured — the full-width sampler as captured programs against the
                same CFM run eagerly on the same x0 and conditioning: the
                25-step CFG sampler, 4 few-step steps and two restart passes
@@ -284,9 +284,10 @@ Phases, each of which fails the run (exit 1, no result line) if it fails:
                chunk of the int8 tower under the profiler (an int8
                tensor-core GEMM, ``INT8_GEMM``, for each of its 289
                ``Linear`` calls, nothing off the tensor cores) and a
-               profiled int8-tower generate (K1 by the trace, K2 by the
-               counters); ``v2ap_torch.scripts.probe_tower_drift``'s
-               ``main`` (f32, bf16, int8, int8_mlp, int8_skip_last4); a mixed
+               profiled int8-tower generate (K1 by the trace and the
+               counters, K2 by the counters);
+               ``v2ap_torch.scripts.probe_tower_drift``'s ``main`` (f32,
+               bf16, int8, int8_mlp, int8_skip_last4); a mixed
                pipeline through ``Predictor(...).setup(ckpt=)``, its four
                towers bit-equal to the readers', INT8_MIXED_RUNS generates
                in int8 and in bf16; ``V2AP_INT8_CFM=1``: every ``Linear``
@@ -385,8 +386,9 @@ Phases, each of which fails the run (exit 1, no result line) if it fails:
                a V2P pipeline built with ``tokenizer_path=`` the golden T5
                directory generates with PROMPT: a new sampler capture keyed
                on the prompt's width (not 64), whose eager warm-up (one CFG
-               eval) launches K1 ``k1_expect / 24`` times by the counters,
-               and a replay bit-equal to the capturing call. Phase 2 holds
+               eval) launches K1 ``k1_expect / 24`` times by the counters
+               before its first replay's ``k1_expect``, and a replay
+               bit-equal to the capturing call. Phase 2 holds
                K1 at that width (no library yardstick).
 
 ``python3 chip_smoke.py --tp-limits`` runs only phase 26's references and
@@ -398,7 +400,8 @@ Each phase header line carries the seconds since the start of the run.
 
 The line before the last is a JSON object with one entry per kernel (K1-K5
 and P1; the launches of K1/K2 from the profiled V2A generate, K1's counted
-in its trace (the replayed sampler program), K2's by its wrapper, of K3-K5
+in its trace and by the replays of its sampler program, K2's by its
+wrapper, of K3-K5
 from one train step, of P1 from one new-path probe call), a second K2
 entry for its case at CLIP ViT-L/336's shape (the launches of phase 22's
 clip_vit2 generate) and a third at TP 2's local heads (the launches of a
@@ -1114,16 +1117,24 @@ def clip_frames():
 
 
 def generate_expect(pipe, n_frames: int) -> dict:
-    """Kernel launches of one 25-step CFG generate by the wrappers on the
-    host: K2 for the 48 tower layers per chunk of 64 encoded frames, nothing
-    else (K1 runs inside the replayed sampler program: ``k1_expect``)."""
+    """Kernel launches of one 25-step CFG generate that replays its sampler
+    program: K2 for the 48 tower layers per chunk of 64 encoded frames, K1
+    the replay's (``k1_expect``, which the capture recorded), nothing
+    else."""
     from v2ap_torch.ops.flash_attention import launch_counts
 
     encoded = len(range(0, n_frames, pipe.frame_stride))
     expect = dict.fromkeys(launch_counts, 0)
     expect["flash_attention"] = (pipe.clip_cfg.num_layers
                                  * math.ceil(encoded / 64))
+    expect["flash_attention_packed"] = k1_expect(pipe)
     return expect
+
+
+def stage_keys(timings: dict) -> list:
+    """The stages' seconds of ``last_timings`` (not its counts or
+    ``since_init``)."""
+    return [k for k in timings if k.endswith("_s")]
 
 
 def k1_expect(pipe) -> int:
@@ -1153,8 +1164,8 @@ def phase_generate(torch, pipe, label: str, gen, expect: dict,
     """One warm-up ``gen()`` (it captures the sampler's program), then
     ``runs`` timed ones. The launch counters are zeroed just before
     each timed run and read just after it; every run must give finite
-    audio of the clip's length, the expected counts (the wrappers', K1 0:
-    the sampler replays) and pass ``check(pipe)``. Reports and returns the
+    audio of the clip's length, the expected counts (the wrappers' and the
+    sampler replay's) and pass ``check(pipe)``. Reports and returns the
     median wall time (``wall``, every one in ``walls``) and each stage's
     median (``stages``)."""
     import numpy as np
@@ -1186,7 +1197,7 @@ def phase_generate(torch, pipe, label: str, gen, expect: dict,
             check(pipe)
     wall = float(np.median(walls))
     stage_med = ", ".join(f"{k} {np.median([s[k] for s in stages]):.4f}"
-                          for k in stages[0])
+                          for k in stage_keys(stages[0]))
     log(f"  {label} 10 s clip x{runs}: wall (s) "
         f"{', '.join(f'{w:.4f}' for w in walls)}; median {wall:.4f} s, "
         f"realtime factor {CLIP_S / wall:.3f}x")
@@ -1194,11 +1205,12 @@ def phase_generate(torch, pipe, label: str, gen, expect: dict,
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; waveform "
         f"{wav.shape} finite, rms "
         f"{float(np.sqrt(np.mean(wav.astype(np.float64) ** 2))):.4f}")
-    log(f"  launches by the wrappers per run: {counts} (expected {expect}; "
-        f"K1 runs in the replayed sampler program, counted in the profile)")
+    log(f"  launches per run: {counts} (expected {expect}; K1 by the "
+        f"sampler program's replay); host syncs per run "
+        f"{[s['host_syncs'] for s in stages]}")
     return {"wall": wall, "walls": walls,
             "stages": {k: float(np.median([s[k] for s in stages]))
-                       for k in stages[0]}}
+                       for k in stage_keys(stages[0])}}
 
 
 def check_roll(pipe) -> None:
@@ -1245,11 +1257,12 @@ def phase_profile(torch, label: str, run, expect: tuple = (),
     run, and so does a profile in which a kernel named in ``expect`` did
     not run or a CUDA-core kernel did (every profiled run is bf16). With
     ``counts_expect`` the launch counters are zeroed just before the run
-    and read just after, must equal it, and are returned, K1's replaced by
-    the count of ``flash_fwd_sm90_kernel<64>`` (the only d-64 forward of a
-    generate) in the trace, which must be ``k1_launches``. A profiler that
-    records no device time fails such a run (K1 uncounted), and is
-    reported as not measured otherwise."""
+    and read just after, must equal it, and are returned; their K1 (the
+    sampler program's replay) and the count of
+    ``flash_fwd_sm90_kernel<64>`` (the only d-64 forward of a generate) in
+    the trace must both be ``k1_launches``. A profiler that records no
+    device time fails such a run (K1 not seen in a trace), and is reported
+    as not measured otherwise."""
     from torch.profiler import ProfilerActivity, profile
 
     from v2ap_torch.ops.flash_attention import (launch_counts,
@@ -1294,15 +1307,15 @@ def phase_profile(torch, label: str, run, expect: tuple = (),
         f"kernels on the device {sum(e.count for e in rows)}")
     if counts_expect is not None:
         k1 = sum(e.count for e in rows if "flash_fwd_sm90_kernel<64>" in e.key)
-        log(f"    launches by the wrappers {counts} (expected "
+        log(f"    launches by the counters {counts} (expected "
             f"{counts_expect}); K1 launches in the trace: {k1} (expected "
             f"{k1_launches}, {api.get('cudaGraphLaunch', 0)} "
             f"cudaGraphLaunch)")
-        if counts != counts_expect or k1 != k1_launches:
+        if counts != counts_expect or k1 != k1_launches \
+                or counts["flash_attention_packed"] != k1:
             raise RuntimeError(f"{label} profile: launches {counts}, K1 {k1} "
                                f"in the trace; expected {counts_expect}, "
                                f"K1 {k1_launches}")
-        counts["flash_attention_packed"] = k1
     missing = [k for k in expect if not any(k in e.key for e in rows)]
     stale = [e.key for e in rows if any(c in e.key for c in CUDA_CORE)]
     if missing or stale:
@@ -1435,7 +1448,8 @@ def phase_generate_batch(torch, pipe, frames) -> tuple:
         f"{', '.join(f'{w:.4f}' for w in walls)}; median {wall:.4f} s, "
         f"{BATCH * CLIP_S / wall:.3f} audio-s per wall-s; median stages (s) "
         + ", ".join(f"{k} {np.median([st[k] for st in stages]):.4f}"
-                    for k in stages[0]))
+                    for k in stage_keys(stages[0]))
+        + f"; host syncs {[st['host_syncs'] for st in stages]}")
     log(f"  launches by the wrappers per call: {counts}")
     errs, single_walls = [], []
     for i, s in enumerate(seeds):
@@ -3292,7 +3306,8 @@ def tower_generate(torch, pipe, frames, label: str, expect_k2: int,
                    runs: int, stats: dict | None = None) -> int:
     """One warm-up generate, then ``runs`` timed ones from ``frames``
     (empty prompt, 25 steps), the launch counters zeroed before each and
-    read after: K2 ``expect_k2`` times and no other wrapper. Every wall,
+    read after: K2 ``expect_k2`` times, K1 the sampler replay's
+    ``k1_expect`` and nothing else. Every wall,
     each tower's seconds and the realtime factor printed, and put in
     ``stats`` (``wall``, ``video_encode_s``: medians). Returns K2's
     launches of the last run."""
@@ -3310,7 +3325,8 @@ def tower_generate(torch, pipe, frames, label: str, expect_k2: int,
     torch.cuda.synchronize()
     log(f"  {label}: warm-up generate {time.perf_counter() - t0:.3f} s")
     torch.cuda.reset_peak_memory_stats()
-    expect = {**dict.fromkeys(launch_counts, 0), "flash_attention": expect_k2}
+    expect = {**dict.fromkeys(launch_counts, 0), "flash_attention": expect_k2,
+              "flash_attention_packed": k1_expect(pipe)}
     walls, towers, encodes = [], [], []
     for _ in range(runs):
         torch.cuda.synchronize()
@@ -3326,7 +3342,8 @@ def tower_generate(torch, pipe, frames, label: str, expect_k2: int,
         if counts != expect:
             raise RuntimeError(f"{label}: launch counts {counts} != {expect}")
         log(f"  {label} run: wall {walls[-1]:.4f} s; stages (s) "
-            + ", ".join(f"{k} {v:.4f}" for k, v in pipe.last_timings.items())
+            + ", ".join(f"{k} {pipe.last_timings[k]:.4f}"
+                        for k in stage_keys(pipe.last_timings))
             + "; video_encode_s by tower (s) "
             + ", ".join(f"{k} {v:.4f}" for k, v in towers[-1].items()))
     wall = float(np.median(walls))
@@ -5490,9 +5507,10 @@ def phase_prompt_tokenizer(torch, frames, strips) -> None:
     counts = dict(launch_counts)
     keys = [c.key for c in pipe.graphs.captures]
     ctx = [k[5][0] for k in keys]         # the context's (b, L, d)
-    # the capturing call: the towers' K2 and the warm-up's one CFG eval
+    # the capturing call: the towers' K2, the warm-up's one CFG eval and
+    # the replay that follows the capture
     expect = generate_expect(pipe, len(frames))
-    expect["flash_attention_packed"] = k1_expect(pipe) // (25 - 1)
+    expect["flash_attention_packed"] += k1_expect(pipe) // (25 - 1)
     if len(keys) != 1 or ctx[0][1] != width or counts != expect:
         raise RuntimeError(f"tokenizer_path: captures {keys}, launches "
                            f"{counts} (expected {expect})")
@@ -5502,9 +5520,9 @@ def phase_prompt_tokenizer(torch, frames, strips) -> None:
     same = np.array_equal(first, again)
     log(f"  V2P generate, prompt of {width} tokens (FLAN-T5-large, context "
         f"{ctx[0]}): capture {t_first:.3f} s (1 new key; launches {counts}: "
-        f"K1 {expect['flash_attention_packed']} in the eager warm-up's CFG "
-        f"eval, {m_cross(pipe)} of them the cross-attention at nk = "
-        f"{width}, so {k1_expect(pipe)} a replay), replay {t_again:.3f} s, "
+        f"K1 {k1_expect(pipe) // (25 - 1)} in the eager warm-up's CFG eval, "
+        f"{m_cross(pipe)} of them the cross-attention at nk = {width}, and "
+        f"{k1_expect(pipe)} a replay), replay {t_again:.3f} s, "
         f"bit-equal {same}; finite {bool(np.isfinite(again).all())}")
     if not same or not np.isfinite(again).all():
         raise RuntimeError(f"tokenizer_path generate: bit-equal {same}")

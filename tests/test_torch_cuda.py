@@ -557,8 +557,8 @@ def test_captured_sampler_is_bit_equal_to_eager(cuda):
     """The pipeline's sampler on the card is one captured program per key;
     a replay with new inputs gives the eager trajectory's bits, for the CFG
     sampler, the few-step one and two restart passes; a replay calls no
-    wrapper (K1's counter stays 0) and the profiler's trace shows its K1
-    launches."""
+    wrapper, yet K1's counter gets the launches its capture recorded, as
+    many as the profiler's trace shows."""
     from torch.profiler import ProfilerActivity, profile
 
     from v2ap_torch import config as C
@@ -575,10 +575,10 @@ def test_captured_sampler_is_bit_equal_to_eager(cuda):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             got = pipe._sample(*second, sampler)         # replays
             torch.cuda.synchronize()
-        assert fa.launch_counts["flash_attention_packed"] == 0
         k1 = sum(e.count for e in prof.key_averages()
                  if "flash_fwd_sm90_kernel<64>" in e.key)
         assert k1 == (sampler.steps - 1) * 4 * pipe.cfg.model.depth
+        assert fa.launch_counts["flash_attention_packed"] == k1
         assert torch.equal(got, _eager(pipe, second, sampler))
     noises = torch.randn((1, 2, 192, pipe.cfg.model.num_channels),
                          device=cuda)

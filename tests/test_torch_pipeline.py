@@ -199,8 +199,9 @@ def test_generate_runs_on_cpu(pipelines):
     again, _ = tp.generate(None, steps=3, seed=5,
                            frames_cache=[(frames, 1.0, 1)])
     np.testing.assert_array_equal(wav, again)
-    assert set(tp.last_timings) == {"video_encode_s", "conditioning_s",
-                                    "sample_s", "decode_s"}
+    assert set(tp.last_timings) == {"video_encode_s", "upload_s",
+                                    "conditioning_s", "sample_s", "decode_s",
+                                    "host_syncs", "since_init"}
     wav2, _ = tp.generate(None, duration_s=0.5, fewstep=2, seed=5)
     assert wav2.shape == (12_000,) and np.isfinite(wav2).all()
 
@@ -387,8 +388,9 @@ def test_generate_v2p_with_prompt_runs_on_cpu(pipelines):
                               strips_cache=[(strips, STRIP_S)])
         roll = N(tp.last_roll)
         assert set(tp.last_timings) == {
-            "video_encode_s", "text_encode_s", "roll_s", "conditioning_s",
-            "sample_s", "decode_s"}
+            "strips_s", "video_encode_s", "upload_s", "text_encode_s",
+            "roll_s", "conditioning_s", "sample_s", "decode_s", "host_syncs",
+            "since_init"}
         exact, _ = tp.generate(None, PROMPT, piano=True, steps=2, seed=5,
                                duration_s=STRIP_S,
                                frames_cache=[(frames, STRIP_S, 1)],
@@ -494,7 +496,10 @@ def test_generate_batch_matches_jax(pipelines, tmp_path, piano):
     assert got.shape == want.shape == (3, 24_000)
     for i in range(3):
         assert rel_rms(got[i], want[i]) < 1e-4, i
-    assert set(tp.last_timings) == {"conditioning_s", "sample_s", "decode_s"}
+    assert set(tp.last_timings) == {
+        "conditioning_s", "video_encode_s", "upload_s", "text_encode_s",
+        "sample_s", "decode_s", "host_syncs", "since_init"} | (
+            {"strips_s", "roll_s"} if piano else set())
 
 
 def test_generate_batch_with_decoded_frames_matches_paths(pipelines, tmp_path):

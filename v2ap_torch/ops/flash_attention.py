@@ -33,9 +33,10 @@ ragged edges themselves) and any strides with a contiguous last dim, so the
 serving bucket's 800 tokens, CLIP's 257, the 782 tokens of a training
 window and a short cross-attention context all run on them.
 ``launch_counts`` counts kernel launches by kernel. A call made while its
-stream is being captured into a CUDA graph is not counted: it launches
-nothing, the graph launches its kernel at each replay, and what a replay
-launches shows only in a profiler's trace.
+stream is being captured into a CUDA graph launches nothing: it is counted
+into the capture's tally (``recording_launches``), which
+``utils.jitting.CapturedPrograms`` keeps with the graph and adds at each
+replay (``add_launches``), so the counters hold what the graphs launch too.
 
 The kernels are compiled with nvcc for sm_90a at first use into one
 library in ``build/v2ap_torch/`` (named by the sources' hash, so an edited
@@ -44,12 +45,15 @@ source is rebuilt) and loaded with ctypes.
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import ctypes
 import functools
 import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 from typing import NamedTuple
 
@@ -83,11 +87,39 @@ def reset_launch_counts() -> None:
         launch_counts[name] = 0
 
 
+# the tally of the graph this thread is capturing (``recording_launches``)
+_capturing = threading.local()
+
+
 def count_launch(name: str) -> None:
-    """One launch of ``name``'s kernel, unless the current stream is being
-    captured (the call then only records the kernel into a graph)."""
-    if not torch.cuda.is_current_stream_capturing():
+    """One launch of ``name``'s kernel; while the current stream is being
+    captured the call only records the kernel into a graph, and counts
+    into the capture's tally instead."""
+    if torch.cuda.is_current_stream_capturing():
+        tally = getattr(_capturing, "tally", None)
+        if tally is not None:
+            tally[name] += 1
+    else:
         launch_counts[name] += 1
+
+
+@contextlib.contextmanager
+def recording_launches():
+    """Yields a ``Counter`` of the kernels recorded into a graph captured by
+    this thread inside the block: what each replay of the graph launches."""
+    outer = getattr(_capturing, "tally", None)
+    tally = _capturing.tally = collections.Counter()
+    try:
+        yield tally
+    finally:
+        _capturing.tally = outer
+
+
+def add_launches(tally) -> None:
+    """Count the launches of one replay of a graph whose capture recorded
+    ``tally``."""
+    for name, n in tally.items():
+        launch_counts[name] += n
 
 
 # --------------------------------------------------------------------------- #

@@ -27,6 +27,16 @@ Counterpart of ``v2ap_tpu/pipelines/generate.py``:
 duration through one sampler call, ``generate_to_file`` writes the audio
 (muxed onto the video when ffmpeg is installed).
 
+Each call is one call of ``spans`` (``utils.observability.SpanRecorder``):
+the top-level spans ``strips`` (V2P: the keyboard strips' decode, plan and
+upload), ``video_encode``, ``conditioning``, ``sample`` and ``decode``
+partition it; inside them ``frames.upload`` (a chunk's contiguous copy and
+upload), ``tower.<name>`` (a tower on a chunk), ``text_encode`` and
+``roll``. On CUDA their seconds come from CUDA events, and nothing on the
+path synchronises to time them. ``last_timings`` holds the call's
+``<stage>_s`` sums, ``host_syncs`` (the points where the call waits for
+the card: each blocking upload and each copy back) and ``since_init``.
+
 The environment switches of the JAX pipeline that change its result are
 read as it reads them: ``V2AP_FRAME_STRIDE`` and ``V2AP_STRIP_STRIDE``
 override the config's strides (and tag the caches). ``quantize_towers=None``
@@ -58,7 +68,6 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import os
-import time
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
@@ -78,7 +87,14 @@ from v2ap_torch.parallel.mesh import batch_sharding
 from v2ap_torch.utils.device import resolve_device, seeded_init
 from v2ap_torch.utils.jitting import (CapturedPrograms, batch_bucket,
                                       cast_params, pad_batch)
+from v2ap_torch.utils.observability import SpanRecorder
 from v2ap_torch.utils.quantize import quantize_linears_int8
+
+# span name -> its key in ``last_timings`` (seconds summed over the call)
+STAGE_KEYS = (("strips", "strips_s"), ("video_encode", "video_encode_s"),
+              ("frames.upload", "upload_s"), ("text_encode", "text_encode_s"),
+              ("roll", "roll_s"), ("conditioning", "conditioning_s"),
+              ("sample", "sample_s"), ("decode", "decode_s"))
 
 
 def bucket_length(n: int, bucket: int = 96) -> int:
@@ -190,50 +206,59 @@ class V2APipeline:
                     upsampling_ratios=(8, 5, 4, 2), num_lstm_layers=1)
         self.codec_cfg = encodec_config
         self.t5_cfg = t5_config or flan_t5_large()
+        self.spans = SpanRecorder(self.device)
+        span = self.spans.span
 
         # parameter init draws from the seed, on the device (bigG in f32 on
         # the host would take minutes to initialise)
-        with seeded_init(seed, self.device):
-            self.cfm = CFM(cfg.model, cond, device=self.device,
-                           with_video2roll=cfg.model.video2roll)
-        with seeded_init(seed + 1, self.device):
-            self.codec = EncodecModel(encodec_config, device=self.device)
-        with seeded_init(seed + 2, self.device):
-            self.t5 = T5Encoder(self.t5_cfg, device=self.device)
-        # tower name -> config (tiny test configs); clip_config is the
-        # shorthand for ViT-bigG's
-        tower_configs = dict(tower_configs or {})
-        if clip_config is not None:
-            tower_configs.setdefault("clip_vit", clip_config)
-        self.towers = build_video_towers(cond.video_encoder, seed=seed + 3,
-                                         overrides=tower_configs,
-                                         device=self.device)
-        self.video_embed_dim = sum(t.embed_dim for t in self.towers)
-        self.clip = self.towers[0].model
-        self.clip_cfg = self.clip.cfg
-        # frozen encoders are stored bf16 when the model computes in bf16;
-        # the CFM keeps f32 parameters and stores bf16 copies of only the
-        # weights its bf16 layers cast on every call (the same values)
-        frozen = [self.codec, self.t5, *(t.model for t in self.towers)]
-        if cfg.model.dtype == "bfloat16":
-            for model in frozen[1:]:
-                model.to(torch.bfloat16)
-            if not trainable_cfm:
-                cast_params(self.cfm, torch.bfloat16)
-        for module in frozen + ([] if trainable_cfm else [self.cfm]):
-            module.eval().requires_grad_(False)
-        # int8 products on the stored weights (the caches' tags follow)
-        self.quantize_cfm = bool(quantize_cfm)
-        quantize_linears_int8(self.cfm, self.quantize_cfm)
-        self.set_int8_towers(bool(quantize_towers))
+        with self.spans.call() as init, span("init"):
+            with span("init.cfm"), seeded_init(seed, self.device):
+                self.cfm = CFM(cfg.model, cond, device=self.device,
+                               with_video2roll=cfg.model.video2roll)
+            with span("init.codec"), seeded_init(seed + 1, self.device):
+                self.codec = EncodecModel(encodec_config, device=self.device)
+            with span("init.t5"), seeded_init(seed + 2, self.device):
+                self.t5 = T5Encoder(self.t5_cfg, device=self.device)
+            # tower name -> config (tiny test configs); clip_config is the
+            # shorthand for ViT-bigG's
+            tower_configs = dict(tower_configs or {})
+            if clip_config is not None:
+                tower_configs.setdefault("clip_vit", clip_config)
+            with span("init.towers"):
+                self.towers = build_video_towers(
+                    cond.video_encoder, seed=seed + 3,
+                    overrides=tower_configs, device=self.device)
+            self.video_embed_dim = sum(t.embed_dim for t in self.towers)
+            self.clip = self.towers[0].model
+            self.clip_cfg = self.clip.cfg
+            # frozen encoders are stored bf16 when the model computes in
+            # bf16; the CFM keeps f32 parameters and stores bf16 copies of
+            # only the weights its bf16 layers cast on every call (the same
+            # values)
+            frozen = [self.codec, self.t5, *(t.model for t in self.towers)]
+            if cfg.model.dtype == "bfloat16":
+                for model in frozen[1:]:
+                    model.to(torch.bfloat16)
+                if not trainable_cfm:
+                    cast_params(self.cfm, torch.bfloat16)
+            for module in frozen + ([] if trainable_cfm else [self.cfm]):
+                module.eval().requires_grad_(False)
+            # int8 products on the stored weights (the caches' tags follow)
+            self.quantize_cfm = bool(quantize_cfm)
+            quantize_linears_int8(self.cfm, self.quantize_cfm)
+            self.set_int8_towers(bool(quantize_towers))
+        # seconds of the seeded construction above, and of each module's
+        # part of it, reported in every call's ``last_timings["since_init"]``
+        init_totals = self.spans.totals(init)
+        self.init_s = init_totals.pop("init")
+        self.init_by_module = {name.removeprefix("init."): sec
+                               for name, sec in init_totals.items()}
         self.tokenize = load_t5_tokenizer(tokenizer_path,
                                           self.t5_cfg.vocab_size)
         # the sampler's captured programs (CUDA only; the CPU runs eagerly)
         self.graphs = (CapturedPrograms() if self.device.type == "cuda"
                        else None)
         self.last_timings: dict = {}
-        # seconds of each tower's part of the last encode_video_frames_clip
-        self.tower_seconds: dict = {}
         self.last_roll: Optional[torch.Tensor] = None   # (n, notes), V2P
         self.mesh = None                    # shard_serving's
 
@@ -311,12 +336,42 @@ class V2APipeline:
                 + ("+shalf" if self.ship_strip_half else "")
                 + (f"+ss{ss}" if ss > 1 else ""))
 
-    def _sync(self) -> None:
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+    @property
+    def tower_seconds(self) -> dict:
+        """Seconds of each tower in the last call (its cache read, or its
+        geometry and model over every chunk): its ``tower.<name>`` spans."""
+        return {name.removeprefix("tower."): sec
+                for name, sec in self.spans.totals().items()
+                if name.startswith("tower.")}
 
     def _to_device(self, a: np.ndarray) -> torch.Tensor:
+        """``a`` on the device. A pageable copy, so on CUDA it waits for the
+        stream: counted in ``host_syncs``."""
+        self.spans.count("host_syncs")
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+    def _to_host(self, t: torch.Tensor) -> np.ndarray:
+        """``t`` as numpy; on CUDA the copy waits for the stream."""
+        self.spans.count("host_syncs")
+        return t.cpu().numpy()
+
+    def _call_timings(self, call) -> dict:
+        """``last_timings`` of a call that has ended: each stage's seconds,
+        ``host_syncs``, and ``since_init`` (a new dict each call):
+        ``init_s``, the seeded construction, ``init_by_module``, its part
+        by module (``cfm``, ``codec``, ``t5``, ``towers``), and
+        ``capture_s``, every sampler program's eager warm-up and capture so
+        far."""
+        totals = self.spans.totals(call)
+        timings = {key: totals[name] for name, key in STAGE_KEYS
+                   if name in totals}
+        timings["host_syncs"] = call.counters.get("host_syncs", 0)
+        timings["since_init"] = {
+            "init_s": self.init_s,
+            "init_by_module": dict(self.init_by_module),
+            "capture_s": (sum(c.seconds for c in self.graphs.captures)
+                          if self.graphs is not None else 0.0)}
+        return timings
 
     def _normal(self, seed: int, shape: tuple) -> torch.Tensor:
         """Standard normal float32 ``shape`` on the device from a
@@ -397,9 +452,10 @@ class V2APipeline:
         mask (b, L)) on the device, L the tokenizer's width (64 for
         ``FallbackTokenizer``, the longest prompt's for a tokenizer
         directory); padded rows are zero."""
-        ids, mask = self.tokenize(list(prompts))
-        mask = self._to_device(mask).bool()
-        return self.t5(self._to_device(ids).long(), mask), mask
+        with self.spans.span("text_encode"):
+            ids, mask = self.tokenize(list(prompts))
+            mask = self._to_device(mask).bool()
+            return self.t5(self._to_device(ids).long(), mask), mask
 
     def _tower_frames(self, video_path: Optional[str], frames_cache: list):
         """The frames the towers encode, every ``frame_stride``-th one, and
@@ -436,23 +492,28 @@ class V2APipeline:
         device. In "mixed" mode the embeddings are cut to the shortest and
         concatenated per frame (1280 + 768 + 1024 + 1536 = 4608). At frame
         stride 1 each row takes its nearest frame; above 1 it blends the two
-        nearest encoded frames in float32. ``tower_seconds`` gets each
-        tower's seconds (its cache read, or its geometry and model)."""
-        chunk = chunk or 64
+        nearest encoded frames in float32. Outside ``generate`` it is a call
+        of its own, whose ``tower_seconds`` give each tower's seconds."""
+        with self.spans.call():
+            return self._encode_video_frames_clip(video_path, length,
+                                                  chunk or 64, frames_cache)
+
+    def _encode_video_frames_clip(self, video_path, length, chunk,
+                                  frames_cache):
         frames_cache = [] if frames_cache is None else frames_cache
-        self.tower_seconds = {}
+        span = self.spans.span
         feats, caches, duration = {}, {}, None
         if self.cfg.conditioning.feature_cache and video_path is not None:
             for tower in self.towers:
-                t0 = time.perf_counter()
-                caches[tower.name] = video_io.clip_feature_cache_path(
-                    video_path, tower.name)
-                got, d = video_io.load_feature_cache(caches[tower.name],
-                                                     tag=self._tower_tag)
-                if got is not None:
-                    feats[tower.name] = _feature_tensor(got, self.device)
-                    duration = d
-                    self.tower_seconds[tower.name] = time.perf_counter() - t0
+                with span("tower." + tower.name):
+                    caches[tower.name] = video_io.clip_feature_cache_path(
+                        video_path, tower.name)
+                    got, d = video_io.load_feature_cache(caches[tower.name],
+                                                         tag=self._tower_tag)
+                    if got is not None:
+                        self.spans.count("host_syncs")
+                        feats[tower.name] = _feature_tensor(got, self.device)
+                        duration = d
         todo = [t for t in self.towers if t.name not in feats]
         if todo:
             rows = batch_sharding(self.mesh) if self.mesh is not None else None
@@ -477,7 +538,6 @@ class V2APipeline:
             # YUV 4:2:0 on the wire (the sharded path ships RGB)
             yuv = self.ship_yuv420 and rows is None
             parts = {t.name: [] for t in todo}
-            seconds = dict.fromkeys(parts, 0.0)
             for part in chunks:
                 real = len(part)
                 if rows is not None:
@@ -487,25 +547,25 @@ class V2APipeline:
                         part = np.concatenate([part, np.zeros(
                             (pad,) + part.shape[1:], part.dtype)])
                     part = rows.shard(part)
-                px = None if yuv else self._to_device(part)
+                if not yuv:
+                    with span("frames.upload"):
+                        px = self._to_device(part)
                 for tower in todo:
-                    t0 = time.perf_counter()
-                    if yuv:
-                        # the tower's geometry and the pack on the host,
-                        # both through the host library
-                        y, uv = pack_yuv420(tower.host_preprocess(part))
-                        x = unpack_yuv420(self._to_device(y),
-                                          self._to_device(uv), tower.mean,
-                                          tower.std)
-                    else:
-                        x = device_normalize(tower.preprocess(px),
-                                             tower.mean, tower.std)
-                    out = tower.model(x)
-                    if rows is not None:
-                        out = rows.gather(out)[:real]
-                    parts[tower.name].append(out)
-                    self._sync()
-                    seconds[tower.name] += time.perf_counter() - t0
+                    with span("tower." + tower.name):
+                        if yuv:
+                            # the tower's geometry and the pack on the host,
+                            # both through the host library
+                            y, uv = pack_yuv420(tower.host_preprocess(part))
+                            with span("frames.upload"):
+                                y, uv = self._to_device(y), self._to_device(uv)
+                            x = unpack_yuv420(y, uv, tower.mean, tower.std)
+                        else:
+                            x = device_normalize(tower.preprocess(px),
+                                                 tower.mean, tower.std)
+                        out = tower.model(x)
+                        if rows is not None:
+                            out = rows.gather(out)[:real]
+                        parts[tower.name].append(out)
             if reader is not None:
                 duration = reader.duration
                 if reader.failed or not parts[todo[0].name]:
@@ -517,9 +577,8 @@ class V2APipeline:
                     # packages read it
                     video_io.save_feature_cache(
                         caches[tower.name],
-                        feats[tower.name].float().cpu().numpy(), duration,
+                        self._to_host(feats[tower.name].float()), duration,
                         tag=self._tower_tag)
-            self.tower_seconds.update(seconds)
         per_tower = [feats[t.name].float() for t in self.towers]
         t = min(len(f) for f in per_tower)
         feats = torch.cat([f[:t] for f in per_tower], dim=-1)
@@ -722,125 +781,139 @@ class V2APipeline:
         if piano and not strips_cache and video_path is None:
             raise ValueError("piano=True needs keyboard strips: a video path "
                              "to decode or strips_cache=[(strips, duration)]")
+        frames_cache = [] if frames_cache is None else frames_cache
+        with self.spans.call() as call:
+            wav, sr = self._generate(
+                video_path, prompt, duration_s, piano, seed, max_duration_s,
+                passes, restart_t, frames_cache, strips_cache,
+                self._sampler(steps, cfg_strength, fewstep))
+        self.last_timings = self._call_timings(call)
+        return wav, sr
+
+    def _generate(self, video_path, prompt, duration_s, piano, seed,
+                  max_duration_s, passes, restart_t, frames_cache,
+                  strips_cache, sampler):
+        """``generate``'s work, one top-level span after another."""
         dev = self.device
         cond = self.cfg.conditioning
         sr = cond.sampling_rate
         caching = cond.feature_cache and video_path is not None
-        frames_cache = [] if frames_cache is None else frames_cache
-        timings = {}
-        t0 = time.perf_counter()
+        span = self.spans.span
 
         n = strips_dev = roll_np = None
         if piano and duration_s is None:
-            if caching:
-                # the roll cache skips the strips and Video2Roll altogether
-                roll_np, roll_dur = video_io.load_feature_cache(
-                    video_io.piano_roll_cache_path(video_path),
-                    tag=self._roll_tag)
-                if roll_np is not None:
-                    duration_s, n_valid, n = self._plan_length(
-                        min(roll_dur, max_duration_s))
-                    if len(roll_np) != n:         # another length bucket
-                        roll_np = duration_s = n = None
-            # strided strips never read the full-rate strip cache: its exact
-            # rolls would land under the strided roll tag
-            has_strip_cache = (self.strip_stride == 1 and caching
-                               and os.path.exists(
-                                   video_io.piano_frames_cache_path(video_path)))
-            if roll_np is None and not has_strip_cache:
-                # the strips decode with the frames; their duration plans n
-                source = self._decode_strips(video_path, frames_cache,
-                                             strips_cache)
-                if source is None:
-                    raise RuntimeError(
-                        f"piano=True: no keyboard strips decoded from "
-                        f"{video_path!r} (decoding needs cv2; pass "
-                        f"strips_cache=[(strips, duration)] instead)")
-                duration_s, n_valid, n = self._plan_length(
-                    min(source[1] or 10.0, max_duration_s))
-                strips_dev = self._piano_strips(video_path, n, frames_cache,
-                                                strips_cache, source)
-        text_embed, video_duration = None, None
-        if video_path is not None or frames_cache:
-            probe_len = int(max_duration_s * sr / cond.frame_size)
-            text_embed, video_duration = self.encode_video_frames_clip(
-                video_path, probe_len, frames_cache=frames_cache)
-        self._sync()
-        timings["video_encode_s"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        if duration_s is None:
-            duration_s, n_valid, n = self._plan_length(
-                min(video_duration or 10.0, max_duration_s))
-        elif n is None:
-            duration_s, n_valid, n = self._plan_length(duration_s)
-
-        b = 1
-        tdim = self.cfg.model.dim_text_raw or self.cfg.model.dim_text
-        text = torch.zeros(b, n, tdim, device=dev)
-        if text_embed is not None:
-            m = min(n, len(text_embed))
-            text[0, :m] = text_embed[:m]
-        if prompt.strip():
-            t1 = time.perf_counter()
-            ctx, ctx_mask = self.encode_text([prompt])
-            self._sync()
-            timings["text_encode_s"] = time.perf_counter() - t1
-        else:
-            # empty prompt: the T5 k/v projections carry no bias, so a zero
-            # context of length 1 equals the zeroed encoder output
-            ctx = torch.zeros(b, 1, self.cfg.model.dim_context, device=dev)
-            ctx_mask = torch.ones(b, 1, dtype=torch.bool, device=dev)
-        roll_cache_write = None
-        if piano:
-            t1 = time.perf_counter()
-            if roll_np is not None:                       # roll-cache hit
-                frames_roll = self._to_device(roll_np[None]).float()
-            else:
-                if strips_dev is None:  # explicit duration or the strip cache
-                    strips_dev = self._piano_strips(video_path, n,
-                                                    frames_cache, strips_cache)
-                    if strips_dev is None:
-                        raise RuntimeError(f"piano=True: no keyboard strips "
-                                           f"from {video_path!r}")
-                frames_roll = self._roll_from_strips(strips_dev, n)
+            with span("strips"):
                 if caching:
-                    # tagged by the path that made the roll: the exact path
-                    # can run at strip stride > 1 (explicit duration_s)
-                    tag = self._roll_tag
-                    if not isinstance(strips_dev, tuple):
-                        tag = tag.split("+ss")[0]
-                    roll_cache_write = (video_io.piano_roll_cache_path(
-                        video_path), duration_s, tag)
-            self._sync()
-            timings["roll_s"] = time.perf_counter() - t1
-        else:
-            frames_roll = torch.zeros(b, n, self.cfg.model.notes, device=dev)
-        mask = torch.arange(n, device=dev)[None, :] < n_valid
-        x0 = self._normal(seed, (b, n, self.cfg.model.num_channels))
-        timings["conditioning_s"] = time.perf_counter() - t0
+                    # the roll cache skips the strips and Video2Roll
+                    roll_np, roll_dur = video_io.load_feature_cache(
+                        video_io.piano_roll_cache_path(video_path),
+                        tag=self._roll_tag)
+                    if roll_np is not None:
+                        duration_s, n_valid, n = self._plan_length(
+                            min(roll_dur, max_duration_s))
+                        if len(roll_np) != n:     # another length bucket
+                            roll_np = duration_s = n = None
+                # strided strips never read the full-rate strip cache: its
+                # exact rolls would land under the strided roll tag
+                has_strip_cache = (
+                    self.strip_stride == 1 and caching and os.path.exists(
+                        video_io.piano_frames_cache_path(video_path)))
+                if roll_np is None and not has_strip_cache:
+                    # the strips decode with the frames; their duration
+                    # plans n
+                    source = self._decode_strips(video_path, frames_cache,
+                                                 strips_cache)
+                    if source is None:
+                        raise RuntimeError(
+                            f"piano=True: no keyboard strips decoded from "
+                            f"{video_path!r} (decoding needs cv2; pass "
+                            f"strips_cache=[(strips, duration)] instead)")
+                    duration_s, n_valid, n = self._plan_length(
+                        min(source[1] or 10.0, max_duration_s))
+                    strips_dev = self._piano_strips(
+                        video_path, n, frames_cache, strips_cache, source)
+        text_embed, video_duration = None, None
+        with span("video_encode"):
+            if video_path is not None or frames_cache:
+                probe_len = int(max_duration_s * sr / cond.frame_size)
+                text_embed, video_duration = self.encode_video_frames_clip(
+                    video_path, probe_len, frames_cache=frames_cache)
+        with span("conditioning"):
+            if duration_s is None:
+                duration_s, n_valid, n = self._plan_length(
+                    min(video_duration or 10.0, max_duration_s))
+            elif n is None:
+                duration_s, n_valid, n = self._plan_length(duration_s)
 
-        t0 = time.perf_counter()
-        sampler = self._sampler(steps, cfg_strength, fewstep)
-        if passes > 1:
-            noises = self._normal(seed + 1, (passes - 1,) + tuple(x0.shape))
-            latents = self._sample_multipass(x0, text, frames_roll, ctx,
-                                             ctx_mask, mask, sampler, noises,
-                                             passes, restart_t)
-        else:
-            latents = self._sample(x0, text, frames_roll, ctx, ctx_mask,
-                                   mask, sampler)
-        self._sync()
-        timings["sample_s"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        wav = self.codec.decode(latents[:, :n_valid]).cpu().numpy()
-        timings["decode_s"] = time.perf_counter() - t0
-        if roll_cache_write is not None:
-            path, dur, tag = roll_cache_write
-            video_io.save_feature_cache(path, frames_roll[0].cpu().numpy(),
-                                        dur, tag=tag)
-        self.last_timings = timings
+            b = 1
+            tdim = self.cfg.model.dim_text_raw or self.cfg.model.dim_text
+            text = torch.zeros(b, n, tdim, device=dev)
+            if text_embed is not None:
+                m = min(n, len(text_embed))
+                text[0, :m] = text_embed[:m]
+            if prompt.strip():
+                ctx, ctx_mask = self.encode_text([prompt])
+            else:
+                # empty prompt: the T5 k/v projections carry no bias, so a
+                # zero context of length 1 equals the zeroed encoder output
+                ctx = torch.zeros(b, 1, self.cfg.model.dim_context,
+                                  device=dev)
+                ctx_mask = torch.ones(b, 1, dtype=torch.bool, device=dev)
+            roll_cache_write = None
+            if piano:
+                with span("roll"):
+                    frames_roll, roll_cache_write = self._roll(
+                        video_path, n, duration_s, roll_np, strips_dev,
+                        frames_cache, strips_cache, caching)
+            else:
+                frames_roll = torch.zeros(b, n, self.cfg.model.notes,
+                                          device=dev)
+            mask = torch.arange(n, device=dev)[None, :] < n_valid
+            x0 = self._normal(seed, (b, n, self.cfg.model.num_channels))
+
+        with span("sample"):
+            if passes > 1:
+                noises = self._normal(seed + 1,
+                                      (passes - 1,) + tuple(x0.shape))
+                latents = self._sample_multipass(
+                    x0, text, frames_roll, ctx, ctx_mask, mask, sampler,
+                    noises, passes, restart_t)
+            else:
+                latents = self._sample(x0, text, frames_roll, ctx, ctx_mask,
+                                       mask, sampler)
+        with span("decode"):
+            wav = self._to_host(self.codec.decode(latents[:, :n_valid]))
+            if roll_cache_write is not None:
+                path, dur, tag = roll_cache_write
+                video_io.save_feature_cache(
+                    path, self._to_host(frames_roll[0]), dur, tag=tag)
         self.last_roll = frames_roll[0] if piano else None
         return wav[0, : int(duration_s * sr)], sr
+
+    def _roll(self, video_path, n, duration_s, roll_np, strips_dev,
+              frames_cache, strips_cache, caching):
+        """``generate``'s roll (1, n, notes) f32 on the device and the roll
+        cache's write (path, duration, tag) or None: the roll cache's hit,
+        else Video2Roll over the strips (made here for an explicit duration
+        or the strip cache)."""
+        if roll_np is not None:                           # roll-cache hit
+            return self._to_device(roll_np[None]).float(), None
+        if strips_dev is None:      # explicit duration or the strip cache
+            strips_dev = self._piano_strips(video_path, n, frames_cache,
+                                            strips_cache)
+            if strips_dev is None:
+                raise RuntimeError(f"piano=True: no keyboard strips from "
+                                   f"{video_path!r}")
+        frames_roll = self._roll_from_strips(strips_dev, n)
+        if not caching:
+            return frames_roll, None
+        # tagged by the path that made the roll: the exact path can run at
+        # strip stride > 1 (explicit duration_s)
+        tag = self._roll_tag
+        if not isinstance(strips_dev, tuple):
+            tag = tag.split("+ss")[0]
+        return frames_roll, (video_io.piano_roll_cache_path(video_path),
+                             duration_s, tag)
 
     @torch.inference_mode()
     def generate_batch(
@@ -879,50 +952,63 @@ class V2APipeline:
             raise ValueError("video_paths, prompts, frames_caches and "
                              "strips_caches need one entry per clip")
         _, n_valid, n = self._plan_length(duration_s)
-        t0 = time.perf_counter()
-        tdim = mcfg.dim_text_raw or mcfg.dim_text
-        text = torch.zeros(b, n, tdim, device=dev)
-        frames_roll = torch.zeros(b, n, mcfg.notes, device=dev)
-        for i, vp in enumerate(video_paths):
-            decoded = list(frames_caches[i] or [])
-            if vp is None and not decoded and not strips_caches[i]:
-                continue
-            if piano:
-                # the strips decode first, with the frames the tower takes
-                strips_dev = self._piano_strips(
-                    vp, n_valid, decoded, strips_caches[i],
-                    self._decode_strips(vp, decoded, strips_caches[i]))
-                if strips_dev is not None:
-                    frames_roll[i] = self._roll_from_strips(strips_dev, n)[0]
-            if vp is not None or decoded:
-                feats, _ = self.encode_video_frames_clip(
-                    vp, n_valid, frames_cache=decoded)
-                if feats is not None:
-                    text[i, : len(feats)] = feats[:n]
-        if all(not p.strip() for p in prompts):
-            # every prompt dropped: a zero context of any length equals the
-            # zeroed T5 output (bias-free k/v), so T5 does not run
-            ctx = torch.zeros(b, 1, mcfg.dim_context, device=dev)
-            ctx_mask = torch.ones(b, 1, dtype=torch.bool, device=dev)
-        else:
-            eff = [p if p.strip() else "the sound of X X" for p in prompts]
-            drop = torch.tensor([not p.strip() for p in prompts], device=dev)
-            ctx, ctx_mask = self.encode_text(eff)
-            ctx = torch.where(drop[:, None, None], 0.0, ctx)
-        mask = (torch.arange(n, device=dev)[None, :] < n_valid).repeat(b, 1)
-        x0 = (self._normal(seed, (b, n, mcfg.num_channels)) if x0 is None
-              else torch.as_tensor(x0, dtype=torch.float32, device=dev))
-        self._sync()
-        timings = {"conditioning_s": time.perf_counter() - t0}
-        t0 = time.perf_counter()
-        latents = self._sample(x0, text, frames_roll, ctx, ctx_mask, mask,
-                               self._sampler(steps, cfg_strength, fewstep))
-        self._sync()
-        timings["sample_s"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        wavs = self.codec.decode(latents[:, :n_valid]).cpu().numpy()
-        timings["decode_s"] = time.perf_counter() - t0
-        self.last_timings = timings
+        span = self.spans.span
+        with self.spans.call() as call:
+            with span("conditioning"):
+                tdim = mcfg.dim_text_raw or mcfg.dim_text
+                text = torch.zeros(b, n, tdim, device=dev)
+                frames_roll = torch.zeros(b, n, mcfg.notes, device=dev)
+                for i, vp in enumerate(video_paths):
+                    decoded = list(frames_caches[i] or [])
+                    if vp is None and not decoded and not strips_caches[i]:
+                        continue
+                    if piano:
+                        # the strips decode first, with the frames the tower
+                        # takes
+                        with span("strips"):
+                            strips_dev = self._piano_strips(
+                                vp, n_valid, decoded, strips_caches[i],
+                                self._decode_strips(vp, decoded,
+                                                    strips_caches[i]))
+                        if strips_dev is not None:
+                            with span("roll"):
+                                frames_roll[i] = self._roll_from_strips(
+                                    strips_dev, n)[0]
+                    if vp is not None or decoded:
+                        with span("video_encode"):
+                            feats, _ = self.encode_video_frames_clip(
+                                vp, n_valid, frames_cache=decoded)
+                            if feats is not None:
+                                text[i, : len(feats)] = feats[:n]
+                if all(not p.strip() for p in prompts):
+                    # every prompt dropped: a zero context of any length
+                    # equals the zeroed T5 output (bias-free k/v), so T5
+                    # does not run
+                    ctx = torch.zeros(b, 1, mcfg.dim_context, device=dev)
+                    ctx_mask = torch.ones(b, 1, dtype=torch.bool, device=dev)
+                else:
+                    eff = [p if p.strip() else "the sound of X X"
+                           for p in prompts]
+                    drop = self._to_device(
+                        np.array([not p.strip() for p in prompts]))
+                    ctx, ctx_mask = self.encode_text(eff)
+                    ctx = torch.where(drop[:, None, None], 0.0, ctx)
+                mask = (torch.arange(n, device=dev)[None, :]
+                        < n_valid).repeat(b, 1)
+                if x0 is None:
+                    x0 = self._normal(seed, (b, n, mcfg.num_channels))
+                else:
+                    if not (isinstance(x0, torch.Tensor)
+                            and x0.device.type == dev.type):
+                        self.spans.count("host_syncs")
+                    x0 = torch.as_tensor(x0, dtype=torch.float32, device=dev)
+            with span("sample"):
+                latents = self._sample(
+                    x0, text, frames_roll, ctx, ctx_mask, mask,
+                    self._sampler(steps, cfg_strength, fewstep))
+            with span("decode"):
+                wavs = self._to_host(self.codec.decode(latents[:, :n_valid]))
+        self.last_timings = self._call_timings(call)
         return wavs[:, : int(duration_s * sr)], sr
 
     def generate_to_file(self, video_path: str, out_path: str, **kw) -> str:

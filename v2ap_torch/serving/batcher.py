@@ -6,9 +6,13 @@ batched into ONE ``V2APipeline.generate_batch`` call share one sampler call
 
 Requests group by (steps, piano, bucketed duration) — the sampler program
 is shape-specialised, so only compatible requests share a call; stragglers
-re-queue for the next group. A request served alone draws different noise
-rows than the same request inside a batch (one PRNG tensor per call), which
-is within serving semantics — generation is stochastic per request anyway.
+re-queue for the next group. Given ``metrics`` (``server.ServerMetrics``,
+as ``serve`` passes it), each batch's size and each request's seconds in
+the queue go to it, with the pipeline's ``last_timings`` of the call. A
+request served alone draws
+different noise rows than the same request inside a batch (one PRNG tensor
+per call), which is within serving semantics — generation is stochastic
+per request anyway.
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ class _Request:
     piano: bool
     duration_s: float
     future: Future
+    enqueued: float = dataclasses.field(default_factory=time.monotonic)
 
 
 class RequestBatcher:
@@ -38,8 +43,10 @@ class RequestBatcher:
     pipeline calls. ``submit`` returns a Future resolving to (wav, sr)."""
 
     def __init__(self, pipeline, max_batch: int = 8,
-                 window_ms: float = 50.0, max_duration_s: float = 30.0):
+                 window_ms: float = 50.0, max_duration_s: float = 30.0,
+                 metrics=None):
         self.pipeline = pipeline
+        self.metrics = metrics
         self.max_batch = max(1, max_batch)
         self.window_s = window_ms / 1000.0
         self.max_duration_s = max_duration_s
@@ -128,12 +135,18 @@ class RequestBatcher:
                         RuntimeError("RequestBatcher closed"))
                 break
             batch = self._collect(first)
+            if self.metrics is not None:
+                now = time.monotonic()
+                self.metrics.observe_batch([now - r.enqueued for r in batch])
             try:
                 wavs, sr = self.pipeline.generate_batch(
                     [r.video_path for r in batch],
                     [r.prompt for r in batch],
                     duration_s=first.duration_s, steps=first.steps,
                     piano=first.piano, seed=int(time.time_ns() % (1 << 31)))
+                if self.metrics is not None:
+                    self.metrics.observe_stages(
+                        getattr(self.pipeline, "last_timings", {}))
                 for i, r in enumerate(batch):
                     r.future.set_result((np.asarray(wavs[i]), sr))
             except Exception as exc:           # noqa: BLE001 — fail the batch

@@ -8,8 +8,10 @@ over the port's ``V2APipeline``, with
                       it through the same generate path (?mode=v2a|v2p,
                       &steps=N), the reference's clickable examples
   GET  /healthz     — liveness + model info
-  GET  /metrics     — request counters + latency quantiles (JSON; also
-                      Prometheus text with Accept: text/plain)
+  GET  /metrics     — request counters + latency quantiles, the batcher's
+                      batches and queue waits, the pipeline's stage
+                      seconds and host syncs (JSON; also Prometheus text
+                      with Accept: text/plain; see below)
   POST /v2a, /v2p   — multipart video upload (+ optional ``prompt``,
                       ``steps`` fields) -> generated WAV (or muxed MP4 when
                       a muxer is available)
@@ -22,6 +24,24 @@ Concurrent requests coalesce through a micro-batching scheduler
 window share ONE ``generate_batch`` call on the CFM's batch axis.
 With batching disabled (``serve(..., batch_requests=False)``), device work
 serialises through a lock instead.
+
+What ``/metrics`` reports (``ServerMetrics``; JSON, or Prometheus text):
+
+  * per endpoint: requests, errors, latency p50 / p90 / p99
+    (``v2ap_requests_total``, ``v2ap_errors_total``,
+    ``v2ap_latency_seconds``);
+  * ``batcher``: batched calls, the requests they carried, the mean batch
+    size and each request's wait in the batcher's queue, p50 / p90 / p99
+    (``v2ap_batches_total``, ``v2ap_batched_requests_total``,
+    ``v2ap_queue_wait_seconds``);
+  * ``stages``: the pipeline's ``last_timings`` of every call, summed: each
+    stage's seconds and calls (``v2ap_stage_seconds_total{stage=...}``,
+    ``v2ap_stage_calls_total``: ``video_encode``, ``upload``,
+    ``text_encode``, ``roll``, ``strips``, ``conditioning``, ``sample``,
+    ``decode``) and the points where a call waited for the card
+    (``v2ap_host_syncs_total``). On CUDA the stage seconds come from CUDA
+    events, and a profiled run carries each stage as a ``v2ap.<stage>``
+    range beside the kernels.
 """
 
 from __future__ import annotations
@@ -42,7 +62,11 @@ class ServerMetrics:
     """Thread-safe request counters + latency quantiles for /metrics.
 
     Per-endpoint counts, error counts, and p50/p90/p99 wall latency over a
-    bounded reservoir of the most recent requests."""
+    bounded reservoir of the most recent requests; the batcher's batches,
+    the requests they carried and each request's seconds in its queue
+    (``observe_batch``); and the pipeline's own numbers of every call
+    (``observe_stages``: each stage's seconds and ``host_syncs`` from
+    ``last_timings``), summed."""
 
     def __init__(self, reservoir: int = 1024):
         self._lock = threading.Lock()
@@ -50,6 +74,11 @@ class ServerMetrics:
         self.counts: dict = {}
         self.errors: dict = {}
         self._lat: dict = {}              # endpoint -> deque of RECENT samples
+        self.batches = 0
+        self.batched_requests = 0
+        self._waits = collections.deque(maxlen=reservoir)
+        self.stage_totals: dict = {}      # last_timings key -> summed value
+        self.stage_calls: dict = {}
 
     def observe(self, endpoint: str, seconds: float, ok: bool) -> None:
         with self._lock:
@@ -60,24 +89,63 @@ class ServerMetrics:
                 endpoint,
                 collections.deque(maxlen=self._reservoir)).append(seconds)
 
-    def snapshot(self) -> dict:
+    def observe_batch(self, waits) -> None:
+        """One batched pipeline call: the seconds each of its requests
+        waited in the batcher's queue (one per request)."""
         with self._lock:
-            out = {}
-            for ep, n in self.counts.items():
-                # quantiles over the most-recent window (a sorted reservoir
-                # that evicts by VALUE would converge to all-time-worst)
-                lat = sorted(self._lat.get(ep, ()))
-                q = (lambda f: round(lat[min(len(lat) - 1,
-                                             int(f * len(lat)))], 4)
-                     ) if lat else (lambda f: None)
-                out[ep] = {"requests": n, "errors": self.errors.get(ep, 0),
-                           "latency_p50_s": q(0.50), "latency_p90_s": q(0.90),
-                           "latency_p99_s": q(0.99)}
+            self.batches += 1
+            self.batched_requests += len(waits)
+            self._waits.extend(waits)
+
+    def observe_stages(self, timings: dict) -> None:
+        """One pipeline call's ``last_timings``: every number (the stages'
+        seconds, ``host_syncs``) added to its total."""
+        with self._lock:
+            for key, value in timings.items():
+                if isinstance(value, (int, float)):
+                    self.stage_totals[key] = (self.stage_totals.get(key, 0)
+                                              + value)
+                    self.stage_calls[key] = self.stage_calls.get(key, 0) + 1
+
+    @staticmethod
+    def _quantiles(samples) -> dict:
+        # quantiles over the most-recent window (a sorted reservoir that
+        # evicts by VALUE would converge to all-time-worst)
+        lat = sorted(samples)
+        return {q: (round(lat[min(len(lat) - 1, int(f * len(lat)))], 4)
+                    if lat else None)
+                for q, f in (("p50", 0.50), ("p90", 0.90), ("p99", 0.99))}
+
+    def _endpoints(self) -> dict:
+        out = {}
+        for ep, n in self.counts.items():
+            q = self._quantiles(self._lat.get(ep, ()))
+            out[ep] = {"requests": n, "errors": self.errors.get(ep, 0),
+                       **{f"latency_{k}_s": v for k, v in q.items()}}
+        return out
+
+    def snapshot(self) -> dict:
+        """The endpoints' rows by name, and ``batcher`` and ``stages``."""
+        with self._lock:
+            out = self._endpoints()
+            q = self._quantiles(self._waits)
+            out["batcher"] = {
+                "batches": self.batches,
+                "requests": self.batched_requests,
+                "mean_batch_size": (round(self.batched_requests
+                                          / self.batches, 4)
+                                    if self.batches else None),
+                **{f"queue_wait_{k}_s": v for k, v in q.items()}}
+            out["stages"] = {key: {"total": total,
+                                   "calls": self.stage_calls[key]}
+                             for key, total in self.stage_totals.items()}
             return out
 
     def prometheus(self) -> str:
         lines = []
-        for ep, row in self.snapshot().items():
+        snap = self.snapshot()
+        batcher, stages = snap.pop("batcher"), snap.pop("stages")
+        for ep, row in snap.items():
             lbl = f'{{endpoint="{ep}"}}'
             lines.append(f"v2ap_requests_total{lbl} {row['requests']}")
             lines.append(f"v2ap_errors_total{lbl} {row['errors']}")
@@ -87,6 +155,19 @@ class ServerMetrics:
                     lines.append(
                         f'v2ap_latency_seconds{{endpoint="{ep}",'
                         f'quantile="0.{q}"}} {row[k]}')
+        lines.append(f"v2ap_batches_total {batcher['batches']}")
+        lines.append(f"v2ap_batched_requests_total {batcher['requests']}")
+        for k in ("queue_wait_p50_s", "queue_wait_p90_s", "queue_wait_p99_s"):
+            if batcher[k] is not None:
+                lines.append(f'v2ap_queue_wait_seconds{{quantile='
+                             f'"0.{k.split("_")[2][1:]}"}} {batcher[k]}')
+        for key, row in stages.items():
+            if key.endswith("_s"):
+                lbl = f'{{stage="{key[:-2]}"}}'
+                lines.append(f"v2ap_stage_seconds_total{lbl} {row['total']}")
+                lines.append(f"v2ap_stage_calls_total{lbl} {row['calls']}")
+            else:
+                lines.append(f"v2ap_{key}_total {row['total']}")
         return "\n".join(lines) + "\n"
 
 _FORM = """<!doctype html>
@@ -161,6 +242,7 @@ class V2APHandler(BaseHTTPRequestHandler):
             with self.lock:
                 wav, sr = self.pipeline.generate(
                     video, "", steps=steps, piano=mode == "v2p")
+                self.metrics.observe_stages(self.pipeline.last_timings)
             from v2ap_torch.data.audio_io import write_wav
             with tempfile.TemporaryDirectory() as tmp:
                 out = os.path.join(tmp, "out.wav")
@@ -259,9 +341,12 @@ class V2APHandler(BaseHTTPRequestHandler):
 
                     def work():
                         with self.lock:
-                            return self.pipeline.generate(
+                            out = self.pipeline.generate(
                                 video_path, prompt, steps=steps, piano=piano,
                                 fewstep=fewstep)
+                            self.metrics.observe_stages(
+                                self.pipeline.last_timings)
+                            return out
 
                     try:
                         wav, sr = ex.submit(work).result(
@@ -297,14 +382,14 @@ def serve(pipeline, host: str = "127.0.0.1", port: int = 7860,
           max_batch: int = 8, window_ms: float = 50.0,
           max_upload_mb: float = 256.0, request_timeout_s: float = 600.0
           ) -> ThreadingHTTPServer:
-    batcher = None
+    batcher, metrics = None, ServerMetrics()
     if batch_requests:
         from v2ap_torch.serving.batcher import RequestBatcher
         batcher = RequestBatcher(pipeline, max_batch=max_batch,
-                                 window_ms=window_ms)
+                                 window_ms=window_ms, metrics=metrics)
     handler = type("BoundHandler", (V2APHandler,),
                    {"pipeline": pipeline, "batcher": batcher,
-                    "metrics": ServerMetrics(),
+                    "metrics": metrics,
                     "max_upload_bytes": int(max_upload_mb * 1024 * 1024),
                     "request_timeout_s": float(request_timeout_s)})
     server = ThreadingHTTPServer((host, port), handler)

@@ -34,6 +34,7 @@ import torch
 from torch import nn
 
 from v2ap_torch.ops.conv import DepthwiseConv1d
+from v2ap_torch.ops.flash_attention import add_launches, recording_launches
 from v2ap_torch.ops.layers import Conv2d, Embed, Linear
 
 log = logging.getLogger(__name__)
@@ -147,6 +148,7 @@ class _Program(NamedTuple):
     graph: "torch.cuda.CUDAGraph"
     inputs: tuple                  # static input buffers, None kept as None
     output: torch.Tensor           # the graph's output buffer
+    launches: collections.Counter  # the kernels' wrappers' launches a replay
 
 
 class CapturedPrograms:
@@ -172,12 +174,14 @@ class CapturedPrograms:
     capture restricts only its own thread
     (``capture_error_mode="thread_local"``).
 
-    A replay calls none of the kernels' wrappers, so their launch counters
-    do not move (nor do they during the capture): the kernels a replay
-    launches show in a profiler's trace. ``captures`` lists a ``Capture``
-    for every capture; its pool is what the card's reserved memory grew by
-    while ``fn`` was captured (``torch.cuda.graph`` empties the cache
-    first, so the growth is the program's own pool).
+    A replay calls none of the kernels' wrappers: the launches they
+    recorded into the graph while it was captured
+    (``ops.flash_attention.recording_launches``) are added to their
+    counters at every replay, and the eager warm-up counts as it runs.
+    ``captures`` lists a ``Capture`` for every capture; its pool is what
+    the card's reserved memory grew by while ``fn`` was captured
+    (``torch.cuda.graph`` empties the cache first, so the growth is the
+    program's own pool).
     """
 
     def __init__(self):
@@ -201,6 +205,7 @@ class CapturedPrograms:
                     if buf is not None:
                         buf.copy_(x)
             prog.graph.replay()
+            add_launches(prog.launches)
             return prog.output.clone()
 
     def _capture(self, key, fn, inputs, warmup) -> _Program:
@@ -215,7 +220,8 @@ class CapturedPrograms:
         warmup_s = time.perf_counter() - t0
         graph = torch.cuda.CUDAGraph()
         try:
-            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            with recording_launches() as launches, torch.cuda.graph(
+                    graph, capture_error_mode="thread_local"):
                 reserved = torch.cuda.memory_reserved(dev)
                 out = fn(*static)
                 pool = torch.cuda.memory_reserved(dev) - reserved
@@ -223,7 +229,7 @@ class CapturedPrograms:
             _release_generator(dev)
             raise RuntimeError(f"capturing the program for {key} failed; "
                                f"it does not run eagerly instead") from exc
-        self._programs[key] = prog = _Program(graph, static, out)
+        self._programs[key] = prog = _Program(graph, static, out, launches)
         while len(self._programs) > MAX_PROGRAMS:
             self._programs.popitem(last=False)
         c = Capture(key, time.perf_counter() - t0, warmup_s, pool)

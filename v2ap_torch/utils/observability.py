@@ -1,11 +1,13 @@
-"""Stage timing, profiling and metrics logging.
+"""Spans and counters of the port's calls, and metrics logging.
 
 Counterpart of ``v2ap_tpu/utils/observability.py``:
 
-  * ``StageTimer`` — wall time per named stage, with audio-seconds per
-    wall-second;
-  * ``profile_trace`` — ``torch.profiler`` over a block, its trace written
-    as a Chrome trace file (``trace.json``) under the directory;
+  * ``SpanRecorder`` — the port's span recorder (JAX's ``StageTimer``
+    grown into one): named spans nested inside a call, each with its
+    parent, the call's id and its host start and end, on CUDA also a pair
+    of timing events on the current stream; counters of the call; each
+    span also a ``torch.profiler.record_function`` range ``v2ap.<name>``,
+    so a profiled run carries the spans beside the kernels;
   * ``MetricsLogger`` — JSONL metrics (always), TensorBoard scalars when
     ``torch.utils.tensorboard`` imports, latent "spectrogram" figures when
     matplotlib imports.
@@ -14,51 +16,144 @@ Counterpart of ``v2ap_tpu/utils/observability.py``:
 from __future__ import annotations
 
 import contextlib
+import itertools
 import json
 import os
+import threading
 import time
-from collections import defaultdict
-from typing import Dict, Optional
+from dataclasses import dataclass, field
+from typing import Optional
+
+import torch
+from torch.profiler import record_function
 
 
-class StageTimer:
-    def __init__(self):
-        self.totals: Dict[str, float] = defaultdict(float)
-        self.counts: Dict[str, int] = defaultdict(int)
+@dataclass
+class Span:
+    name: str
+    parent: Optional[int]          # index of the enclosing span in the call
+    call_id: int
+    host_start: float              # time.perf_counter()
+    host_end: float = 0.0
+    events: Optional[tuple] = None  # (start, end) CUDA events until resolved
+    start: float = 0.0             # seconds from the call's first span start,
+    end: float = 0.0               # on the card's clock on CUDA
+    seconds: float = 0.0
+
+
+@dataclass
+class Call:
+    id: int
+    spans: list = field(default_factory=list)
+    counters: dict = field(default_factory=dict)
+    stack: list = field(default_factory=list)
+    resolved: bool = False
+
+
+class SpanRecorder:
+    """Spans and counters of one call at a time per thread.
+
+    ``call()`` opens a call (or joins the one the thread has open, so an
+    entry point called from another keeps one call); ``span(name)`` records
+    a span of the open call, nested in the span open around it; ``count``
+    adds to a counter of the open call. Outside a call a span is only its
+    profiler range and a count is dropped.
+
+    On a CUDA device each span records a start and an end event on the
+    current stream, taken from a pool the resolved calls refill; its
+    seconds are end minus start, the card's time for the span, waiting
+    included. On the CPU the host clock gives them. Spans stay in memory
+    until ``resolve`` reads the call (the last one to end by default),
+    which waits for its last event: after a call whose result was copied
+    to the host the stream has drained and that wait is empty."""
+
+    def __init__(self, device="cpu"):
+        self.cuda = torch.device(device).type == "cuda"
+        self.last: Optional[Call] = None
+        self._local = threading.local()
+        self._ids = itertools.count(1)
+        self._pool: list = []
+
+    def _open(self) -> Optional[Call]:
+        return getattr(self._local, "call", None)
+
+    def _event(self):
+        try:
+            return self._pool.pop()
+        except IndexError:
+            return torch.cuda.Event(enable_timing=True)
 
     @contextlib.contextmanager
-    def stage(self, name: str):
-        t0 = time.perf_counter()
+    def call(self):
+        """The thread's open call, or a new one that becomes ``last`` when
+        the block ends."""
+        open_ = self._open()
+        if open_ is not None:
+            yield open_
+            return
+        c = self._local.call = Call(next(self._ids))
         try:
-            yield
+            yield c
         finally:
-            self.totals[name] += time.perf_counter() - t0
-            self.counts[name] += 1
+            self._local.call = None
+            self.last = c
 
-    def report(self, audio_seconds: Optional[float] = None) -> dict:
-        out = {name: {"seconds": round(t, 4), "calls": self.counts[name]}
-               for name, t in self.totals.items()}
-        total = sum(self.totals.values())
-        out["total_seconds"] = round(total, 4)
-        if audio_seconds is not None and total > 0:
-            out["realtime_factor"] = round(audio_seconds / total, 3)
+    @contextlib.contextmanager
+    def span(self, name: str):
+        c = self._open()
+        with record_function("v2ap." + name):
+            if c is None:
+                yield
+                return
+            s = Span(name, c.stack[-1] if c.stack else None, c.id,
+                     time.perf_counter())
+            if self.cuda:
+                s.events = (self._event(), self._event())
+                s.events[0].record()
+            c.spans.append(s)
+            c.stack.append(len(c.spans) - 1)
+            try:
+                yield
+            finally:
+                c.stack.pop()
+                if self.cuda:
+                    s.events[1].record()
+                s.host_end = time.perf_counter()
+
+    def count(self, name: str, n: int = 1) -> None:
+        c = self._open()
+        if c is not None:
+            c.counters[name] = c.counters.get(name, 0) + n
+
+    def resolve(self, call: Optional[Call] = None) -> list:
+        """The spans of ``call`` (default ``last``) with their times."""
+        c = call or self.last
+        if c is None:
+            return []
+        if not c.resolved and c.spans:
+            if self.cuda:
+                first = c.spans[0].events[0]
+                max(c.spans, key=lambda s: s.host_end).events[1].synchronize()
+                for s in c.spans:
+                    s.start = first.elapsed_time(s.events[0]) / 1e3
+                    s.end = first.elapsed_time(s.events[1]) / 1e3
+                    self._pool.extend(s.events)
+                    s.events = None
+            else:
+                t0 = c.spans[0].host_start
+                for s in c.spans:
+                    s.start, s.end = s.host_start - t0, s.host_end - t0
+            for s in c.spans:
+                s.seconds = s.end - s.start
+        c.resolved = True
+        return c.spans
+
+    def totals(self, call: Optional[Call] = None) -> dict:
+        """Seconds by span name, summed over the call's spans."""
+        out: dict = {}
+        for s in self.resolve(call):
+            out[s.name] = out.get(s.name, 0.0) + s.seconds
         return out
-
-
-@contextlib.contextmanager
-def profile_trace(log_dir: str):
-    """``torch.profiler`` (CPU, and CUDA where there is a card) over the
-    block; the trace goes to ``log_dir/trace.json``."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    os.makedirs(log_dir, exist_ok=True)
-    activities = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(ProfilerActivity.CUDA)
-    with profile(activities=activities) as prof:
-        yield prof
-    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
 
 
 class MetricsLogger:
