@@ -8,8 +8,9 @@ Phases, each of which fails the run (exit 1, no result line) if it fails:
   1. build   — print the card, compile ``v2ap_torch/csrc/flash_fwd_sm90.cu``
                and ``flash_bwd_sm90.cu`` (the bf16 forward and backward on
                the tensor cores), ``flash_fwd.cu`` and ``flash_bwd.cu`` (the
-               f32 forward and backward) with nvcc for sm_90a (one nvcc
-               each, started together), print the build seconds;
+               f32 forward and backward) and ``norms.cu`` (N1, N2) with nvcc
+               for sm_90a (one nvcc each, started together), print the
+               build seconds;
   2. kernels — each kernel on the card at its main path's shapes against its
                plain PyTorch version on the same inputs, computed in f32,
                its time printed beside the CUDA-core kernel's
@@ -26,15 +27,19 @@ Phases, each of which fails the run (exit 1, no result line) if it fails:
                also at d = 104, ViT-bigG's (64, 257,
                16x104), checked and timed (graph) with softclamp 50 and
                without, and at (8, 782, 16x64) without softclamp (timed);
-               kernel times two ways: CUDA events over 20 calls
-               launched back to back (``ms`` in the kernels line, as in
-               every earlier run; the host path bounds it from below for
-               the small K1 calls) and replays of a CUDA graph of the same
-               20 calls (``graph_ms``: the card's time without the host
-               path); plain times (CUDA events), library times (the
-               profiler's device time: compiled flex_attention with the
-               softclamp and mask, its backward for K4 + K5, SDPA for K2
-               and for K1 at nk = 1) and the card's least time for the
+               N1 (the fused RMS norm) and N2 (the AdaLN-Zero gated
+               residual) at the sampler's served shapes, bf16, against
+               their plain versions (N1 within one bf16 step, N2
+               bit-equal), beside the plain version's events and graph
+               times and the bytes bound; kernel times two ways: CUDA
+               events over 20 calls launched back to back (``ms`` in the
+               kernels line, as in every earlier run; the host path bounds
+               it from below for the small K1 calls) and replays of a CUDA
+               graph of the same 20 calls (``graph_ms``: the card's time
+               without the host path); plain times (CUDA events), library
+               times (the profiler's device time: compiled flex_attention
+               with the softclamp and mask, its backward for K4 + K5, SDPA
+               for K2 and for K1 at nk = 1) and the card's least time for the
                same work (bound); the host microseconds of one
                ``flash_attention_packed`` call at (2, 800, 16x64) in bf16
                (three tensor maps a call, from the kernel's map cache) and
@@ -66,7 +71,8 @@ Phases, each of which fails the run (exit 1, no result line) if it fails:
                medians, the realtime factor). The launch counters are
                zeroed just before each timed run and read just after: K2
                must run 48 x (tower chunks) times in each, K1 (steps-1) x
-               48 = 1152 times (the replayed sampler program's, which its
+               48 = 1152 times, N1 (steps-1) x 85 = 2040 and N2 (steps-1)
+               x 36 = 864 (the replayed sampler program's, which its
                capture recorded) and no other kernel;
   6. profile — one more generate under the profiler, the counters zeroed
                just before it and read just after: CUDA time by kernel
@@ -75,7 +81,7 @@ Phases, each of which fails the run (exit 1, no result line) if it fails:
                unless the tensor-core forward ran (d 104 and d 64), no bf16
                instance of the CUDA-core forward did, K2 ran 48 x (tower
                chunks) times by the counters and K1 (steps-1) x 48 = 1152
-               times by the trace and by the counters;
+               times, N1 2040 and N2 864 by the trace and by the counters;
   7. captured — the full-width sampler as captured programs against the
                same CFM run eagerly on the same x0 and conditioning: the
                25-step CFG sampler, 4 few-step steps and two restart passes
@@ -106,9 +112,9 @@ Phases, each of which fails the run (exit 1, no result line) if it fails:
                seeded 100x900 uint8 keyboard strips through
                ``strips_cache``, a prompt of PROMPT_TOKENS tokens,
                ``piano=True``; timed as phase 5. K1 must run 1152 times
-               (prompt cross-attention at nk = 64) and K2 96 (84 frames at
-               stride 3, two chunks), no other kernel; the roll must be
-               finite, in [0, 1] and not all zero;
+               (prompt cross-attention at nk = 64), N1 2040, N2 864 and K2
+               96 (84 frames at stride 3, two chunks), no other kernel;
+               the roll must be finite, in [0, 1] and not all zero;
   12. V2P profile — as phase 6, convolutions (Video2Roll, EnCodec) as a
                group of their own;
   13. small train — one train step of tiny_test() (f32, dropout 0, the
@@ -184,7 +190,8 @@ Phases, each of which fails the run (exit 1, no result line) if it fails:
                layer-1 hiddens returned by layer 1's checkpointed call
                (and by no other layer's);
   19. reflow — the full-width teacher draws REFLOW_BATCH x REFLOW_LATENTS
-               pairs with its 25-step sway CFG sampler (K1 1152 a batch),
+               pairs with its 25-step sway CFG sampler (K1 1152, N1 2040,
+               N2 864 a batch),
                the student takes REFLOW_STEPS distill steps (K3-K5 48
                each); ``save_model``, a serving pipeline's
                ``load_weights`` and ``generate(fewstep=2)``: finite audio of
@@ -205,9 +212,10 @@ Phases, each of which fails the run (exit 1, no result line) if it fails:
                ``V2APConfig()`` (the CLIs' configuration) over a seeded
                manifest of EVAL_CLIPS absent .mp4 rows: ``run_batch_eval``
                in this process with the decoded frames handed in (K2 48 x
-               (tower chunks) per clip by the counters, nothing else from
-               the host; the tower primes the feature caches), after a V2P
-               generate that primes the piano row's features and roll;
+               (tower chunks) per clip by the counters, K1, N1 and N2 the
+               replay's, nothing else from the host; the tower primes the
+               feature caches), after a V2P generate that primes the piano
+               row's features and roll;
                then ``python -m v2ap_torch.evaluate --steps 25 --ref-dir
                --clap`` and ``python -m v2ap_torch.inference_v2p`` (the
                positional form, a saved CFM as its checkpoint) as their own
@@ -325,12 +333,13 @@ Phases, each of which fails the run (exit 1, no result line) if it fails:
                card vs CPU (prediction, loss with ``frac`` handed in, every
                gradient, SMALL_REL_RMS); then PRED_FWD_REPS timed forwards,
                each launching K1 48 times (4 attentions a layer: audio
-               self, audio cross run over the audio stream, text, frames)
-               and nothing else; a warm-up and PRED_STEPS timed
-               loss + backward + AdamW steps, each K3, K4, K5 48 times and
-               no K1, peak memory; one forward + backward under the
-               profiler, failing unless ``flash_fwd_sm90_kernel<64>`` and
-               the ``flash_bwd_*_sm90`` kernels ran and no CUDA-core one.
+               self, audio cross run over the audio stream, text, frames),
+               N1 85 and N2 36 times and nothing else; a warm-up and
+               PRED_STEPS timed loss + backward + AdamW steps, each K3,
+               K4, K5 48 times and no K1, peak memory; one forward + backward
+               under the profiler, failing unless
+               ``flash_fwd_sm90_kernel<64>`` and the ``flash_bwd_*_sm90``
+               kernels ran and no CUDA-core one.
 
   26. parallelism, the wire modes, determinism — (a) on phase 5's
                pipeline: ``assert_deterministic`` on the captured 25-step
@@ -357,7 +366,8 @@ Phases, each of which fails the run (exit 1, no result line) if it fails:
                gloo over CUDA tensors at TP 2, each building the same
                seeded models: ViT-bigG over 64 frames (K2 48 at the
                TP-local (64, 8, 257, 104); features within TP_FEAT_REL),
-               the 25-step sample (K1 1152; latents within TP_LAT_REL),
+               the 25-step sample (K1 1152, N1 2040, N2 864 on the
+               replicated rows; latents within TP_LAT_REL),
                one train step (K3, K4, K5 48 each; each clipped gradient
                within TP_GRAD_REL; the worst change of a tensor in the
                step and the worst updated weight printed),
@@ -414,6 +424,7 @@ from __future__ import annotations
 
 import atexit
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -829,7 +840,92 @@ def phase_kernels(torch) -> dict:
         max_abs_err=k2_clip_l_edges(torch))
     results["K2_TP"] = dict(cases={K2_TP: results["K2"]["cases"][K2_TP]},
                             max_abs_err=results["K2"]["max_abs_err"])
+    results.update(phase_norm_kernels(torch))
     log_host_cost(torch)
+    return results
+
+
+def bf16_steps(torch, a, b) -> int:
+    """The largest distance in bf16 steps (ulps) between two bf16 tensors."""
+    def ordered(t):
+        i = t.view(torch.int16).int()
+        return torch.where(i < 0, -(i & 0x7FFF), i)
+    return int((ordered(a) - ordered(b)).abs().max().item())
+
+
+def norm_cases(torch) -> list:
+    """N1 and N2 at the sampler's served shapes, bf16: a CFG evaluation's
+    2 x 800 rows (768 latents and 32 registers) of the audio (1024), CLIP
+    (1280) and roll (512) streams, final_norm's x[:, 32:] view and a batch
+    of 8 clips' 16 x 800 rows; gains per channel or a strided slot of the
+    fused projection.
+    Each case: (label, kid, kernel, plain, bytes the call must move)."""
+    from v2ap_torch.ops import norms
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def rows(b, d, start=0):
+        return (torch.randn(b, 800, d, generator=gen, device="cuda") * 3
+                ).to(torch.bfloat16)[:, start:]
+
+    fused = torch.randn(16, 12, 6, 1024, generator=gen, device="cuda"
+                        ).permute(1, 0, 2, 3)[5]
+    cases = []
+    for label, b, d, start, per_batch in (
+            ("N1 audio (1600, 1024), 1 + gamma", 2, 1024, 0, True),
+            ("N1 CLIP stream (1600, 1280), g", 2, 1280, 0, False),
+            ("N1 roll stream (1600, 512), g", 2, 512, 0, False),
+            ("N1 final_norm x[:, 32:] (1536, 1024), g", 2, 1024, 32, False),
+            ("N1 batch of 8 (12800, 1024), 1 + gamma", 16, 1024, 0, True)):
+        x = rows(b, d, start)
+        g = None if per_batch else torch.randn(d, generator=gen,
+                                               device="cuda")
+        gamma = fused[:b, 0] if per_batch else None
+        gain_bytes = 4 * (b * d if per_batch else d)
+        cases.append((label, "N1",
+                      functools.partial(norms.rms_norm, x, g, gamma=gamma),
+                      functools.partial(norms.rms_norm_reference, x, g,
+                                        gamma=gamma),
+                      4 * x.numel() + gain_bytes))
+    for label, b in (("N2 audio gate (1600, 1024)", 2),
+                     ("N2 batch of 8 (12800, 1024)", 16)):
+        x, branch, gamma = rows(b, 1024), rows(b, 1024), fused[:b, 1]
+        cases.append((label, "N2",
+                      functools.partial(norms.gated_residual, x, branch,
+                                        gamma),
+                      functools.partial(norms.gated_residual_reference, x,
+                                        branch, gamma),
+                      6 * x.numel() + 4 * b * 1024))
+    return cases
+
+
+def phase_norm_kernels(torch) -> dict:
+    """N1 and N2 against their plain versions on the same inputs (N1 within
+    one bf16 step, N2 bit-equal), each timed by CUDA events and by graph
+    replay beside the plain version's two times and the bytes bound."""
+    results = {}
+    for label, kid, run, plain, nbytes in norm_cases(torch):
+        out, ref = run(), plain()
+        torch.cuda.synchronize()
+        steps = bf16_steps(torch, out, ref)
+        if not torch.isfinite(out).all() or steps > (1 if kid == "N1" else 0):
+            raise RuntimeError(f"{label}: kernel {steps} bf16 steps from its "
+                               f"plain version")
+        err = (out.float() - ref.float()).abs().max().item()
+        ms, g_ms = time_ms(torch, run), graph_ms(torch, run)
+        plain_ms, plain_g_ms = time_ms(torch, plain), graph_ms(torch, plain)
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        log(f"  {label}: {steps} bf16 steps from plain (max_abs_err "
+            f"{err:.3e}); kernel {ms:.4f} ms events, {g_ms:.4f} ms graph "
+            f"({nbytes / g_ms / 1e6:.0f} GB/s); plain {plain_ms:.4f} ms "
+            f"events, {plain_g_ms:.4f} ms graph; bound {bound_ms:.4f} ms by "
+            f"bytes ({bound_ms / g_ms:.1%} of bound by graph)")
+        entry = results.setdefault(kid, dict(cases={}, max_abs_err=0.0))
+        entry["cases"][label] = dict(ms=ms, graph_ms=g_ms, plain_ms=plain_ms,
+                                     plain_graph_ms=plain_g_ms,
+                                     library_ms=None, bound_ms=bound_ms,
+                                     bound_by="bytes")
+        entry["max_abs_err"] = max(entry["max_abs_err"], err)
     return results
 
 
@@ -1119,8 +1215,9 @@ def clip_frames():
 def generate_expect(pipe, n_frames: int) -> dict:
     """Kernel launches of one 25-step CFG generate that replays its sampler
     program: K2 for the 48 tower layers per chunk of 64 encoded frames, K1
-    the replay's (``k1_expect``, which the capture recorded), nothing
-    else."""
+    the replay's (``k1_expect``, which the capture recorded), N1 and N2 the
+    replay's (``norm_expect`` of its 24 evaluations: 2040 and 864 for
+    v2a_default()), nothing else."""
     from v2ap_torch.ops.flash_attention import launch_counts
 
     encoded = len(range(0, n_frames, pipe.frame_stride))
@@ -1128,7 +1225,19 @@ def generate_expect(pipe, n_frames: int) -> dict:
     expect["flash_attention"] = (pipe.clip_cfg.num_layers
                                  * math.ceil(encoded / 64))
     expect["flash_attention_packed"] = k1_expect(pipe)
+    expect.update(norm_expect(pipe.cfg.model, 25 - 1))
     return expect
+
+
+def norm_expect(m, forwards: int) -> dict:
+    """N1 and N2 launches of ``forwards`` transformer forwards without
+    autograd (each with a context): per audio layer the attention,
+    cross-attention and FF norm and gate, two norms per text and frames
+    layer, the final norm; 85 and 36 a forward of v2a_default()."""
+    audio = m.depth * (3 if m.if_cross_attn else 2)
+    return {"rms_norm": forwards * (audio + 2 * m.text_depth + 2 * m.depth
+                                    + 1),
+            "gated_residual": forwards * audio}
 
 
 def stage_keys(timings: dict) -> list:
@@ -1226,6 +1335,8 @@ def check_roll(pipe) -> None:
 
 # kernel-name fragments -> the group a kernel's time is reported under
 PROFILE_GROUPS = (("K2 flash_fwd_sm90 d104", "flash_fwd_sm90_kernel<104>"),
+                  ("N1 rms_norm", "rms_norm_kernel"),
+                  ("N2 gated_residual", "gated_residual_kernel"),
                   ("K1/K3 flash_fwd_sm90 d64", "flash_fwd_sm90_kernel<64>"),
                   ("flash_fwd f32 (CUDA cores)", "flash_fwd_kernel<"),
                   ("K4 flash_bwd_dq_sm90", "flash_bwd_dq_sm90_kernel<"),
@@ -1307,15 +1418,18 @@ def phase_profile(torch, label: str, run, expect: tuple = (),
         f"kernels on the device {sum(e.count for e in rows)}")
     if counts_expect is not None:
         k1 = sum(e.count for e in rows if "flash_fwd_sm90_kernel<64>" in e.key)
+        norms = {name: sum(e.count for e in rows if f"{name}_kernel" in e.key)
+                 for name in ("rms_norm", "gated_residual")}
         log(f"    launches by the counters {counts} (expected "
             f"{counts_expect}); K1 launches in the trace: {k1} (expected "
             f"{k1_launches}, {api.get('cudaGraphLaunch', 0)} "
-            f"cudaGraphLaunch)")
+            f"cudaGraphLaunch); N1, N2 in the trace: {norms}")
         if counts != counts_expect or k1 != k1_launches \
-                or counts["flash_attention_packed"] != k1:
+                or counts["flash_attention_packed"] != k1 \
+                or any(counts[name] != n for name, n in norms.items()):
             raise RuntimeError(f"{label} profile: launches {counts}, K1 {k1} "
-                               f"in the trace; expected {counts_expect}, "
-                               f"K1 {k1_launches}")
+                               f"and N1, N2 {norms} in the trace; expected "
+                               f"{counts_expect}, K1 {k1_launches}")
     missing = [k for k in expect if not any(k in e.key for e in rows)]
     stale = [e.key for e in rows if any(c in e.key for c in CUDA_CORE)]
     if missing or stale:
@@ -1994,6 +2108,7 @@ def phase_small_train(torch) -> None:
     counts = dict(launch_counts)
     expect = dict.fromkeys(counts, 0)
     expect["flash_attention_packed"] = per_step     # no grad: K1, not K3
+    expect.update(norm_expect(mcfg, 1))             # and N1, N2
     log(f"  eval step (times 0.5, no dropout, no grad): loss "
         f"{loss.item():.4f}, pred {tuple(pred.shape)}; launches {counts}")
     if counts != expect or not (torch.isfinite(loss)
@@ -2530,12 +2645,13 @@ def phase_dpo(torch, label: str, trainer, batch) -> None:
     """DPO (and FactorCL where the trainer has it) at full width: the first
     step (its DPO term must be within 1e-2 of ln 2: the EMA shadow equals
     the model and draws the policy's dropout masks), DPO_STEPS timed ones
-    (launches checked each step: K1 once per attention for the reference
-    forward without autograd, K3 once, or twice under remat, K4 and K5
-    once), every term finite, FactorCL's term nonzero and its parameters
-    moved; under remat the FactorCL tap must come out of the checkpointed
-    layer 1 (a pair of tensors among its outputs, and from no other
-    layer). Then one step under the profiler (tensor-core kernels only)."""
+    (launches checked each step: K1 once per attention, N1 and N2 once
+    per norm and gate for the reference forward without autograd, K3
+    once, or twice under remat, K4 and K5 once), every term finite,
+    FactorCL's term nonzero and its parameters moved; under remat the
+    FactorCL tap must come out of the checkpointed layer 1 (a pair of
+    tensors among its outputs, and from no other layer). Then one step under
+    the profiler (tensor-core kernels only)."""
     import numpy as np
 
     from v2ap_torch.models import transformer as tmod
@@ -2548,7 +2664,8 @@ def phase_dpo(torch, label: str, trainer, batch) -> None:
     expect = dict.fromkeys(launch_counts, 0)
     expect.update(flash_attention_packed=per,
                   flash_attention_lse=per * (2 if model.cfg.remat else 1),
-                  flash_attention_bwd_dq=per, flash_attention_bwd_dkv=per)
+                  flash_attention_bwd_dq=per, flash_attention_bwd_dkv=per,
+                  **norm_expect(model.cfg, 1))
     fcl_start = ([p.detach().clone() for p in trainer.fcl.parameters()]
                  if con else [])
     remat = tmod.remat
@@ -2676,6 +2793,7 @@ def phase_reflow(torch, frames, root: str):
     pair_expect = dict.fromkeys(launch_counts, 0)
     # the sway schedule's teacher_steps times, teacher_steps - 1 evaluations
     pair_expect["flash_attention_packed"] = (rcfg.teacher_steps - 1) * per
+    pair_expect.update(norm_expect(mc, rcfg.teacher_steps - 1))
     step_expect = dict.fromkeys(launch_counts, 0)
     step_expect.update(flash_attention_lse=per, flash_attention_bwd_dq=per,
                        flash_attention_bwd_dkv=per)
@@ -3306,8 +3424,8 @@ def tower_generate(torch, pipe, frames, label: str, expect_k2: int,
                    runs: int, stats: dict | None = None) -> int:
     """One warm-up generate, then ``runs`` timed ones from ``frames``
     (empty prompt, 25 steps), the launch counters zeroed before each and
-    read after: K2 ``expect_k2`` times, K1 the sampler replay's
-    ``k1_expect`` and nothing else. Every wall,
+    read after: K2 ``expect_k2`` times, K1, N1 and N2 the sampler
+    replay's ``k1_expect`` and ``norm_expect`` and nothing else. Every wall,
     each tower's seconds and the realtime factor printed, and put in
     ``stats`` (``wall``, ``video_encode_s``: medians). Returns K2's
     launches of the last run."""
@@ -3326,7 +3444,8 @@ def tower_generate(torch, pipe, frames, label: str, expect_k2: int,
     log(f"  {label}: warm-up generate {time.perf_counter() - t0:.3f} s")
     torch.cuda.reset_peak_memory_stats()
     expect = {**dict.fromkeys(launch_counts, 0), "flash_attention": expect_k2,
-              "flash_attention_packed": k1_expect(pipe)}
+              "flash_attention_packed": k1_expect(pipe),
+              **norm_expect(pipe.cfg.model, 25 - 1)}
     walls, towers, encodes = [], [], []
     for _ in range(runs):
         torch.cuda.synchronize()
@@ -4689,16 +4808,19 @@ def phase_duration(torch) -> dict:
             torch.cuda.synchronize()
             walls.append(time.perf_counter() - t0)
             counts = dict(launch_counts)
-            if counts != {**zero, "flash_attention_packed": per_call}:
+            want = {**zero, "flash_attention_packed": per_call,
+                    **norm_expect(cfg, 1)}
+            if counts != want:
                 raise RuntimeError(f"predictor forward: launches {counts}, "
-                                   f"expected K1 {per_call}")
+                                   f"expected {want}")
     if not torch.isfinite(pred).all() or not (pred > 0).all():
         raise RuntimeError(f"predictor: prediction {pred.tolist()}")
     fwd = float(np.median(walls))
     log(f"  forward x{PRED_FWD_REPS}: wall (s) "
         f"{', '.join(f'{w:.4f}' for w in walls)}; median {fwd:.4f} s; K1 "
-        f"{per_call} a forward (4 attentions x {cfg.depth} layers), nothing "
-        f"else; predictions {', '.join(f'{x:.1f}' for x in pred.tolist())}")
+        f"{per_call} a forward (4 attentions x {cfg.depth} layers), N1 and "
+        f"N2 {norm_expect(cfg, 1)}, nothing else; predictions "
+        f"{', '.join(f'{x:.1f}' for x in pred.tolist())}")
 
     def step():
         opt.zero_grad(set_to_none=True)
@@ -5270,7 +5392,9 @@ def _check_26b(ranks, procs, outs) -> None:
                or res["grad_rel_rms"] > TP_GRAD_REL
                or res["tower_rel_rms"] > TP_FEAT_REL
                or res["tower_launches"] != {"flash_attention": 48}
-               or res["sample_launches"] != {"flash_attention_packed": 1152}
+               or res["sample_launches"] != {"flash_attention_packed": 1152,
+                                             "rms_norm": 2040,
+                                             "gated_residual": 864}
                or res["step_launches"] != {"flash_attention_lse": 48,
                                            "flash_attention_bwd_dq": 48,
                                            "flash_attention_bwd_dkv": 48})
@@ -5511,6 +5635,8 @@ def phase_prompt_tokenizer(torch, frames, strips) -> None:
     # the replay that follows the capture
     expect = generate_expect(pipe, len(frames))
     expect["flash_attention_packed"] += k1_expect(pipe) // (25 - 1)
+    for name, n in norm_expect(pipe.cfg.model, 1).items():
+        expect[name] += n
     if len(keys) != 1 or ctx[0][1] != width or counts != expect:
         raise RuntimeError(f"tokenizer_path: captures {keys}, launches "
                            f"{counts} (expected {expect})")
@@ -5809,7 +5935,9 @@ def main() -> int:
                  "K3": "self-attn (8, 782, 16x64)",
                  "K4": "self-attn (8, 782, 16x64)",
                  "K5": "self-attn (8, 782, 16x64)",
-                 "P1": "P1 probe (24, 768, 16x64)"}
+                 "P1": "P1 probe (24, 768, 16x64)",
+                 "N1": "N1 audio (1600, 1024), 1 + gamma",
+                 "N2": "N2 audio gate (1600, 1024)"}
     src = "v2ap_tpu/ops/flash_attention.py"
     meta = {"K1": ("flash_attention_packed", "flash_fwd_sm90.cu",
                    f"{src}:503"),
@@ -5820,13 +5948,16 @@ def main() -> int:
             "K5": ("flash_attention_bwd_dkv", "flash_bwd_sm90.cu",
                    f"{src}:184"),
             "P1": ("flash_bnhd", "flash_fwd_sm90.cu",
-                   "scripts/probe_flash_bnhd.py:44")}
+                   "scripts/probe_flash_bnhd.py:44"),
+            "N1": ("rms_norm", "norms.cu", "none"),
+            "N2": ("gated_residual", "norms.cu", "none")}
     counts = {**{k: gen_counts[k] for k in ("flash_attention_packed",
                                             "flash_attention")},
               **{k: train_counts[k] for k in ("flash_attention_lse",
                                               "flash_attention_bwd_dq",
                                               "flash_attention_bwd_dkv")},
-              "flash_bnhd": kern["P1"]["launches"]}
+              "flash_bnhd": kern["P1"]["launches"],
+              **{k: gen_counts[k] for k in ("rms_norm", "gated_residual")}}
     # K2 a second time: its case at CLIP ViT-L/336's shape, the launches of
     # one clip_vit2 generate (phase 22)
     main_case["K2_CLIP_L"] = K2_CLIP_L

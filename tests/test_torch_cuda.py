@@ -1,7 +1,8 @@
 """The port's CUDA flash-attention kernels (the forward for K1, K2, K3 and
 the probe's P1: ``v2ap_torch/csrc/flash_fwd_sm90.cu`` on the tensor cores
 for bf16, ``flash_fwd.cu`` on the CUDA cores for f32; the backward K4 and
-K5: ``flash_bwd_sm90.cu`` for bf16, ``flash_bwd.cu`` for f32) on the card,
+K5: ``flash_bwd_sm90.cu`` for bf16, ``flash_bwd.cu`` for f32) and its fused
+norms (N1 ``rms_norm``, N2 ``gated_residual``: ``norms.cu``) on the card,
 against their plain PyTorch versions on the same inputs.
 
 Every test here needs an NVIDIA card and nvcc and skips without them. The
@@ -22,7 +23,10 @@ times max(1, max|ref|); lse rtol 1e-5. P1 is held as ``chip_smoke.py``
 holds it: float32 1e-4, bfloat16 2^-7, each times max(1, max|ref|). The
 tensor-core cases of the forward are held as ``chip_smoke.py`` holds them:
 2^-7 times max(1, max|ref|), lse 1e-3; those of the backward at the training
-shapes likewise, 2^-7 times max(1, max|ref|).
+shapes likewise, 2^-7 times max(1, max|ref|). The fused norms are held
+against their plain version on the card in the same dtype: N1 within one
+bf16 step (only the order of the sum of squares differs; f32 1e-5 times
+max(1, |ref|)), N2 bit-equal (the same two roundings).
 """
 
 import numpy as np
@@ -281,8 +285,9 @@ def test_probe_paths_agree_on_the_card(cuda):
 
 def test_trainer_steps_pick_their_kernels(cuda):
     """On the tiny configuration, Trainer.train_step launches K3, K4 and K5
-    once per attention (3 self + 1 cross per layer) and no K1; eval_step
-    runs without autograd and so launches K1 and none of K3-K5."""
+    once per attention (3 self + 1 cross per layer) and no K1, N1 or N2;
+    eval_step runs without autograd and so launches K1 and none of K3-K5,
+    and N1 and N2 once per norm and gate of its forward."""
     from v2ap_torch import config as C
     from v2ap_torch.models.cfm import CFM
     from v2ap_torch.training import Trainer
@@ -305,7 +310,8 @@ def test_trainer_steps_pick_their_kernels(cuda):
             (trainer.train_step, dict(flash_attention_lse=per_step,
                                       flash_attention_bwd_dq=per_step,
                                       flash_attention_bwd_dkv=per_step)),
-            (trainer.eval_step, dict(flash_attention_packed=per_step))):
+            (trainer.eval_step, dict(flash_attention_packed=per_step,
+                                     **_norm_launches(base.model, 1)))):
         fa.reset_launch_counts()
         loss = step(batch)[0]
         torch.cuda.synchronize()
@@ -507,9 +513,10 @@ def test_tensor_core_backward_is_deterministic(cuda):
 # The captured sampler (V2APipeline._sample / _sample_multipass as CUDA graphs)
 # --------------------------------------------------------------------------- #
 
-def _small_bf16_pipeline(device):
+def _small_bf16_pipeline(device, shipped_cfm: bool = False):
     """A small bf16 pipeline whose heads the tensor-core kernels take (64
-    wide; ViT 104), bf16 towers."""
+    wide; ViT 104), bf16 towers; with ``shipped_cfm`` the sampler is the
+    shipped model's (``v2a_default()``'s CFM at full width and depth)."""
     import dataclasses
 
     from v2ap_torch import config as C
@@ -518,17 +525,18 @@ def _small_bf16_pipeline(device):
     from v2ap_torch.pipelines.generate import V2APipeline
 
     base = C.v2a_default()
+    model = base.model if shipped_cfm else dataclasses.replace(
+        base.model, dim=128, depth=2, heads=2, dim_text=128,
+        text_heads=2, text_depth=2, dim_frames=128, frames_heads=2,
+        dim_context=128, max_seq_len=512)
     cfg = base.replace(
-        model=dataclasses.replace(
-            base.model, dim=128, depth=2, heads=2, dim_text=128,
-            text_heads=2, text_depth=2, dim_frames=128, frames_heads=2,
-            dim_context=128, max_seq_len=512),
+        model=model,
         conditioning=dataclasses.replace(base.conditioning, feature_cache=False))
     clip = CLIPVisionConfig(hidden_size=208, intermediate_size=416,
                             num_layers=2, num_heads=2, image_size=56,
-                            projection_dim=128)
-    t5 = T5Config(vocab_size=1000, d_model=128, d_kv=64, d_ff=256,
-                  num_layers=2, num_heads=2)
+                            projection_dim=model.dim_text)
+    t5 = T5Config(vocab_size=1000, d_model=model.dim_context, d_kv=64,
+                  d_ff=256, num_layers=2, num_heads=2)
     return V2APipeline(cfg, seed=3, device=device, clip_config=clip,
                        t5_config=t5, quantize_towers=False)
 
@@ -557,8 +565,8 @@ def test_captured_sampler_is_bit_equal_to_eager(cuda):
     """The pipeline's sampler on the card is one captured program per key;
     a replay with new inputs gives the eager trajectory's bits, for the CFG
     sampler, the few-step one and two restart passes; a replay calls no
-    wrapper, yet K1's counter gets the launches its capture recorded, as
-    many as the profiler's trace shows."""
+    wrapper, yet the counters of K1, N1 and N2 get the launches its capture
+    recorded, as many as the profiler's trace shows."""
     from torch.profiler import ProfilerActivity, profile
 
     from v2ap_torch import config as C
@@ -579,6 +587,9 @@ def test_captured_sampler_is_bit_equal_to_eager(cuda):
                  if "flash_fwd_sm90_kernel<64>" in e.key)
         assert k1 == (sampler.steps - 1) * 4 * pipe.cfg.model.depth
         assert fa.launch_counts["flash_attention_packed"] == k1
+        norms = _norm_launches(pipe.cfg.model, sampler.steps - 1)
+        assert {k: fa.launch_counts[k] for k in norms} == norms
+        assert _trace_counts(prof) == norms
         assert torch.equal(got, _eager(pipe, second, sampler))
     noises = torch.randn((1, 2, 192, pipe.cfg.model.num_channels),
                          device=cuda)
@@ -674,6 +685,223 @@ def test_failed_capture_raises_instead_of_running_eagerly(cuda):
     a = torch.randn(4, device=cuda)
     torch.cuda.set_rng_state(state, cuda)
     assert torch.equal(torch.randn(4, device=cuda), a)
+
+
+# --------------------------------------------------------------------------- #
+# The fused norms: N1 rms_norm, N2 gated_residual (ops/norms.py, norms.cu)
+# --------------------------------------------------------------------------- #
+
+def _norm_launches(cfg, forwards: int, cross: bool = True) -> dict:
+    """N1 and N2 launches of ``forwards`` transformer forwards without
+    autograd: per audio layer the attention, cross-attention (where it
+    runs) and FF norm and gate; two norms per text and frames layer; the
+    final norm."""
+    audio = cfg.depth * (3 if cross else 2)
+    return {"rms_norm": forwards * (audio + 2 * cfg.text_depth
+                                    + 2 * cfg.depth + 1),
+            "gated_residual": forwards * audio}
+
+
+def _trace_counts(prof) -> dict:
+    """N1 and N2 launches in a profiler's trace, by kernel name."""
+    events = prof.key_averages()
+    return {name: sum(e.count for e in events if f"{name}_kernel" in e.key)
+            for name in ("rms_norm", "gated_residual")}
+
+
+def _bf16_steps(a: torch.Tensor, b: torch.Tensor) -> int:
+    """The largest distance in bf16 steps (ulps) between two bf16 tensors."""
+    def ordered(t):
+        i = t.view(torch.int16).int()
+        return torch.where(i < 0, -(i & 0x7FFF), i)
+    return int((ordered(a) - ordered(b)).abs().max().item())
+
+
+NORM_CASES = [
+    # (b, n, d, gain, first row of the view): a CFG evaluation's rows of the
+    # three streams (2 x 832 here, 2 x 800 at the 768-latent bucket), a
+    # batch of 8 clips' (16 x 832), final_norm's x[:, 32:] view, a width
+    # that leaves lanes idle and one past the register variants
+    pytest.param((2, 832, 1024, "g", 0), id="audio_1664x1024_g"),
+    pytest.param((2, 832, 1280, "g", 0), id="clip_1664x1280_g"),
+    pytest.param((2, 832, 512, "g", 0), id="roll_1664x512_g"),
+    pytest.param((2, 832, 1024, "gamma", 0), id="audio_1664x1024_gamma"),
+    pytest.param((16, 832, 1024, "gamma", 0), id="batch_13312x1024_gamma"),
+    pytest.param((2, 832, 1024, "g", 32), id="final_norm_x_32_view"),
+    pytest.param((3, 70, 136, "gamma", 0), id="ragged_lanes_136"),
+    pytest.param((2, 40, 2560, "g", 0), id="wide_2560_reread"),
+]
+
+
+def _gamma_slot(b, d, device, seed):
+    """A strided (b, d) slot of a fused (depth, b, slots, d) projection, as
+    ``TriStreamTransformer._fused_cond_gammas`` hands it to a block."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    fused = torch.randn(b, 12, 6, d, generator=gen, device=device)
+    return fused.permute(1, 0, 2, 3)[5][:, 2]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", NORM_CASES)
+def test_rms_norm_kernel_matches_plain(cuda, case, dtype):
+    """N1 against its plain version on the same inputs on the card: bf16
+    within one bf16 step (only the order of the sum of squares differs),
+    f32 within 1e-5 x max(1, |ref|); one launch counted. A zero row takes
+    the eps floor."""
+    from v2ap_torch.ops import norms
+
+    b, n, d, gain, start = case
+    gen = torch.Generator(device=cuda).manual_seed(d + b)
+    x = (torch.randn(b, n + start, d, generator=gen, device=cuda) * 3
+         ).to(dtype)[:, start:]
+    x[0, 1] = 0
+    g, gamma = None, None
+    if gain == "g":
+        g = torch.randn(d, generator=gen, device=cuda)
+    else:
+        gamma = _gamma_slot(b, d, cuda, d)
+    before = dict(fa.launch_counts)
+    got = norms.rms_norm(x, g, gamma=gamma)
+    ref = norms.rms_norm_reference(x, g, gamma=gamma)
+    torch.cuda.synchronize()
+    assert fa.launch_counts["rms_norm"] == before["rms_norm"] + 1
+    assert got.shape == x.shape and got.dtype == dtype
+    assert torch.isfinite(got).all() and not got[0, 1].any()
+    if dtype == torch.bfloat16:
+        assert _bf16_steps(got, ref) <= 1
+    else:
+        err = (got - ref).abs() / ref.abs().clamp(min=1.0)
+        assert err.max().item() <= 1e-5
+
+
+GATE_CASES = [
+    # (b, n, d, branch row stride): the audio stream's gates
+    pytest.param((2, 832, 1024, 1024), id="audio_1664x1024"),
+    pytest.param((16, 832, 1024, 1024), id="batch_13312x1024"),
+    pytest.param((2, 832, 1024, 3072), id="strided_branch"),
+    pytest.param((3, 70, 136, 136), id="ragged_lanes_136"),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", GATE_CASES)
+def test_gated_residual_kernel_is_bit_equal_to_plain(cuda, case, dtype):
+    """N2 against ``x + AdaLNZero(branch)`` on the same inputs on the card:
+    bit-equal (the same two roundings, the same sigmoid); one launch
+    counted."""
+    from v2ap_torch.ops import norms
+
+    b, n, d, row = case
+    gen = torch.Generator(device=cuda).manual_seed(d + b + row)
+    x = torch.randn(b, n, d, generator=gen, device=cuda).to(dtype)
+    branch = (torch.randn(b, n, row, generator=gen, device=cuda) * 4
+              ).to(dtype)[..., :d]
+    gamma = _gamma_slot(b, d, cuda, row) * 3
+    gate = norms.AdaLNZero(d, device=cuda)
+    before = dict(fa.launch_counts)
+    got = gate.residual(x, branch, gamma=gamma)
+    want = x + gate(branch, gamma=gamma)
+    torch.cuda.synchronize()
+    assert fa.launch_counts["gated_residual"] == \
+        before["gated_residual"] + 1
+    assert got.dtype == dtype and torch.equal(got, want)
+
+
+def test_norm_kernels_refuse_what_they_do_not_take(cuda):
+    """On a CUDA tensor without autograd the wrappers launch or raise; they
+    never take the plain version."""
+    from v2ap_torch.ops import norms
+
+    before = dict(fa.launch_counts)
+    x = torch.zeros(2, 8, 20, device=cuda)                  # width 20
+    with pytest.raises(ValueError, match="multiple of 8"):
+        norms.rms_norm(x, torch.ones(20, device=cuda))
+    h = torch.zeros(2, 8, 16, device=cuda, dtype=torch.float16)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        norms.rms_norm(h, torch.ones(16, device=cuda))
+    odd = torch.zeros(2, 8, 17, device=cuda, dtype=torch.bfloat16)[..., 1:]
+    with pytest.raises(ValueError, match="16-byte"):
+        norms.rms_norm(odd, torch.ones(16, device=cuda))
+    with pytest.raises(ValueError, match="16-byte"):
+        norms.gated_residual(odd, odd, torch.zeros(2, 16, device=cuda))
+    with pytest.raises(ValueError, match="per-batch-row"):
+        norms.rms_norm(torch.zeros(2, 8, 16, device=cuda),
+                       gamma=torch.zeros(2, 8, 16, device=cuda))
+    assert fa.launch_counts == before
+
+
+def test_norms_under_autograd_take_the_plain_path(cuda):
+    """Where autograd needs the gradient (training) the modules run the
+    plain versions on the card: nothing launches, and the output and the
+    gradients of x, the branch and every parameter equal those of the
+    plain functions, bit for bit."""
+    from v2ap_torch.ops import norms
+
+    d = 1024
+    torch.manual_seed(0)
+    norm = norms.RMSNorm(d, device=cuda)
+    adaptive = norms.AdaptiveRMSNorm(d, device=cuda)
+    gate = norms.AdaLNZero(d, device=cuda)
+    with torch.no_grad():
+        norm.g.normal_()
+        adaptive.to_gamma.weight.normal_(std=0.02)
+        gate.to_gamma.weight.normal_(std=0.02)
+    cond = torch.randn(2, d, device=cuda)
+    x0 = torch.randn(2, 64, d, device=cuda).to(torch.bfloat16)
+    br0 = torch.randn(2, 64, d, device=cuda).to(torch.bfloat16)
+    params = [norm.g, adaptive.to_gamma.weight, gate.to_gamma.weight,
+              gate.to_gamma.bias]
+
+    def run(modules: bool):
+        x, br = (t.clone().requires_grad_(True) for t in (x0, br0))
+        for p in params:
+            p.grad = None
+        if modules:
+            y = adaptive(norm(gate.residual(x, br, condition=cond)),
+                         condition=cond)
+        else:
+            y = norms.gated_residual_reference(
+                x, br, gate.to_gamma(cond[:, None, :].float()))
+            y = norms.rms_norm_reference(y, norm.g)
+            y = norms.rms_norm_reference(
+                y, gamma=adaptive.to_gamma(cond.float()))
+        y.float().square().sum().backward()
+        return [y, x.grad, br.grad] + [p.grad for p in params]
+
+    fa.reset_launch_counts()
+    got = run(modules=True)
+    torch.cuda.synchronize()
+    assert fa.launch_counts == dict.fromkeys(fa.launch_counts, 0)
+    for a, b in zip(got, run(modules=False)):
+        assert a is not None and torch.equal(a, b)
+
+
+def test_replayed_v2a_sampler_launches_2040_norms(cuda):
+    """The shipped model's 25-step CFG sampler (``v2a_default()``'s CFM at
+    full width, one 10 s clip: the 768-latent bucket, the empty prompt's
+    one context key) replayed from its captured program: 24 evaluations x
+    85 norms = 2040 N1 launches and 24 x 36 = 864 N2 by the counters. (The
+    profiler's trace of a bare replay of ~57 000 kernels once lost 46 of
+    these records; the trace is held to the counters in the small
+    captured-sampler test above and in ``chip_smoke.py``'s profiles.)"""
+    from v2ap_torch import config as C
+
+    pipe = _small_bf16_pipeline(cuda, shipped_cfm=True)
+    sampler = C.SamplerConfig()
+    assert (sampler.steps, sampler.cfg_strength) == (25, 2.0)
+    inputs = _sampler_inputs(pipe, 1, n=768, n_valid=750)
+    ctx, cmask = inputs[3][:, :1], inputs[4][:, :1]
+    inputs = inputs[:3] + (ctx, cmask) + inputs[5:]
+    pipe._sample(*inputs, sampler)                       # captures
+    fa.reset_launch_counts()
+    got = pipe._sample(*inputs, sampler)                 # replays
+    torch.cuda.synchronize()
+    want = {"rms_norm": 2040, "gated_residual": 864}
+    assert _norm_launches(pipe.cfg.model, 24) == want
+    assert {k: fa.launch_counts[k] for k in want} == want
+    assert torch.isfinite(got).all()
 
 
 def _v2p_batch(cfg, b=2, n=24, nc=6, seed=5):
@@ -902,7 +1130,7 @@ def _dpo_factorcl_readings(device) -> dict:
                 flipped_update=rel(-upd))
     ema = {k: _rms(s - (0.9 * shadow[k] + 0.1 * got["cfm"][k].detach()))
            / _rms(s) for k, s in card.ema.shadow.items()}
-    return dict(counts=counts, depth=cfg.depth,
+    return dict(counts=counts, depth=cfg.depth, model=cfg,
                 terms={k: (float(g), float(c)) for k, g, c in (
                     ("loss", loss_g, loss_c), ("flow", bk_g.flow, bk_c.flow),
                     ("dpo", bk_g.dpo, bk_c.dpo),
@@ -916,8 +1144,9 @@ def test_dpo_factorcl_step_in_bf16_tracks_the_cpu(cuda):
     model, 8 rows, the pair in the last two, dropout 0) in bf16 on the card
     against the same step in f32 on the CPU, from the same weights and
     draws (``_dpo_factorcl_readings``). The DPO reference forward runs
-    without autograd, so K1 launches once per attention beside the
-    policy's K3, K4 and K5. Held per tensor of the CFM and FactorCL:
+    without autograd, so K1 launches once per attention, N1 and N2 once
+    per norm and gate, beside the policy's K3, K4 and K5. Held per tensor
+    of the CFM and FactorCL:
 
       * the clipped gradients within ``DPO_GRAD_REL`` relative RMS: this
         checks the bf16 backward of the DPO and FactorCL path. On an H100
@@ -941,7 +1170,8 @@ def test_dpo_factorcl_step_in_bf16_tracks_the_cpu(cuda):
     assert rd["counts"] == {
         **dict.fromkeys(rd["counts"], 0),
         "flash_attention_packed": per_step, "flash_attention_lse": per_step,
-        "flash_attention_bwd_dq": per_step, "flash_attention_bwd_dkv": per_step}
+        "flash_attention_bwd_dq": per_step,
+        "flash_attention_bwd_dkv": per_step, **_norm_launches(rd["model"], 1)}
     for key in ("loss", "flow", "dpo", "grad_norm"):
         got, want = rd["terms"][key]
         assert abs(got - want) <= 2e-2 * abs(want), key
@@ -1095,10 +1325,11 @@ def test_duration_predictor_picks_its_kernels(cuda):
     """The duration predictor in bf16 on the card: a forward launches K1
     once per attention (per layer the audio self-attention, the audio
     cross-attention run as self-attention over its own stream when
-    dim_context equals dim, the text and the frames streams') and nothing
-    else; ``loss`` with a backward launches K3, K4 and K5 as often and no
-    K1. In float32 (the CUDA-core kernels, TF32 off) the card's prediction
-    is within 1e-4 relative of the CPU's from the same weights."""
+    dim_context equals dim, the text and the frames streams'), N1 and N2
+    once per norm and gate, and nothing else; ``loss`` with a backward
+    launches K3, K4 and K5 as often and no K1, N1 or N2. In float32 (the
+    CUDA-core kernels, TF32 off) the card's prediction is within 1e-4
+    relative of the CPU's from the same weights."""
     import dataclasses
 
     from v2ap_torch import config as C
@@ -1122,7 +1353,8 @@ def test_duration_predictor_picks_its_kernels(cuda):
         got = card(latents.to(cuda), tokens.to(cuda), lens.to(cuda))
         torch.cuda.synchronize()
     assert fa.launch_counts == {**dict.fromkeys(fa.launch_counts, 0),
-                                "flash_attention_packed": per_call}
+                                "flash_attention_packed": per_call,
+                                **_norm_launches(cfg, 1)}
     assert torch.isfinite(got).all()
     card32 = DurationPredictor(dataclasses.replace(cfg, dtype="float32"),
                                device=cuda)

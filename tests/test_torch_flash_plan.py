@@ -165,11 +165,12 @@ def test_misaligned_bf16_output_raises():
 
 def test_the_tensor_core_source_is_built():
     """The library's sources, and so its hash and ``chip_smoke.py``'s build,
-    include both tensor-core kernels; the header they share is part of the
-    hash, so an edit to it rebuilds the library."""
+    include both tensor-core kernels (and the fused norms, built into the
+    same library); the header they share is part of the hash, so an edit to
+    it rebuilds the library."""
     names = [src.name for src in fa._SOURCES]
     assert names == ["flash_fwd_sm90.cu", "flash_bwd_sm90.cu", "flash_fwd.cu",
-                     "flash_bwd.cu"]
+                     "flash_bwd.cu", "norms.cu"]
     assert [h.name for h in fa._HEADERS] == ["sm90_common.cuh"]
     assert all(path.exists() for path in fa._SOURCES + fa._HEADERS)
     header = fa._HEADERS[0].read_text()

@@ -191,7 +191,7 @@ class AudioBlock(nn.Module):
         attn_out = self.attn(self.attn_norm(x, condition=cond, gamma=g(0)),
                              rotary=rotary, mask=mask,
                              deterministic=deterministic)
-        x = x + self.attn_gate(attn_out, condition=cond, gamma=g(1))
+        x = self.attn_gate.residual(x, attn_out, condition=cond, gamma=g(1))
         slot = 2
         if self.cross_attn is not None and (context is not None
                                             or self.cross_self_ok):
@@ -199,12 +199,14 @@ class AudioBlock(nn.Module):
                 self.cross_norm(x, condition=cond, gamma=g(2)), rotary=rotary,
                 mask=mask, context=context, context_mask=context_mask,
                 deterministic=deterministic)
-            x = x + self.cross_gate(cross_out, condition=cond, gamma=g(3))
+            x = self.cross_gate.residual(x, cross_out, condition=cond,
+                                         gamma=g(3))
         if self.cross_attn is not None:
             slot = 4
         ff_out = self.ff(self.ff_norm(x, condition=cond, gamma=g(slot)),
                          deterministic=deterministic)
-        return x + self.ff_gate(ff_out, condition=cond, gamma=g(slot + 1))
+        return self.ff_gate.residual(x, ff_out, condition=cond,
+                                     gamma=g(slot + 1))
 
 
 class TriStreamTransformer(nn.Module):

@@ -63,14 +63,17 @@ NEG_INF = -1e30
 
 # K1 flash_attention_packed, K2 flash_attention, K3 flash_attention_lse,
 # K4 flash_attention_bwd_dq, K5 flash_attention_bwd_dkv, P1 flash_bnhd (the
-# packed-layout probe, v2ap_torch/scripts/probe_flash_bnhd.py)
+# packed-layout probe, v2ap_torch/scripts/probe_flash_bnhd.py); N1 rms_norm
+# and N2 gated_residual (ops/norms.py), built into the same library
 launch_counts = {"flash_attention": 0, "flash_attention_packed": 0,
                  "flash_attention_lse": 0, "flash_attention_bwd_dq": 0,
-                 "flash_attention_bwd_dkv": 0, "flash_bnhd": 0}
+                 "flash_attention_bwd_dkv": 0, "flash_bnhd": 0,
+                 "rms_norm": 0, "gated_residual": 0}
 
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 _SOURCES = (_CSRC / "flash_fwd_sm90.cu", _CSRC / "flash_bwd_sm90.cu",
-            _CSRC / "flash_fwd.cu", _CSRC / "flash_bwd.cu")
+            _CSRC / "flash_fwd.cu", _CSRC / "flash_bwd.cu",
+            _CSRC / "norms.cu")
 # included by the tensor-core sources: part of the library's hash
 _HEADERS = (_CSRC / "sm90_common.cuh",)
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "v2ap_torch"
@@ -272,14 +275,17 @@ def build_library() -> Path:
 def _c_argtypes() -> dict:
     """The argument types of the library's kernel entry points, each of
     which returns an int; the f32 and bf16 routes of a direction share one
-    parameter list."""
+    parameter list. N1 and N2 are ``ops/norms.py``'s."""
     ptr, i32, i64, f32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                           ctypes.c_float)
     fwd = [i32] + [ptr] * 6 + [i32] * 4 + [i64] * 13 + [f32, f32, ptr]
     bwd = ([i32] * 2 + [ptr] * 9 + [i32] * 4
            + [ctypes.POINTER(i64), f32, f32, ptr])
     return {"v2ap_flash_fwd": fwd, "v2ap_flash_fwd_sm90": fwd,
-            "v2ap_flash_bwd": bwd, "v2ap_flash_bwd_sm90": bwd}
+            "v2ap_flash_bwd": bwd, "v2ap_flash_bwd_sm90": bwd,
+            "v2ap_rms_norm": ([i32] + [ptr] * 3 + [i64] * 5
+                              + [i32, i32, f32, f32, ptr]),
+            "v2ap_gated_residual": [i32] + [ptr] * 4 + [i64] * 7 + [i32, ptr]}
 
 
 @functools.lru_cache(maxsize=None)
