@@ -9,10 +9,14 @@ warm-up calls), and the plain reference judges them as a run does.
 "sound" runs the pipeline as the configuration states; "control" runs the
 port's own int8 product in every ``Linear`` of the towers, T5 and the
 flow model (``System(int8=True)``), the precision below the
-configuration's bf16; "fp8ref" puts the reference itself, with every
-product's inputs rounded to fp8 e4m3 (``reference.nn.emulated_fp8``), in
-the pipeline's place; "fault NAME" runs the configured path with one of
-``benchmark/faults.py``'s faults planted (``--fault`` may be repeated).
+configuration's bf16; "fp8ref" puts the reference itself, computed one
+precision below the configuration (``reference.nn.one_precision_below``:
+every floating-point product's inputs rounded to fp8 e4m3, the products a
+configuration states in int8 computed in int4), in the pipeline's place,
+and under int8 towers keeps of its towers what the check compares of the
+program's (``benchmark/kept.py``); "fault NAME" runs the
+configured path with one of ``benchmark/faults.py``'s faults planted
+(``--fault`` may be repeated).
 One JSON line a seed: mode, seed, and the numbers ``benchmark/check.py``
 compares. Not part of a benchmark run.
 """
@@ -61,21 +65,22 @@ def readings(workload: str, seeds, *, int8: bool, device="cuda",
                 system.x0(req) if traffic.kind == "batch" else None)
             run.records.append(harness.Record(i, req, 0.0,
                                               traffic.clips_per_call,
-                                              timings, waves, roll))
+                                              timings, waves, roll,
+                                              kept=system.kept))
         del pool
         gc.collect()
         yield seed, harness.reference_readings(c, run, seed, device)
 
 
 def fp8_readings(workload: str, seeds, device="cuda", root: Path = ROOT):
-    """Yield (seed, readings) of the reference computed in emulated fp8,
-    judged as the pipeline's answers are."""
+    """Yield (seed, readings) of the reference computed one precision
+    below the configuration, judged as the pipeline's answers are."""
     import numpy as np
     import torch
 
-    from benchmark import harness, weights
+    from benchmark import harness, kept, weights
     from benchmark.reference import pipeline as reference
-    from benchmark.reference.nn import emulated_fp8
+    from benchmark.reference.nn import one_precision_below
     from benchmark.traffic import Traffic
 
     c = harness.cell(workload, root)
@@ -91,16 +96,31 @@ def fp8_readings(workload: str, seeds, device="cuda", root: Path = ROOT):
             req = traffic.request(i, pool)    # the pipeline's request stream
             if i < first:
                 continue
-            with emulated_fp8():
+            clips = req["frames"] if traffic.kind == "batch" \
+                else [req["frames"]]
+            found = feats = None
+            with one_precision_below():
+                if c.config["quantize_towers"]:
+                    found = kept.empty()
+                    per_clip = reference.tower_features(
+                        c.config, w, [(f, req["duration"]) for f in clips],
+                        device,
+                        lambda name, model: kept.keep(model, name,
+                                                      lambda: found))
+                    feats = [reference.join_towers(c.config, f)
+                             for f in per_clip]
                 if traffic.kind == "batch":
-                    waves = reference.batch(c.config, w, req, device)
+                    waves = reference.batch(c.config, w, req, device, feats)
                     roll = None
                 else:
-                    wave, roll = reference.single(c.config, w, req, device)
+                    wave, roll = reference.single(
+                        c.config, w, req, device,
+                        None if feats is None else feats[0])
                     waves = wave[None]
             run.records.append(harness.Record(
                 i, req, 0.0, traffic.clips_per_call, {}, waves,
-                None if roll is None else torch.from_numpy(np.asarray(roll))))
+                None if roll is None else torch.from_numpy(np.asarray(roll)),
+                kept=found))
         del w, pool
         gc.collect()
         yield seed, harness.reference_readings(c, run, seed, device)

@@ -9,6 +9,11 @@ thing underneath the harness:
   step         the sampler's last step returns its state unchanged
   step-mid     the sampler's middle step returns its state unchanged
   roll         the piano roll shifted by one frame where it is produced
+  int8-per-tensor  one activation scale for the whole tensor instead of one
+               a token in every int8 product (the towers' under
+               ``quantize_towers``): the shortcut a fused quantize could take
+  bf16-towers  the int8 products computed as plain bf16 ones, as if the
+               towers skipped int8
 
 A fault that patches the sampler must be planted before the pipeline is
 built: the captured sampler records the integration it runs.
@@ -81,9 +86,38 @@ def roll_altered(patch) -> None:
     patch(cfm.CFM, "encode_frames", altered)
 
 
+def int8_per_tensor(patch) -> None:
+    import v2ap_torch.ops.layers as layers
+    from v2ap_torch.utils.quantize import int8_matmul, quantize_rows
+
+    def per_tensor(x, weight, bias=None):
+        lead = x.shape[:-1]
+        qx, sx = quantize_rows(x.reshape(1, -1))
+        qw, sw = quantize_rows(weight)
+        acc = int8_matmul(qx.reshape(-1, x.shape[-1]), qw)
+        y = acc.to(x.dtype) * sx * sw.reshape(1, -1)
+        if bias is not None:
+            y = y + bias
+        return y.reshape(*lead, weight.shape[0])
+
+    patch(layers, "int8_linear", per_tensor)
+
+
+def int8_skipped(patch) -> None:
+    import torch.nn.functional as F
+
+    import v2ap_torch.ops.layers as layers
+
+    def plain(x, weight, bias=None):
+        return F.linear(x, weight, bias)
+
+    patch(layers, "int8_linear", plain)
+
+
 FAULTS = {"answer": altered_answer, "half-batch": half_batch,
           "step": step_unchanged, "step-mid": middle_step_unchanged,
-          "roll": roll_altered}
+          "roll": roll_altered, "int8-per-tensor": int8_per_tensor,
+          "bf16-towers": int8_skipped}
 
 
 @contextlib.contextmanager

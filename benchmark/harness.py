@@ -30,6 +30,7 @@ import torch
 
 from benchmark import check, counts, weights
 from benchmark.reference import pipeline as reference
+from benchmark.reference.nn import int8_linear
 from benchmark.system import System
 from benchmark.trace import traced
 from benchmark.traffic import Traffic
@@ -96,6 +97,7 @@ class Record:
     waves: Optional[np.ndarray]
     roll: Optional[torch.Tensor]
     traced: bool = False            # in the traced segment, not the window
+    kept: Optional[dict] = None     # System.kept of the call
 
 
 @dataclass
@@ -176,7 +178,7 @@ def window(system, traffic, pool, seconds: float, device, run: Run,
             waves, roll, timings = None, None, {}
         run.records.append(Record(i, req, time.perf_counter() - t0,
                                   traffic.clips_per_call, timings, waves,
-                                  roll, traced))
+                                  roll, traced, system.kept))
 
     i = first
     start = time.perf_counter()
@@ -192,24 +194,82 @@ def window(system, traffic, pool, seconds: float, device, run: Run,
         run.trace, run.traced_calls = holder[0], trace_calls
 
 
+def _clip_features(cfg: dict, kept: dict, clips: list) -> list:
+    """The program's features of a call (``kept``'s chunks, clip after
+    clip), split by clip: per clip, tower name -> (frames, width); None
+    where the towers encoded another number of frames."""
+    sizes = [len(f[::cfg["conditioning"]["frame_stride"]]) for f in clips]
+    per_tower = {name: torch.cat(chunks)
+                 for name, chunks in kept["features"].items()}
+    if any(len(t) != sum(sizes) for t in per_tower.values()):
+        return None
+    per_tower = {name: torch.split(t, sizes) for name, t in per_tower.items()}
+    return [{name: parts[i] for name, parts in per_tower.items()}
+            for i in range(len(clips))]
+
+
+def layer_gap(cfg: dict, w: dict, kept: dict) -> float:
+    """The kept int8 layers of a call against AQT's int8 product in the
+    tower's compute dtype on the same input rows: the largest row gap."""
+    gap = 0.0
+    for (tower, name), pairs in kept["layers"].items():
+        state = w["towers"][tower]
+        weight = state[f"{name}.weight"].float()
+        bias = state.get(f"{name}.bias")
+        dtype = getattr(torch, cfg["towers"][tower]["dtype"])
+        for x, y in pairs:
+            ref = int8_linear(x.float(), weight,
+                              None if bias is None else bias.float(), dtype)
+            gap = max(gap, check.row_gap(y.float().cpu().numpy(),
+                                         ref.cpu().numpy()))
+    return gap
+
+
 def reference_readings(c: Cell, run: Run, seed: int, device) -> dict:
     """The program's answers held against the reference: the checked
-    requests (drawn from the seed) of the completed ones."""
+    requests (drawn from the seed) of the completed ones. Under int8
+    towers the check goes in stages: ``layer_gap`` holds a few of the
+    towers' int8 layers on their own inputs, ``feature_gap`` the towers'
+    features against the reference towers', and the waveform is held
+    against the reference's sampler and decoder run from the program's own
+    features."""
     traffic = Traffic(c.traffic, seed)
     done = [r for r in run.records if r.waves is not None]
     w = weights.make(c.config, weights_seed(seed), device,
                      with_t5=c.traffic["prompt_words"][1] > 0)
+    staged = c.config["quantize_towers"]
     readings = {"wave_gap": 0.0}
+    if staged:
+        readings["feature_gap"] = readings["layer_gap"] = 0.0
     if c.traffic["piano"]:
         readings["roll_gap"] = 0.0
     for k in traffic.checked(len(done)):
         rec = done[k]
+        req = rec.request
+        clips = req["frames"] if traffic.kind == "batch" else [req["frames"]]
+        feats = None
+        if staged:
+            program = _clip_features(c.config, rec.kept, clips)
+            if program is None:
+                readings = {k: float("inf") for k in readings}
+                break
+            ref = reference.tower_features(
+                c.config, w, [(f, req["duration"]) for f in clips], device)
+            for p, r in zip(program, ref):
+                for name in r:
+                    readings["feature_gap"] = max(
+                        readings["feature_gap"],
+                        check.row_gap(p[name].float().cpu().numpy(),
+                                      r[name].cpu().numpy()))
+            readings["layer_gap"] = max(readings["layer_gap"],
+                                        layer_gap(c.config, w, rec.kept))
+            feats = [reference.join_towers(c.config, p) for p in program]
         if traffic.kind == "batch":
-            ref_waves = reference.batch(c.config, w, rec.request, device)
+            ref_waves = reference.batch(c.config, w, req, device, feats)
             ref_roll = None
         else:
-            ref_wave, ref_roll = reference.single(c.config, w, rec.request,
-                                                  device)
+            ref_wave, ref_roll = reference.single(
+                c.config, w, req, device, None if feats is None else feats[0])
             ref_waves = ref_wave[None]
         for prog, ref in zip(rec.waves, ref_waves):
             readings["wave_gap"] = max(readings["wave_gap"],

@@ -6,6 +6,26 @@ attention is an explicit softmax over explicit logits. Parameter names
 follow the served modules' state-dict names, so one set of tensors loads
 into both. Parameters are allocated empty: the benchmark assigns its own
 seeded weights (``load_state_dict(..., assign=True)``).
+
+Where a configuration states int8 towers (``quantize_towers``), every
+``Linear`` of a tower computes AQT's int8 product instead (``int8_linear``,
+set by ``int8_linears``), emulated with exact integer sums:
+
+  * scale = absmax / 127.5 over the contraction axis, per row of the
+    activations (per token) and per output channel of the weight, an
+    absmax of 0 taken as 1; as XLA compiles AQT, the division is a product
+    with the float32 reciprocal of 127.5;
+  * codes = ``x * (1 / scale)``, clipped to +-127, rounded half to even;
+  * the sums of code products in float64, exact as an int32 sum is;
+  * the sums times the activation scale, then the weight scale, then the
+    bias added.
+
+AQT computes each of those steps in the layer's compute dtype, bf16 in the
+served towers; ``int8_linear(..., dtype=torch.bfloat16)`` rounds each to
+it, and the check holds single layers of the program to that
+(``benchmark/kept.py``). The reference towers run in float32 throughout,
+their int8 steps too: one departure from the served program, which
+computes its scales and codes in bf16 from bf16 activations.
 """
 
 from __future__ import annotations
@@ -22,30 +42,33 @@ E4M3_MAX = 448.0
 
 
 class _Rounding:
-    """How the inputs of every product are rounded: not at all (the
-    reference), or to fp8 e4m3 with one scale a tensor (the correctness
-    control: the reference computed a precision below the served bf16)."""
-    fp8 = False
+    """Whether every product is computed one precision below what the
+    configuration states (the correctness control): floating-point
+    products' inputs rounded to fp8 e4m3 with one scale a tensor, int8
+    products in int4."""
+    below = False
 
 
 def fp8(t: torch.Tensor) -> torch.Tensor:
     """``t`` rounded to e4m3 on its own amax scale, in float32; unchanged
-    outside ``emulated_fp8``."""
-    if not _Rounding.fp8:
+    outside ``one_precision_below``."""
+    if not _Rounding.below:
         return t
     scale = t.detach().abs().amax().clamp_min(1e-30) / E4M3_MAX
     return (t / scale).to(torch.float8_e4m3fn).to(torch.float32) * scale
 
 
 @contextlib.contextmanager
-def emulated_fp8():
-    """Every product's inputs (linear, convolution and attention operands)
-    rounded by ``fp8`` inside the block."""
-    _Rounding.fp8 = True
+def one_precision_below():
+    """Inside the block every product is computed one precision below the
+    configuration's: floating-point products' inputs (linear, convolution
+    and attention operands) rounded by ``fp8``, int8 products in int4
+    (AQT's 4-bit bounds: 7.5 and 7)."""
+    _Rounding.below = True
     try:
         yield
     finally:
-        _Rounding.fp8 = False
+        _Rounding.below = False
 
 
 def _param(*shape, device=None) -> nn.Parameter:
@@ -53,7 +76,49 @@ def _param(*shape, device=None) -> nn.Parameter:
                         requires_grad=False)
 
 
+def _round_to(t: torch.Tensor, dtype) -> torch.Tensor:
+    """float32 ``t`` rounded to ``dtype`` and widened back (none for
+    float32)."""
+    return t if dtype == torch.float32 else t.to(dtype).float()
+
+
+def int8_quantize(t: torch.Tensor, bits: int = 8,
+                  dtype=torch.float32) -> tuple:
+    """AQT's AbsMax quantization of ``t`` over its last axis at ``bits``
+    (IntSymmetric, preserve_zero: bound 2^(bits-1) - 0.5, clip one below
+    2^(bits-1)), each step rounded to the compute ``dtype``: (integer codes
+    as float32, of t's shape; scale (..., 1), float32)."""
+    bound = 2.0 ** (bits - 1) - 0.5
+    t = _round_to(t.float(), dtype)
+    absmax = t.abs().amax(dim=-1, keepdim=True)
+    absmax = torch.where(absmax == 0, torch.ones_like(absmax), absmax)
+    scale = _round_to(absmax * (1.0 / bound), dtype)
+    inv = _round_to(1.0 / scale, dtype)
+    codes = _round_to(t * inv, dtype).clamp(-bound + 0.5, bound - 0.5).round()
+    return codes, scale
+
+
+def int8_linear(x: torch.Tensor, weight: torch.Tensor, bias=None,
+                dtype=torch.float32):
+    """y = x W^T + b through AQT's int8 product (int4 inside
+    ``one_precision_below``) from ``x`` (..., k), ``weight`` (n, k) and
+    ``bias`` (n,) or None, each step rounded to the compute ``dtype``;
+    float32."""
+    bits = 4 if _Rounding.below else 8
+    qx, sx = int8_quantize(x, bits, dtype)
+    qw, sw = int8_quantize(weight, bits, dtype)
+    acc = _round_to(torch.matmul(qx.double(), qw.double().t()).float(),
+                    dtype)
+    y = _round_to(_round_to(acc * sx, dtype) * sw.reshape(-1), dtype)
+    return y if bias is None else _round_to(y + bias.float(), dtype)
+
+
 class Linear(nn.Module):
+    """y = x W^T + b in float32; ``int8`` (set by ``int8_linears``) runs
+    AQT's int8 product instead."""
+
+    int8 = False
+
     def __init__(self, cin: int, cout: int, *, bias: bool = True,
                  device=None):
         super().__init__()
@@ -61,7 +126,18 @@ class Linear(nn.Module):
         self.bias = _param(cout, device=device) if bias else None
 
     def forward(self, x):
+        if self.int8:
+            return int8_linear(x.float(), self.weight, self.bias)
         return F.linear(fp8(x.float()), fp8(self.weight), self.bias)
+
+
+def int8_linears(model: nn.Module) -> int:
+    """Set every ``Linear`` under ``model`` to AQT's int8 product; returns
+    how many were set."""
+    layers = [m for m in model.modules() if isinstance(m, Linear)]
+    for m in layers:
+        m.int8 = True
+    return len(layers)
 
 
 class Embed(nn.Module):

@@ -6,6 +6,12 @@ EnCodec's decoder. Each model is built only while it runs, from the
 benchmark's weights (any dtype, widened to float32), so a mixed-tower
 request holds one tower at a time.
 
+The towers' ``Linear`` layers compute AQT's int8 product where the
+configuration's ``quantize_towers`` is true (``reference.nn.int8_linear``);
+their attention, norms and patch convolution stay float32. A configuration
+with ``quantize_cfm`` true is refused: the reference has no int8 flow
+model, and a float32 one would judge it without saying so.
+
 ``cfg`` is a configuration file's dict (``benchmark/configs``); ``weights``
 maps "cfm", "decoder", "t5" and "towers" -> {name} to state dicts.
 """
@@ -19,6 +25,7 @@ import torch
 
 from benchmark.reference.cfm import CFM
 from benchmark.reference.encodec import EncodecDecoder
+from benchmark.reference.nn import int8_linears
 from benchmark.reference.t5 import T5Encoder, hash_tokenize
 from benchmark.reference.towers import TOWERS, normalize, resize_center_crop
 
@@ -100,30 +107,58 @@ def piano_plan(num: int, duration: float, length: int, stride: int,
 
 
 @torch.no_grad()
-def video_features(cfg, weights, clips, length: int, device):
-    """Per-clip (length, sum of tower widths) float32 features at the
-    latent rate: each clip is (uint8 (t, H, W, 3) full-rate frames,
-    duration). Towers run one after another over every clip."""
-    cond = cfg["conditioning"]
-    stride = cond["frame_stride"]
+def tower_features(cfg, weights, clips, device, hook=None):
+    """Per clip, tower name -> (encoded frames, width) float32 features of
+    every ``frame_stride``-th frame: each clip is (uint8 (t, H, W, 3)
+    full-rate frames, duration). Towers run one after another over every
+    clip; ``hook(name, model)`` is called with each tower built."""
+    stride = cfg["conditioning"]["frame_stride"]
     frames = [torch.from_numpy(np.ascontiguousarray(f[::stride])).to(device)
               for f, _ in clips]
     per_tower = []
-    for name in tower_names(cfg):
-        cls, _, mean, std = TOWERS[name]
-        tc = cfg["towers"][name]
-        model = build(cls, weights["towers"][name], tc, device=device)
-        outs = []
-        for f in frames:
-            parts = [model(normalize(resize_center_crop(
-                f[i: i + TOWER_CHUNK], tc["image_size"]), mean, std))
-                for i in range(0, len(f), TOWER_CHUNK)]
-            outs.append(torch.cat(parts))
-        per_tower.append(outs)
-        del model
+    with float32_exact():
+        for name in tower_names(cfg):
+            cls, _, mean, std = TOWERS[name]
+            tc = cfg["towers"][name]
+            model = build(cls, weights["towers"][name], tc, device=device)
+            if cfg["quantize_towers"]:
+                int8_linears(model)
+            if hook is not None:
+                hook(name, model)
+            outs = []
+            for f in frames:
+                parts = [model(normalize(resize_center_crop(
+                    f[i: i + TOWER_CHUNK], tc["image_size"]), mean, std))
+                    for i in range(0, len(f), TOWER_CHUNK)]
+                outs.append(torch.cat(parts))
+            per_tower.append(outs)
+            del model
+    return [dict(zip(tower_names(cfg), t)) for t in zip(*per_tower)]
+
+
+def join_towers(cfg, features: dict) -> torch.Tensor:
+    """One clip's tower name -> (frames, width) features, cut to the fewest
+    frames and concatenated along the width in ``tower_names`` order, as
+    float32."""
+    per_tower = [features[name] for name in tower_names(cfg)]
+    t = min(len(f) for f in per_tower)
+    return torch.cat([f[:t].float() for f in per_tower], -1)
+
+
+@torch.no_grad()
+def video_features(cfg, weights, clips, length: int, device,
+                   features=None):
+    """Per-clip (length, sum of tower widths) float32 features at the
+    latent rate: ``tower_features`` of the clips joined, or the per-clip
+    (frames, widths) ``features`` given (the program's own, where the check
+    follows it from its towers' output), blended to the latent rate."""
+    cond = cfg["conditioning"]
+    stride = cond["frame_stride"]
+    if features is None:
+        features = [join_towers(cfg, f)
+                    for f in tower_features(cfg, weights, clips, device)]
     feats = []
-    for k, (_, duration) in enumerate(clips):
-        f = torch.cat([t[k] for t in per_tower], -1)
+    for f, (_, duration) in zip(features, clips):
         i0, i1, w = blend_plan(len(f), duration, length, stride,
                                cond["sampling_rate"], cond["frame_size"])
         if w is None:
@@ -182,16 +217,24 @@ def sample_decode(cfm, cfg, weights, x0, text, roll, ctx, ctx_mask, nv,
     return decoder(latents[:, :nv])
 
 
+def _precision(cfg) -> None:
+    if cfg["quantize_cfm"]:
+        raise ValueError("the reference has no int8 flow model: "
+                         "quantize_cfm must be false")
+
+
 def _empty_context(cfg, b, device):
     return (torch.zeros(b, 1, cfg["model"]["dim_context"], device=device),
             torch.ones(b, 1, dtype=torch.bool, device=device))
 
 
 @torch.no_grad()
-def single(cfg, weights, request, device):
+def single(cfg, weights, request, device, features=None):
     """One ``generate`` call: ``request`` has frames, duration, prompt,
-    strips (None for V2A) and seed. Returns (waveform, roll or None) as
-    float32 numpy."""
+    strips (None for V2A) and seed; ``features``, the program's per-frame
+    tower features of the clip to start from instead of the reference's.
+    Returns (waveform, roll or None) as float32 numpy."""
+    _precision(cfg)
     with float32_exact():
         cond, m = cfg["conditioning"], cfg["model"]
         sr = cond["sampling_rate"]
@@ -200,7 +243,8 @@ def single(cfg, weights, request, device):
         probe = int(MAX_DURATION_S * sr / cond["frame_size"])
         feats = video_features(cfg, weights,
                                [(request["frames"], request["duration"])],
-                               probe, device)[0]
+                               probe, device,
+                               None if features is None else [features])[0]
         tdim = m["dim_text_raw"] or m["dim_text"]
         text = torch.zeros(1, n, tdim, device=device)
         k = min(n, len(feats))
@@ -225,18 +269,20 @@ def single(cfg, weights, request, device):
 
 
 @torch.no_grad()
-def batch(cfg, weights, call, device):
+def batch(cfg, weights, call, device, features=None):
     """One ``generate_batch`` call of clips with empty prompts: ``call`` has
     frames (one array per clip), duration and x0_seed, from which x0
-    (b, n, C) is drawn. Returns the (b, samples) float32 numpy
-    waveforms."""
+    (b, n, C) is drawn; ``features``, the program's per-frame tower
+    features of each clip to start from instead of the reference's.
+    Returns the (b, samples) float32 numpy waveforms."""
+    _precision(cfg)
     with float32_exact():
         cond, m = cfg["conditioning"], cfg["model"]
         _, nv, n = plan_length(cfg, call["duration"])
         b = len(call["frames"])
         feats = video_features(cfg, weights,
                                [(f, call["duration"]) for f in call["frames"]],
-                               nv, device)
+                               nv, device, features)
         text = torch.zeros(b, n, m["dim_text_raw"] or m["dim_text"],
                            device=device)
         for i, f in enumerate(feats):

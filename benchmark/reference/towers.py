@@ -2,7 +2,10 @@
 geometry: CLIP ViT-bigG/14 and ViT-L/14-336 (pre-norm ViT with a projected
 class token), DINOv2-giant (SwiGLU, layer scale, normed class token) and
 ConvNeXt-XXLarge (open_clip head), each after Pillow's bicubic resize of
-the shortest edge and a centre crop, and its normalisation."""
+the shortest edge and a centre crop, and its normalisation. Under int8
+towers (``reference.nn.int8_linears``) every ``Linear`` here runs AQT's int8
+product: ViT-bigG's q, k, v, o, fc1 and fc2 in each layer and its
+``visual_projection``, as the served ``set_int8_towers`` sets them."""
 
 from __future__ import annotations
 

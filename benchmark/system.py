@@ -28,7 +28,11 @@ class System:
     """A ``V2APipeline`` of configuration ``cfg`` (a configuration file's
     dict) on ``device``; ``int8`` runs the port's own int8 product
     (``utils.quantize``) in every ``Linear`` of the towers, T5 and the flow
-    model instead of the file's precision: the correctness control."""
+    model instead of the file's precision: the correctness control.
+
+    Under int8 towers (``quantize_towers``) hooks on each tower keep what
+    the check compares of a call (``kept``: ``benchmark/kept.py``'s
+    features and layers, on the device; no copy, no sync)."""
 
     def __init__(self, cfg: dict, device, *, int8: bool = False):
         from v2ap_torch.config import V2APConfig
@@ -65,6 +69,12 @@ class System:
             from v2ap_torch.utils.quantize import quantize_linears_int8
 
             quantize_linears_int8(self.pipe.t5, True)
+        self.kept = None                # inside ``serve``: kept.empty()
+        if cfg["quantize_towers"]:
+            from benchmark import kept
+
+            for tower in self.pipe.towers:
+                kept.keep(tower.model, tower.name, lambda: self.kept)
 
     def load(self, weights: dict) -> None:
         """Copy the benchmark's weights into the pipeline's modules,
@@ -94,6 +104,10 @@ class System:
         rows), the roll the call produced (V2P, on the device) and the
         pipeline's timings of the call."""
         pipe, s = self.pipe, self.cfg["sampler"]
+        if self.cfg["quantize_towers"]:
+            from benchmark import kept
+
+            self.kept = kept.empty()
         if kind == "batch":
             wavs, _ = pipe.generate_batch(
                 [None] * len(request["frames"]), request["prompts"],

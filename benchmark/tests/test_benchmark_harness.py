@@ -66,7 +66,8 @@ def test_new_cell_from_files_runs_on_cpu(root):
     assert "sample_s.single" in traced["metrics"]
 
 
-@pytest.mark.parametrize("cell", ["tiny.v2p", "tiny.batch", "tiny-mixed.v2a"])
+@pytest.mark.parametrize("cell", ["tiny.v2p", "tiny.batch", "tiny-mixed.v2a",
+                                  "tiny-int8.v2a", "tiny-int8.batch"])
 def test_each_kind_of_cell_is_correct_on_cpu(root, cell):
     out = harness.run_cell(cell, SEED + 2, 0.1, False, "cpu", root)
     assert out["correct"], out["checks"]
@@ -125,6 +126,11 @@ def test_shares_of_the_chip_divide_by_the_untraced_window():
     ("tiny.batch", "half-batch"),
     ("tiny.batch", "step"),
     ("tiny.v2p", "roll"),
+    ("tiny-int8.v2a", "int8-per-tensor"),
+    ("tiny-int8.v2a", "bf16-towers"),
+    ("tiny-int8.v2a", "step"),
+    ("tiny-int8.batch", "int8-per-tensor"),
+    ("tiny-int8.batch", "half-batch"),
 ])
 def test_a_broken_timed_path_is_not_correct(root, monkeypatch, cell, fault):
     faults.FAULTS[fault](monkeypatch.setattr)
@@ -135,15 +141,29 @@ def test_a_broken_timed_path_is_not_correct(root, monkeypatch, cell, fault):
 @pytest.mark.parametrize("name", sorted(faults.FAULTS))
 def test_a_planted_fault_is_undone(name):
     import v2ap_torch.models.cfm as cfm
+    import v2ap_torch.ops.layers as layers
 
-    before = (harness.System.serve, cfm.euler_integrate,
-              cfm.CFM.encode_frames)
+    def patched():
+        return (harness.System.serve, cfm.euler_integrate,
+                cfm.CFM.encode_frames, layers.int8_linear)
+
+    before = patched()
     with faults.planted(name):
-        during = (harness.System.serve, cfm.euler_integrate,
-                  cfm.CFM.encode_frames)
+        during = patched()
     assert during != before
-    assert (harness.System.serve, cfm.euler_integrate,
-            cfm.CFM.encode_frames) == before
+    assert patched() == before
+
+
+def test_a_fault_in_the_towers_shows_in_their_own_numbers(root,
+                                                          monkeypatch):
+    """Under int8 towers the waveform's reference starts from the program's
+    features, so a tower that computes too coarsely has to fail
+    ``layer_gap`` and ``feature_gap`` themselves."""
+    faults.FAULTS["int8-per-tensor"](monkeypatch.setattr)
+    checks = harness.run_cell("tiny-int8.v2a", SEED + 4, 0.1, False, "cpu",
+                              root)["checks"]
+    assert checks["layer_gap"]["value"] > checks["layer_gap"]["limit"]
+    assert checks["feature_gap"]["value"] > checks["feature_gap"]["limit"]
 
 
 def test_no_card_means_no_result(monkeypatch, capsys):

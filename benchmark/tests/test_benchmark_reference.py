@@ -14,10 +14,12 @@ import numpy as np
 import pytest
 import torch
 
-from benchmark import weights
+from benchmark import kept, weights
 from benchmark.harness import FORBIDDEN
 from benchmark.reference import pipeline as reference
 from benchmark.reference.cfm import CFM as RefCFM
+from benchmark.reference.nn import int8_linears, int8_quantize
+from benchmark.reference.nn import int8_linear as ref_int8_linear
 from benchmark.system import System
 from benchmark.tests.tiny import tiny_config, tiny_traffic
 from benchmark.traffic import Traffic
@@ -34,16 +36,24 @@ def mixed():
     return cfg, w, system
 
 
+@pytest.fixture(scope="module")
+def int8_tower():
+    cfg = tiny_config(quantize_towers=True)
+    w = weights.make(cfg, 8, torch.device("cpu"), with_t5=False)
+    system = System(cfg, torch.device("cpu"))
+    system.load(w)
+    return cfg, w, system
+
+
 def _close(a, b, tol=1e-4):
     a, b = (torch.as_tensor(x).double() for x in (a, b))
     assert a.shape == b.shape
     assert (a - b).norm() <= tol * b.norm()
 
 
-@pytest.mark.parametrize("tower", ["clip_vit", "clip_vit2", "clip_convnext",
-                                   "dinov2"])
-def test_tower_features_agree(mixed, tower):
-    cfg, w, system = mixed
+def _tower_features(cfg, w, system, tower):
+    """(port, reference) features of one tower over six random frames, the
+    reference's Linears in int8 where the configuration says so."""
     frames = np.random.default_rng(1).integers(
         0, 256, (6, 36, 48, 3), dtype=np.uint8)
     port = next(t for t in system.pipe.towers if t.name == tower)
@@ -57,10 +67,130 @@ def test_tower_features_agree(mixed, tower):
         tc = cfg["towers"][tower]
         ref_model = reference.build(cls, w["towers"][tower], tc,
                                     device="cpu")
+        if cfg["quantize_towers"]:
+            assert int8_linears(ref_model) == 6 * tc["num_layers"] + 1
         geom = reference.resize_center_crop(px, tc["image_size"])
         assert torch.equal(geom, port.preprocess(px))
         want = ref_model(reference.normalize(geom, mean, std))
-    _close(got, want)
+    return got, want
+
+
+@pytest.mark.parametrize("tower", ["clip_vit", "clip_vit2", "clip_convnext",
+                                   "dinov2"])
+def test_tower_features_agree(mixed, tower):
+    _close(*_tower_features(*mixed, tower))
+
+
+def test_int8_tower_features_agree(int8_tower):
+    """Both sides compute the int8 products alike at float32 (the test
+    below holds them to it exactly), but their attention and norms round
+    differently in the last bit; where that moves an activation across a
+    code's .5, the frame moves by about one code step (1/127.5 of a row's
+    absmax). So most frames agree within 1e-4, and none by more than a few
+    such steps."""
+    cfg, w, system = int8_tower
+    assert system.pipe.set_int8_towers(True) == 1 + 6 * \
+        cfg["towers"]["clip_vit"]["num_layers"]
+    got, want = _tower_features(cfg, w, system, "clip_vit")
+    gaps = ((got - want).norm(dim=-1) / want.norm(dim=-1)).tolist()
+    assert np.median(gaps) <= 1e-4 and max(gaps) <= 3 / 127.5, gaps
+
+
+def test_the_int8_configuration_sets_bigGs_289_linears():
+    cfg = json.loads((REPO / "benchmark/configs/crossatt3-int8.json")
+                     .read_text())
+    assert cfg["quantize_towers"] and not cfg["quantize_cfm"]
+    tower = reference.TOWERS["clip_vit"][0](cfg["towers"]["clip_vit"],
+                                            device="meta")
+    assert int8_linears(tower) == 289
+
+
+def test_int8_linear_matches_the_ports_at_float32():
+    from v2ap_torch.utils.quantize import int8_linear, quantize_rows
+
+    g = torch.Generator().manual_seed(4)
+    x = torch.randn(5, 3, 40, generator=g) * 3.0
+    # a row whose scale is 1 exactly, with ties at .5 (and past the clip),
+    # and a row of zeros
+    ties = torch.tensor([127.5, 0.5, 1.5, 2.5, -0.5, -2.5, 3.5, -126.5])
+    x[0, 0, :8] = ties
+    x[0, 0, 8:] = 0.25
+    x[1, 2] = 0.0
+    w = torch.randn(24, 40, generator=g) / 40 ** 0.5
+    w[3] = 0.0
+    b = torch.randn(24, generator=g) * 0.02
+    codes, scale = int8_quantize(x)
+    assert torch.equal(codes[0, 0, :8],
+                       torch.tensor([127., 0, 2, 2, 0, -2, 4, -126]))
+    assert torch.equal(codes[1, 2], torch.zeros(40))
+    assert scale[0, 0].item() == 1.0
+    assert scale[1, 2].item() == torch.tensor(1 / 127.5).item()
+    for t in (x, w):
+        port_codes, port_scale = quantize_rows(t)
+        want_codes, want_scale = int8_quantize(t)
+        assert torch.equal(port_codes.float(), want_codes)
+        assert torch.equal(port_scale, want_scale)
+    got, want = int8_linear(x, w, b), ref_int8_linear(x, w, b)
+    assert (got - want).abs().max() <= 1e-6 * want.abs().max()
+    assert torch.equal(ref_int8_linear(x[1, 2:], w, b)[0], b)
+
+
+def test_int8_linear_in_bf16_matches_the_ports():
+    """In the towers' compute dtype AQT rounds each step to bf16; the
+    reference rounds alike, so the port's bf16 product matches it bit for
+    bit."""
+    from v2ap_torch.utils.quantize import int8_linear, quantize_rows
+
+    g = torch.Generator().manual_seed(5)
+    x = torch.randn(64, 96, generator=g) * 2.0
+    x[0, :8] = torch.tensor([127.5, 0.5, 1.5, 2.5, -0.5, -2.5, 3.5, -126.5])
+    x[0, 8:] = 0.25
+    x[1] = 0.0
+    x = x.bfloat16()
+    w = (torch.randn(40, 96, generator=g) / 96 ** 0.5).bfloat16()
+    b = (torch.randn(40, generator=g) * 0.02).bfloat16()
+    port_codes, port_scale = quantize_rows(x)
+    codes, scale = int8_quantize(x, dtype=torch.bfloat16)
+    assert torch.equal(port_codes.float(), codes)
+    assert torch.equal(port_scale.float(), scale)
+    want = ref_int8_linear(x, w.float(), b.float(), torch.bfloat16)
+    assert torch.equal(int8_linear(x, w, b).float(), want)
+    # the float32 emulation of the same inputs is another product
+    assert not torch.equal(ref_int8_linear(x.float(), w.float(), b.float()),
+                           want)
+
+
+def test_the_kept_layers_of_bigG():
+    cfg = json.loads((REPO / "benchmark/configs/crossatt3-int8.json")
+                     .read_text())
+    tower = reference.TOWERS["clip_vit"][0](cfg["towers"]["clip_vit"],
+                                            device="meta")
+    assert kept.chosen(tower) == ["blocks.0.attn.q", "blocks.0.mlp.fc1",
+                                  "blocks.47.mlp.fc2", "visual_projection"]
+    assert kept._rows(64 * 257, "cpu").unique().numel() == kept.ROWS
+    assert torch.equal(kept._rows(20, "cpu"), torch.arange(20))
+
+
+def test_int8_towers_change_the_reference(int8_tower):
+    cfg, w, _ = int8_tower
+    frames = np.random.default_rng(3).integers(
+        0, 256, (6, 36, 48, 3), dtype=np.uint8)
+    int8, = reference.video_features(cfg, w, [(frames, 1.6)], 96, "cpu")
+    plain, = reference.video_features(dict(cfg, quantize_towers=False), w,
+                                      [(frames, 1.6)], 96, "cpu")
+    assert (int8 - plain).norm() > 10 * 1e-4 * plain.norm()
+
+
+def test_the_reference_refuses_an_int8_flow_model(int8_tower):
+    cfg, w, _ = int8_tower
+    traffic = Traffic(tiny_traffic(), 12)
+    req = traffic.request(0, traffic.make_pool(torch.device("cpu")))
+    with pytest.raises(ValueError, match="quantize_cfm"):
+        reference.single(dict(cfg, quantize_cfm=True), w, req, "cpu")
+    call = {"frames": [req["frames"]], "duration": req["duration"],
+            "x0_seed": 1}
+    with pytest.raises(ValueError, match="quantize_cfm"):
+        reference.batch(dict(cfg, quantize_cfm=True), w, call, "cpu")
 
 
 def test_prompt_context_agrees(mixed):

@@ -26,7 +26,7 @@ def _d(x) -> dict:
 
 
 def tiny_config(mode: str = "clip_vit", frame_stride: int = 3,
-                strip_stride: int = 2) -> dict:
+                strip_stride: int = 2, quantize_towers: bool = False) -> dict:
     cfg = tiny_tower_test()
     towers = {"clip_vit": _d(clip_tiny_test()),
               "clip_vit2": _d(dataclasses.replace(
@@ -48,7 +48,7 @@ def tiny_config(mode: str = "clip_vit", frame_stride: int = 3,
             "towers": towers, "t5": _d(t5_tiny_test()),
             "encodec": _d(EncodecConfig(hidden_size=8, num_filters=4,
                                         num_lstm_layers=1)),
-            "quantize_towers": False, "quantize_cfm": False}
+            "quantize_towers": quantize_towers, "quantize_cfm": False}
 
 
 def tiny_traffic(kind: str = "single", piano: bool = False) -> dict:
@@ -62,7 +62,9 @@ def tiny_traffic(kind: str = "single", piano: bool = False) -> dict:
 CELLS = {"tiny.v2a": ("tiny", "v2a", tiny_traffic()),
          "tiny.v2p": ("tiny", "v2p", tiny_traffic(piano=True)),
          "tiny.batch": ("tiny", "batch", tiny_traffic("batch")),
-         "tiny-mixed.v2a": ("tiny-mixed", "v2a", tiny_traffic())}
+         "tiny-mixed.v2a": ("tiny-mixed", "v2a", tiny_traffic()),
+         "tiny-int8.v2a": ("tiny-int8", "v2a", tiny_traffic()),
+         "tiny-int8.batch": ("tiny-int8", "batch", tiny_traffic("batch"))}
 
 
 def make_root(tmp: Path, limit: float = 1e-3) -> Path:
@@ -73,7 +75,8 @@ def make_root(tmp: Path, limit: float = 1e-3) -> Path:
         (bench / sub).mkdir(parents=True, exist_ok=True)
     shutil.copytree(REPO / "benchmark" / "metrics", bench / "metrics")
     spec = json.loads((REPO / "BENCHMARK.json").read_text())
-    configs = {"tiny": tiny_config(), "tiny-mixed": tiny_config("mixed")}
+    configs = {"tiny": tiny_config(), "tiny-mixed": tiny_config("mixed"),
+               "tiny-int8": tiny_config(quantize_towers=True)}
     spec["configs"] = []
     for name, c in configs.items():
         (bench / "configs" / f"{name}.json").write_text(json.dumps(c))
@@ -86,6 +89,8 @@ def make_root(tmp: Path, limit: float = 1e-3) -> Path:
         limits = {"wave_gap": limit}
         if params["piano"]:
             limits["roll_gap"] = limit
+        if configs[config]["quantize_towers"]:
+            limits["feature_gap"] = limits["layer_gap"] = limit
         (bench / "limits" / f"{cell}.json").write_text(
             json.dumps({"limits": limits}))
         spec["workloads"].append({"name": cell, "config": config,
