@@ -3,13 +3,15 @@
     python3 benchmark/control.py --workload <cell> --sound 11 12 13 \
         --control 21 22 23 [--fp8ref 31 32 33] [--fault step 41 42 43]
 
-For each seed, in one process: the cell's pipeline loads that seed's
+For each seed, in one process, all through the cell's family
+(``benchmark/families/<family>.py``): the system loads that seed's
 weights and serves ``checked`` calls of the seed's traffic (after the
-warm-up calls), and the plain reference judges them as a run does.
-"sound" runs the pipeline as the configuration states; "control" runs the
-port's own int8 product in every ``Linear`` of the towers, T5 and the
-flow model (``System(int8=True)``), the precision below the
-configuration's bf16; "fp8ref" puts the reference itself, computed one
+warm-up calls), and the family's plain reference judges them as a run
+does. "sound" runs the system as the configuration states; "control"
+builds it with ``control=True``, one precision below the configuration's
+(v2ap: the port's own int8 product in every ``Linear`` of the towers, T5
+and the flow model, below the configuration's bf16). The other two modes
+run v2ap cells only: "fp8ref" puts the reference itself, computed one
 precision below the configuration (``reference.nn.one_precision_below``:
 every floating-point product's inputs rounded to fp8 e4m3, the products a
 configuration states in int8 computed in int4), in the pipeline's place,
@@ -36,40 +38,39 @@ sys.path[:] = [str(ROOT)] + [p for p in sys.path
 
 def readings(workload: str, seeds, *, int8: bool, device="cuda",
              root: Path = ROOT):
-    """Yield (seed, readings) for each seed, one pipeline for all."""
+    """Yield (seed, readings) for each seed, one system for all, built and
+    fed through the cell's family."""
     import torch
 
-    from benchmark import harness, weights
-    from benchmark.system import System
-    from benchmark.traffic import Traffic
+    from benchmark import harness
 
     c = harness.cell(workload, root)
+    fam = c.family
     device = torch.device(device)
-    system = System(c.config, device, int8=int8)
+    system = fam.build(c.config, device, control=int8)
     for seed in seeds:
-        system.load(weights.make(c.config, harness.weights_seed(seed),
-                                 device,
-                                 with_t5=c.traffic["prompt_words"][1] > 0))
-        traffic = Traffic(c.traffic, seed)
+        system.load(fam.weights(c.config, c.traffic,
+                                harness.weights_seed(seed), device))
+        traffic = fam.Traffic(c.traffic, seed)
         pool = traffic.make_pool(device)
         run = harness.Run(c)
         first = c.traffic["warmup"]
         for i in range(first):
             req = traffic.request(i, pool)
-            system.serve(req, traffic.kind,
-                         system.x0(req) if traffic.kind == "batch" else None)
+            fam.serve(system, req, traffic.kind,
+                      fam.prepare(system, req, traffic.kind))
         for i in range(first, first + c.traffic["checked"]):
             req = traffic.request(i, pool)
-            waves, roll, timings = system.serve(
-                req, traffic.kind,
-                system.x0(req) if traffic.kind == "batch" else None)
+            waves, roll, timings = fam.serve(
+                system, req, traffic.kind,
+                fam.prepare(system, req, traffic.kind))
             run.records.append(harness.Record(i, req, 0.0,
                                               traffic.clips_per_call,
                                               timings, waves, roll,
                                               kept=system.kept))
         del pool
         gc.collect()
-        yield seed, harness.reference_readings(c, run, seed, device)
+        yield seed, fam.reference_readings(c, run, seed, device)
 
 
 def fp8_readings(workload: str, seeds, device="cuda", root: Path = ROOT):
@@ -78,18 +79,18 @@ def fp8_readings(workload: str, seeds, device="cuda", root: Path = ROOT):
     import numpy as np
     import torch
 
-    from benchmark import harness, kept, weights
+    from benchmark import harness, kept
     from benchmark.reference import pipeline as reference
     from benchmark.reference.nn import one_precision_below
-    from benchmark.traffic import Traffic
 
     c = harness.cell(workload, root)
+    fam = c.family
     device = torch.device(device)
     for seed in seeds:
-        traffic = Traffic(c.traffic, seed)
+        traffic = fam.Traffic(c.traffic, seed)
         pool = traffic.make_pool(device)
-        w = weights.make(c.config, harness.weights_seed(seed), device,
-                         with_t5=c.traffic["prompt_words"][1] > 0)
+        w = fam.weights(c.config, c.traffic, harness.weights_seed(seed),
+                        device)
         run = harness.Run(c)
         first = c.traffic["warmup"]
         for i in range(first + c.traffic["checked"]):
@@ -123,7 +124,7 @@ def fp8_readings(workload: str, seeds, device="cuda", root: Path = ROOT):
                 kept=found))
         del w, pool
         gc.collect()
-        yield seed, harness.reference_readings(c, run, seed, device)
+        yield seed, fam.reference_readings(c, run, seed, device)
 
 
 def main(argv=None) -> int:
@@ -137,7 +138,16 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     import torch
 
-    from benchmark import faults
+    from benchmark import faults, harness
+
+    family = harness.cell(args.workload).config.get("family", "v2ap")
+    if (args.fp8ref or args.fault) and family != "v2ap":
+        # both put the v2ap family's own reference or faults in the
+        # program's place
+        print(f"--fp8ref and --fault run only cells of the v2ap family; "
+              f"{args.workload} is of the family {family!r}",
+              file=sys.stderr)
+        return 2
 
     for mode, seeds in (("sound", args.sound), ("control", args.control)):
         if seeds:

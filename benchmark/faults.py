@@ -1,7 +1,7 @@
-"""Faults planted in the timed path, to show that ``correct`` comes out
-false when the path is broken. Each takes ``patch(obj, name, value)``
-(pytest's ``monkeypatch.setattr``, or ``planted``'s own) and breaks one
-thing underneath the harness:
+"""Faults planted in the v2ap family's timed path, to show that
+``correct`` comes out false when the path is broken. Each takes
+``patch(obj, name, value)`` (pytest's ``monkeypatch.setattr``, or
+``planted``'s own) and breaks one thing underneath the harness:
 
   answer       every waveform a call returns scaled by 1.05
   half-batch   the second half of a batch call's clips replaced by the

@@ -4,14 +4,48 @@ comparison with the reference, and the result line.
 Everything a cell is made of is found by name:
 
   BENCHMARK.json            the cells, metrics and bounds
-  <config's "file">         the configuration (``benchmark/configs``)
-  benchmark/traffic/<t>.json   the traffic mix (``benchmark.traffic``)
+  <config's "file">         the configuration (``benchmark/configs``); its
+                            ``"family"`` names the family, "v2ap" without
+                            the key
+  benchmark/families/<f>.py the family: what runs a configuration of that
+                            kind of model (below)
+  benchmark/traffic/<t>.json   the traffic mix, read by the family's
+                            ``Traffic``; every mix has ``warmup`` (calls in
+                            set-up) and ``trace_requests`` (calls the
+                            ``--trace 1`` run profiles)
   benchmark/metrics/<m>.py  one reader per metric: ``read(run)`` returns
                             the number, or None where it finds nothing
   benchmark/limits/<cell>.json the limits of the correctness check
 
-so a cell, a configuration or a metric is added by adding files and
-entries. The run's record (``Run``) is what the readers see.
+so a cell, a configuration, a metric or a kind of model is added by adding
+files and entries. The run's record (``Run``) is what the readers see.
+
+A family module (loaded by path from the run's root, as the readers are)
+gives, under these names:
+
+  build(config, device, control=False)
+        the system under test, with ``load(weights)`` and ``kept`` (what
+        the check needs of the last call beyond its answer, or None);
+        ``control`` computes one precision below the configuration's
+        (``benchmark/control.py --control``)
+  weights(config, traffic, seed, device)
+        the weights drawn from ``seed`` (``weights_seed`` of the run's),
+        the same for the same seed
+  Traffic(params, seed)
+        the traffic: ``kind``, ``clips_per_call``, ``make_pool(device)``,
+        ``request(i, pool)`` (call ``i``, the same for the same seed) and
+        ``checked(completed)`` (the indices the reference judges)
+  prepare(system, request, kind)
+        untimed: what a call needs made before the clock starts
+  serve(system, request, kind, prepared)
+        the timed call: (waves, roll or None, timings); only this runs
+        between the window's two clock reads
+  reference_readings(cell, run, seed, device)
+        after the window, with the system freed: the numbers
+        ``check.judge`` holds against the cell's limits, the run's answers
+        against the plain reference's from the same inputs and weights
+  request_flops(config, traffic)
+        model operations of one call, by part (``Run.flops``)
 """
 
 from __future__ import annotations
@@ -21,6 +55,7 @@ import importlib.util
 import json
 import sys
 import time
+import types
 from dataclasses import dataclass, field
 from pathlib import Path
 from typing import Optional
@@ -28,12 +63,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from benchmark import check, counts, weights
-from benchmark.reference import pipeline as reference
-from benchmark.reference.nn import int8_linear
-from benchmark.system import System
+from benchmark import check
 from benchmark.trace import traced
-from benchmark.traffic import Traffic
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "v2ap_tpu")
@@ -47,6 +78,7 @@ class Cell:
     end_to_end: list        # BENCHMARK.json entries this cell reports
     per_layer: list
     limits: dict
+    family: types.ModuleType    # benchmark/families/<config's family>.py
 
 
 def load_benchmark(root: Path = ROOT) -> dict:
@@ -74,17 +106,30 @@ def cell(workload: str, root: Path = ROOT) -> Cell:
              if (workload in m["workloads"] if "workloads" in m
                  else m["moves"] in e2e_names)]
     return Cell(workload, config, traffic, e2e, layer,
-                check.load_limits(root, workload))
+                check.load_limits(root, workload),
+                family(config.get("family", "v2ap"), root))
+
+
+def _load(kind: str, name: str, root: Path) -> types.ModuleType:
+    """``benchmark/<kind>/<name>.py`` of ``root``, loaded by path and
+    registered in ``sys.modules``, as its dataclasses need."""
+    path = Path(root) / "benchmark" / kind / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(
+        f"benchmark_{kind}_" + name.replace(".", "_").replace("-", "_"), path)
+    module = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = module
+    spec.loader.exec_module(module)
+    return module
+
+
+def family(name: str, root: Path = ROOT) -> types.ModuleType:
+    """The family module ``benchmark/families/<name>.py``."""
+    return _load("families", name, root)
 
 
 def reader(name: str, root: Path = ROOT):
     """The ``read`` function of ``benchmark/metrics/<name>.py``."""
-    path = Path(root) / "benchmark" / "metrics" / f"{name}.py"
-    spec = importlib.util.spec_from_file_location(
-        "benchmark_metric_" + name.replace(".", "_").replace("-", "_"), path)
-    module = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(module)
-    return module.read
+    return _load("metrics", name, root).read
 
 
 @dataclass
@@ -97,7 +142,7 @@ class Record:
     waves: Optional[np.ndarray]
     roll: Optional[torch.Tensor]
     traced: bool = False            # in the traced segment, not the window
-    kept: Optional[dict] = None     # System.kept of the call
+    kept: Optional[dict] = None     # the system's ``kept`` after the call
 
 
 @dataclass
@@ -115,7 +160,8 @@ class Run:
         return [r for r in self.records if not r.traced]
 
     def flops(self) -> dict:
-        return counts.request_flops(self.cell.config, self.cell.traffic)
+        return self.cell.family.request_flops(self.cell.config,
+                                              self.cell.traffic)
 
 
 def _sync(device) -> None:
@@ -129,25 +175,25 @@ def weights_seed(seed: int) -> int:
 
 
 def setup(c: Cell, seed: int, device):
-    """Build the pipeline, load the seeded weights, make the clip pool and
-    warm every shape of the cell's traffic. Returns (system, traffic,
-    pool, seconds)."""
+    """Build the system, load the seeded weights, make the pool and warm
+    every shape of the cell's traffic. Returns (system, traffic, pool,
+    seconds)."""
+    fam = c.family
     t0 = time.perf_counter()
     marks = []
-    system = System(c.config, device)
+    system = fam.build(c.config, device)
     marks.append(("pipeline", time.perf_counter()))
-    w = weights.make(c.config, weights_seed(seed), device,
-                     with_t5=c.traffic["prompt_words"][1] > 0)
+    w = fam.weights(c.config, c.traffic, weights_seed(seed), device)
     system.load(w)
     del w
     marks.append(("weights", time.perf_counter()))
-    traffic = Traffic(c.traffic, seed)
+    traffic = fam.Traffic(c.traffic, seed)
     pool = traffic.make_pool(device)
     marks.append(("pool", time.perf_counter()))
     for i in range(c.traffic["warmup"]):
         req = traffic.request(i, pool)
-        system.serve(req, traffic.kind,
-                     system.x0(req) if traffic.kind == "batch" else None)
+        fam.serve(system, req, traffic.kind,
+                  fam.prepare(system, req, traffic.kind))
         _sync(device)
         marks.append((f"warm-up {i}", time.perf_counter()))
     last = t0
@@ -164,14 +210,14 @@ def window(system, traffic, pool, seconds: float, device, run: Run,
     """The closed loop: one call at a time until ``seconds`` have passed,
     every call ending inside the window; then ``trace_calls`` more under
     the profiler (the traced segment, outside the window's time)."""
-    kind = traffic.kind
+    kind, fam = traffic.kind, run.cell.family
 
     def one(i, traced=False):
         req = traffic.request(i, pool)
-        x0 = system.x0(req) if kind == "batch" else None
+        prepared = fam.prepare(system, req, kind)
         t0 = time.perf_counter()
         try:
-            waves, roll, timings = system.serve(req, kind, x0)
+            waves, roll, timings = fam.serve(system, req, kind, prepared)
         except Exception as exc:           # counted, and reported at the end
             run.failed += 1
             print(f"request {i} failed: {exc!r}", file=sys.stderr)
@@ -192,96 +238,6 @@ def window(system, traffic, pool, seconds: float, device, run: Run,
                 one(i, traced=True)
                 i += 1
         run.trace, run.traced_calls = holder[0], trace_calls
-
-
-def _clip_features(cfg: dict, kept: dict, clips: list) -> list:
-    """The program's features of a call (``kept``'s chunks, clip after
-    clip), split by clip: per clip, tower name -> (frames, width); None
-    where the towers encoded another number of frames."""
-    sizes = [len(f[::cfg["conditioning"]["frame_stride"]]) for f in clips]
-    per_tower = {name: torch.cat(chunks)
-                 for name, chunks in kept["features"].items()}
-    if any(len(t) != sum(sizes) for t in per_tower.values()):
-        return None
-    per_tower = {name: torch.split(t, sizes) for name, t in per_tower.items()}
-    return [{name: parts[i] for name, parts in per_tower.items()}
-            for i in range(len(clips))]
-
-
-def layer_gap(cfg: dict, w: dict, kept: dict) -> float:
-    """The kept int8 layers of a call against AQT's int8 product in the
-    tower's compute dtype on the same input rows: the largest row gap."""
-    gap = 0.0
-    for (tower, name), pairs in kept["layers"].items():
-        state = w["towers"][tower]
-        weight = state[f"{name}.weight"].float()
-        bias = state.get(f"{name}.bias")
-        dtype = getattr(torch, cfg["towers"][tower]["dtype"])
-        for x, y in pairs:
-            ref = int8_linear(x.float(), weight,
-                              None if bias is None else bias.float(), dtype)
-            gap = max(gap, check.row_gap(y.float().cpu().numpy(),
-                                         ref.cpu().numpy()))
-    return gap
-
-
-def reference_readings(c: Cell, run: Run, seed: int, device) -> dict:
-    """The program's answers held against the reference: the checked
-    requests (drawn from the seed) of the completed ones. Under int8
-    towers the check goes in stages: ``layer_gap`` holds a few of the
-    towers' int8 layers on their own inputs, ``feature_gap`` the towers'
-    features against the reference towers', and the waveform is held
-    against the reference's sampler and decoder run from the program's own
-    features."""
-    traffic = Traffic(c.traffic, seed)
-    done = [r for r in run.records if r.waves is not None]
-    w = weights.make(c.config, weights_seed(seed), device,
-                     with_t5=c.traffic["prompt_words"][1] > 0)
-    staged = c.config["quantize_towers"]
-    readings = {"wave_gap": 0.0}
-    if staged:
-        readings["feature_gap"] = readings["layer_gap"] = 0.0
-    if c.traffic["piano"]:
-        readings["roll_gap"] = 0.0
-    for k in traffic.checked(len(done)):
-        rec = done[k]
-        req = rec.request
-        clips = req["frames"] if traffic.kind == "batch" else [req["frames"]]
-        feats = None
-        if staged:
-            program = _clip_features(c.config, rec.kept, clips)
-            if program is None:
-                readings = {k: float("inf") for k in readings}
-                break
-            ref = reference.tower_features(
-                c.config, w, [(f, req["duration"]) for f in clips], device)
-            for p, r in zip(program, ref):
-                for name in r:
-                    readings["feature_gap"] = max(
-                        readings["feature_gap"],
-                        check.row_gap(p[name].float().cpu().numpy(),
-                                      r[name].cpu().numpy()))
-            readings["layer_gap"] = max(readings["layer_gap"],
-                                        layer_gap(c.config, w, rec.kept))
-            feats = [reference.join_towers(c.config, p) for p in program]
-        if traffic.kind == "batch":
-            ref_waves = reference.batch(c.config, w, req, device, feats)
-            ref_roll = None
-        else:
-            ref_wave, ref_roll = reference.single(
-                c.config, w, req, device, None if feats is None else feats[0])
-            ref_waves = ref_wave[None]
-        for prog, ref in zip(rec.waves, ref_waves):
-            readings["wave_gap"] = max(readings["wave_gap"],
-                                       check.rel_gap(prog, ref))
-        if ref_roll is not None:
-            roll = rec.roll.float().cpu().numpy()
-            readings["roll_gap"] = max(readings["roll_gap"],
-                                       check.rel_gap(roll, ref_roll))
-    del w
-    if not done:
-        readings = {k: float("inf") for k in readings}
-    return readings
 
 
 def profiler_cost_pct(run: Run):
@@ -320,7 +276,7 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, device,
     if device.type == "cuda":
         torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    readings = reference_readings(c, run, seed, device)
+    readings = c.family.reference_readings(c, run, seed, device)
     print(f"{workload}: set-up {run.setup_s:.3f} s, {len(run.records)} calls "
           f"in {run.window_s:.3f} s, reference {time.perf_counter() - t0:.3f}"
           f" s, peak {run.memory_peak_bytes / 2**30:.2f} GiB; latencies "

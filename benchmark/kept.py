@@ -6,12 +6,13 @@ by forward hooks on the device (no copy to the host, no sync):
              ``ROWS`` rows of a forward's input and output, spread over its
              tokens and frames
 
-``harness.reference_readings`` holds the features against the reference
-towers' frame by frame (``feature_gap``) and each kept layer against
-``reference.nn.int8_linear`` on the same input rows (``layer_gap``). The
-hooks take any module tree whose linear layers carry ``weight`` (out, in)
-and an ``int8`` flag: the port's towers, and the reference's where the
-control computes them (``control.py --fp8ref``).
+``benchmark/families/v2ap.py``'s ``reference_readings`` holds the
+features against the reference towers' frame by frame (``feature_gap``)
+and each kept layer against ``reference.nn.int8_linear`` on the same input
+rows (``layer_gap``). The hooks take any module tree whose linear layers
+carry ``weight`` (out, in) and an ``int8`` flag: the port's towers, and
+the reference's where the control computes them (``control.py
+--fp8ref``).
 """
 
 from __future__ import annotations

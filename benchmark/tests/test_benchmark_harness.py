@@ -1,13 +1,15 @@
 """The harness on the CPU at miniature sizes: cells, configurations and
-metrics found from files; a cell made of new files runs; the window's
-statistics count a stall; planted faults in the timed path make
-``correct`` false.
+metrics found from files; a cell made of new files runs, a cell of a new
+family too; the window's statistics count a stall; planted faults in the
+timed path make ``correct`` false.
 
     python -m pytest benchmark/tests -q
 """
 
 from __future__ import annotations
 
+import ast
+import inspect
 import json
 import types
 from pathlib import Path
@@ -16,7 +18,7 @@ import numpy as np
 import pytest
 import torch
 
-from benchmark import faults, harness
+from benchmark import control, faults, harness
 from benchmark.tests.tiny import make_root
 
 REPO = Path(__file__).resolve().parents[2]
@@ -142,9 +144,10 @@ def test_a_broken_timed_path_is_not_correct(root, monkeypatch, cell, fault):
 def test_a_planted_fault_is_undone(name):
     import v2ap_torch.models.cfm as cfm
     import v2ap_torch.ops.layers as layers
+    from benchmark.system import System
 
     def patched():
-        return (harness.System.serve, cfm.euler_integrate,
+        return (System.serve, cfm.euler_integrate,
                 cfm.CFM.encode_frames, layers.int8_linear)
 
     before = patched()
@@ -164,6 +167,159 @@ def test_a_fault_in_the_towers_shows_in_their_own_numbers(root,
                               root)["checks"]
     assert checks["layer_gap"]["value"] > checks["layer_gap"]["limit"]
     assert checks["feature_gap"]["value"] > checks["feature_gap"]["limit"]
+
+
+TOY_FAMILY = '''"""A toy family: a seeded float32 linear map served eagerly, held
+against its float64 reference."""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from benchmark import check, harness
+
+SCALE = 1.0
+
+
+@dataclasses.dataclass
+class System:
+    dtype: torch.dtype
+    w: torch.Tensor | None = None
+    kept: None = None
+
+    def load(self, weights):
+        self.w = weights.to(self.dtype)
+
+
+def build(config, device, control=False):
+    return System(torch.bfloat16 if control else torch.float32)
+
+
+def weights(config, traffic, seed, device):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    n = config["width"]
+    return torch.randn(n, n, generator=gen, device=device) / n ** 0.5
+
+
+class Traffic:
+    kind, clips_per_call = "single", 1
+
+    def __init__(self, params, seed):
+        self.p, self.seed = params, int(seed)
+
+    def make_pool(self, device):
+        gen = torch.Generator(device=device).manual_seed(self.seed)
+        return [torch.randn(self.p["rows"], self.p["width"], generator=gen,
+                            device=device) for _ in range(self.p["pool"])]
+
+    def request(self, i, pool):
+        return {"x": pool[i % len(pool)]}
+
+    def checked(self, completed):
+        return range(min(self.p["checked"], completed))
+
+
+def prepare(system, request, kind):
+    return None
+
+
+def serve(system, request, kind, prepared):
+    y = request["x"].to(system.dtype) @ system.w.T * SCALE
+    return y.float().cpu().numpy()[None], None, {}
+
+
+def reference_readings(cell, run, seed, device):
+    done = [r for r in run.records if r.waves is not None]
+    w = weights(cell.config, cell.traffic, harness.weights_seed(seed),
+                device).double()
+    gap = 0.0 if done else float("inf")
+    for k in Traffic(cell.traffic, seed).checked(len(done)):
+        ref = done[k].request["x"].double() @ w.T
+        gap = max(gap, check.rel_gap(done[k].waves[0], ref.cpu().numpy()))
+    return {"wave_gap": gap}
+
+
+def request_flops(config, traffic):
+    return {"map": 2.0 * traffic["rows"] * config["width"] ** 2}
+'''
+
+
+@pytest.fixture(scope="module")
+def toy_root(root):
+    """``root`` with two cells of families that exist only as files in it:
+    ``toy.map`` and ``toy_wrong.map``, whose ``serve`` scales its answer by
+    1.05."""
+    bench = root / "benchmark"
+    spec = json.loads((root / "BENCHMARK.json").read_text())
+    p50 = next(m for m in spec["end_to_end"]
+               if m["name"] == "clip_latency_p50_s")
+    (bench / "traffic" / "toy.json").write_text(json.dumps(
+        {"rows": 32, "width": 64, "pool": 2, "checked": 2, "warmup": 1,
+         "trace_requests": 1}))
+    for name, scale in (("toy", "1.0"), ("toy_wrong", "1.05")):
+        (bench / "families" / f"{name}.py").write_text(
+            TOY_FAMILY.replace("SCALE = 1.0", f"SCALE = {scale}"))
+        (bench / "configs" / f"{name}.json").write_text(json.dumps(
+            {"name": name, "family": name, "width": 64}))
+        (bench / "limits" / f"{name}.map.json").write_text(json.dumps(
+            {"limits": {"wave_gap": 1e-4}}))
+        spec["configs"].append({"name": name, "source": "toy",
+                                "file": f"benchmark/configs/{name}.json",
+                                "reduced": [], "why": "toy"})
+        spec["workloads"].append({"name": f"{name}.map", "config": name,
+                                  "traffic": "toy", "chips": 1,
+                                  "why": "toy"})
+        p50["workloads"].append(f"{name}.map")
+    (root / "BENCHMARK.json").write_text(json.dumps(spec))
+    return root
+
+
+@pytest.mark.parametrize("cell,correct", [("toy.map", True),
+                                          ("toy_wrong.map", False)])
+def test_a_family_made_of_new_files_runs_on_cpu(toy_root, cell, correct):
+    out = harness.run_cell(cell, SEED + 5, 0.2, False, "cpu", toy_root)
+    assert out["correct"] is correct, out["checks"]
+    assert out["failed"] == 0 and out["attempted"] >= 1
+    assert set(out["metrics"]) == {"clip_latency_p50_s", "setup_s"}
+    gap = out["checks"]["wave_gap"]["value"]
+    assert gap < 1e-5 if correct else gap == pytest.approx(0.05)
+    run = harness.Run(harness.cell(cell, toy_root))
+    assert run.flops() == {"map": 2.0 * 32 * 64 ** 2}
+
+
+def test_the_control_runs_through_a_new_family(toy_root):
+    """``control.py``'s sound and control modes build, feed and judge a
+    cell of a family that exists only as a file: the toy's control
+    computes in bf16 and fails the limit that its sound run passes."""
+    limits = harness.cell("toy.map", toy_root).limits
+    (_, sound), = control.readings("toy.map", [SEED + 6], int8=False,
+                                   device="cpu", root=toy_root)
+    (_, low), = control.readings("toy.map", [SEED + 6], int8=True,
+                                 device="cpu", root=toy_root)
+    assert sound["wave_gap"] <= limits["wave_gap"] < low["wave_gap"]
+
+
+def _imported(source: str) -> set:
+    """The modules an ``import`` or ``from ... import`` of ``source``
+    names, a ``from`` import's names each as a module of its own."""
+    names = set()
+    for node in ast.walk(ast.parse(source)):
+        if isinstance(node, ast.Import):
+            names |= {a.name for a in node.names}
+        elif isinstance(node, ast.ImportFrom):
+            names.add(node.module)
+            names |= {f"{node.module}.{a.name}" for a in node.names}
+    return names
+
+
+@pytest.mark.parametrize("code", [harness, control.readings],
+                         ids=["harness", "control.readings"])
+def test_the_family_seam_is_the_only_route(code):
+    assert not _imported(inspect.getsource(code)) & {
+        "benchmark.system", "benchmark.weights", "benchmark.traffic",
+        "benchmark.reference.pipeline"}
 
 
 def test_no_card_means_no_result(monkeypatch, capsys):

@@ -1,7 +1,7 @@
 """A benchmark root at miniature sizes, for the CPU tests: the port's
 ``tiny_tower_test`` model with its tiny towers, T5 and codec, written as a
 configuration file beside tiny traffic, limits and a BENCHMARK.json, with
-the committed metric readers copied in."""
+the committed metric readers and families copied in."""
 
 from __future__ import annotations
 
@@ -73,7 +73,8 @@ def make_root(tmp: Path, limit: float = 1e-3) -> Path:
     bench = root / "benchmark"
     for sub in ("configs", "traffic", "limits"):
         (bench / sub).mkdir(parents=True, exist_ok=True)
-    shutil.copytree(REPO / "benchmark" / "metrics", bench / "metrics")
+    for sub in ("metrics", "families"):
+        shutil.copytree(REPO / "benchmark" / sub, bench / sub)
     spec = json.loads((REPO / "BENCHMARK.json").read_text())
     configs = {"tiny": tiny_config(), "tiny-mixed": tiny_config("mixed"),
                "tiny-int8": tiny_config(quantize_towers=True)}
