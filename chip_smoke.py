@@ -8,7 +8,8 @@ Phases, each of which fails the run (exit 1, no result line) if it fails:
   1. build   — print the card, compile ``v2ap_torch/csrc/flash_fwd_sm90.cu``
                and ``flash_bwd_sm90.cu`` (the bf16 forward and backward on
                the tensor cores), ``flash_fwd.cu`` and ``flash_bwd.cu`` (the
-               f32 forward and backward) and ``norms.cu`` (N1, N2) with nvcc
+               f32 forward and backward), ``norms.cu`` (N1, N2) and
+               ``quantize.cu`` (Q1, Q2) with nvcc
                for sm_90a (one nvcc each, started together), print the
                build seconds;
   2. kernels — each kernel on the card at its main path's shapes against its
@@ -31,7 +32,12 @@ Phases, each of which fails the run (exit 1, no result line) if it fails:
                residual) at the sampler's served shapes, bf16, against
                their plain versions (N1 within one bf16 step, N2
                bit-equal), beside the plain version's events and graph
-               times and the bytes bound; kernel times two ways: CUDA
+               times and the bytes bound; Q1 (the int8 quantize) and Q2
+               (the dequantize) at ViT-bigG's served shapes, bf16,
+               bit-equal to the plain chain, timed as N1 and N2, and one
+               int8 ViT-bigG forward of a 64-frame chunk, kernels against
+               the plain chain (bit-equal features, both timed, 578 Q1 and
+               289 Q2 launches); kernel times two ways: CUDA
                events over 20 calls launched back to back (``ms`` in the
                kernels line, as in every earlier run; the host path bounds
                it from below for the small K1 calls) and replays of a CUDA
@@ -293,14 +299,16 @@ Phases, each of which fails the run (exit 1, no result line) if it fails:
                tensor-core GEMM, ``INT8_GEMM``, for each of its 289
                ``Linear`` calls, nothing off the tensor cores) and a
                profiled int8-tower generate (K1 by the trace and the
-               counters, K2 by the counters);
+               counters, K2, Q1 and Q2 by the counters);
                ``v2ap_torch.scripts.probe_tower_drift``'s ``main`` (f32,
                bf16, int8, int8_mlp, int8_skip_last4); a mixed
                pipeline through ``Predictor(...).setup(ckpt=)``, its four
                towers bit-equal to the readers', INT8_MIXED_RUNS generates
                in int8 and in bf16; ``V2AP_INT8_CFM=1``: every ``Linear``
                of the CFM in int8, the captured 25-step sampler bit-equal
-               to the eager one, INT8_RUNS generates (``sample_s``). (c)
+               to the eager one and its replay counting the eager
+               sampler's Q1 and Q2 launches, INT8_RUNS generates
+               (``sample_s``). (c)
                ``python -m v2ap_torch.int8_tower_gate --tiny`` writes its
                verdict file (plumbing: seeded evaluators, a clip that does
                not decode here).
@@ -408,11 +416,11 @@ line).
 
 Each phase header line carries the seconds since the start of the run.
 
-The line before the last is a JSON object with one entry per kernel (K1-K5
-and P1; the launches of K1/K2 from the profiled V2A generate, K1's counted
-in its trace and by the replays of its sampler program, K2's by its
-wrapper, of K3-K5
-from one train step, of P1 from one new-path probe call), a second K2
+The line before the last is a JSON object with one entry per kernel (K1-K5,
+P1, N1, N2, Q1 and Q2; the launches of K1/K2 from the profiled V2A
+generate, K1's counted in its trace and by the replays of its sampler
+program, K2's by its wrapper, of Q1 and Q2 from phase 24b's profiled
+int8-tower generate (the default precision), of K3-K5 from one train step, of P1 from one new-path probe call), a second K2
 entry for its case at CLIP ViT-L/336's shape (the launches of phase 22's
 clip_vit2 generate) and a third at TP 2's local heads (the launches of a
 rank's sharded ViT-bigG chunk, phase 26b), each naming its ``case``; the
@@ -841,6 +849,7 @@ def phase_kernels(torch) -> dict:
     results["K2_TP"] = dict(cases={K2_TP: results["K2"]["cases"][K2_TP]},
                             max_abs_err=results["K2"]["max_abs_err"])
     results.update(phase_norm_kernels(torch))
+    results.update(phase_int8_kernels(torch))
     log_host_cost(torch)
     return results
 
@@ -926,6 +935,151 @@ def phase_norm_kernels(torch) -> dict:
                                      library_ms=None, bound_ms=bound_ms,
                                      bound_by="bytes")
         entry["max_abs_err"] = max(entry["max_abs_err"], err)
+    return results
+
+
+# ViT-bigG's int8 products on a 64-frame chunk (64 x 257 tokens) and on the
+# 20-frame tail of a 10 s clip at frame stride 3; (m, k, n)
+INT8_SHAPES = (("q/k/v/o", 16448, 1664, 1664), ("fc1", 16448, 1664, 8192),
+               ("fc2", 16448, 8192, 1664), ("tail fc1", 5140, 1664, 8192),
+               ("tail fc2", 5140, 8192, 1664),
+               ("visual_projection", 64, 1664, 1280))
+INT8_CHUNK_FRAMES = 64
+
+
+def int8_cases(torch) -> list:
+    """Q1 and Q2 at ViT-bigG's served shapes, bf16: Q1 on each product's
+    activations and on its weight, Q2 from its int32 sums with the bias.
+    Each case: (label, kid, kernel, plain, bytes the call must move, check
+    that the kernel's output equals the plain version's)."""
+    from v2ap_torch.utils import quantize as q
+
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    bf = torch.bfloat16
+    cases, weights = [], set()
+
+    def q1_case(label, t, rows):
+        k = t.shape[1]
+        kp = -(-k // 8) * 8
+
+        def check(got, want):
+            (codes, scale), (ref_codes, ref_scale) = got, want
+            return (torch.equal(codes[:t.shape[0], :k], ref_codes)
+                    and not codes[t.shape[0]:].any()
+                    and torch.equal(scale, ref_scale))
+        cases.append((label, "Q1",
+                      functools.partial(q.quantize_rows_padded, t, rows),
+                      functools.partial(q.quantize_rows, t),
+                      t.numel() * 2 + rows * kp + t.shape[0] * 2, check))
+
+    for name, m, k, n in INT8_SHAPES:
+        x = (torch.randn(m, k, generator=gen, device="cuda") * 2).to(bf)
+        w = (torch.randn(n, k, generator=gen, device="cuda") / k ** 0.5
+             ).to(bf)
+        b = (torch.randn(n, generator=gen, device="cuda") * 0.02).to(bf)
+        q1_case(f"Q1 {name} activations ({m}, {k})", x, max(m, 17))
+        if (n, k) not in weights:
+            weights.add((n, k))
+            q1_case(f"Q1 weight ({n}, {k})", w, -(-n // 8) * 8)
+        qx, sx = q.quantize_rows_padded(x, max(m, 17))
+        qw, sw = q.quantize_rows_padded(w, -(-n // 8) * 8)
+        acc = torch._int_mm(qx, qw.t())
+        cases.append((f"Q2 {name} ({m}, {n}) + bias", "Q2",
+                      functools.partial(q.dequantize_padded, acc, sx, sw, b,
+                                        m, n),
+                      functools.partial(q.dequantize, acc[:m, :n], sx, sw,
+                                        b),
+                      m * n * (4 + 2) + 2 * (m + 2 * n), torch.equal))
+    return cases
+
+
+def int8_chunk_forward(torch) -> None:
+    """ViT-bigG in bf16 with int8 Linears (seeded, weights stored in bf16
+    as the pipeline serves them) on one 64-frame chunk: the kernels'
+    forward against the plain chain's (``layers.int8_linear`` patched to
+    ``int8_linear_reference``), bit for bit, both timed by CUDA events;
+    the kernels' launches a chunk must be two Q1 and one Q2 for each of
+    the 289 int8 Linears."""
+    import dataclasses as dc
+
+    import numpy as np
+
+    from v2ap_torch.models.clip_vit import (CLIP_MEAN, CLIP_STD,
+                                            CLIPVisionModel, clip_vit_bigg,
+                                            device_normalize)
+    from v2ap_torch.ops import layers
+    from v2ap_torch.ops.flash_attention import (launch_counts,
+                                                reset_launch_counts)
+    from v2ap_torch.utils import quantize as q
+    from v2ap_torch.utils.device import seeded_init
+    from v2ap_torch.utils.jitting import cast_params
+
+    with seeded_init(3, torch.device("cuda")):
+        tower = CLIPVisionModel(dc.replace(clip_vit_bigg(), dtype="bfloat16"),
+                                device="cuda")
+    tower.eval().requires_grad_(False)
+    cast_params(tower, torch.bfloat16)
+    linears = q.quantize_linears_int8(tower)
+    px = np.random.default_rng(0).integers(
+        0, 255, (INT8_CHUNK_FRAMES, 224, 224, 3), dtype=np.uint8)
+    px = device_normalize(torch.from_numpy(px).cuda(), CLIP_MEAN, CLIP_STD)
+
+    def run():
+        with torch.inference_mode():
+            return tower(px)
+
+    run()
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    got = run()
+    torch.cuda.synchronize()
+    counts = {k: launch_counts[k] for k in ("int8_quantize",
+                                             "int8_dequantize")}
+    ms = time_ms(torch, run, iters=5, warmup=1)
+    layers.int8_linear = q.int8_linear_reference
+    try:
+        want = run()
+        plain_ms = time_ms(torch, run, iters=5, warmup=1)
+    finally:
+        layers.int8_linear = q.int8_linear
+    same = torch.equal(got, want)
+    log(f"  int8 ViT-bigG, one {INT8_CHUNK_FRAMES}-frame chunk, {linears} "
+        f"int8 Linears: kernels {ms:.2f} ms, plain chain {plain_ms:.2f} ms "
+        f"(CUDA events, 5 forwards); features bit-equal {same}; launches "
+        f"{counts}")
+    if not same or counts != {"int8_quantize": 2 * linears,
+                              "int8_dequantize": linears}:
+        raise RuntimeError(f"int8 ViT-bigG chunk: kernels and plain chain "
+                           f"differ ({same}) or launches {counts} are not "
+                           f"2 x and 1 x {linears}")
+    del tower
+    torch.cuda.empty_cache()
+
+
+def phase_int8_kernels(torch) -> dict:
+    """Q1 and Q2 against their plain versions on the same inputs (bit for
+    bit), each timed by CUDA events and by graph replay beside the plain
+    version's two times and the bytes bound; then one int8 ViT-bigG chunk,
+    kernels against the plain chain."""
+    results = {}
+    for label, kid, run, plain, nbytes, check in int8_cases(torch):
+        if not check(run(), plain()):
+            raise RuntimeError(f"{label}: kernel differs from its plain "
+                               f"version")
+        ms, g_ms = time_ms(torch, run), graph_ms(torch, run)
+        plain_ms, plain_g_ms = time_ms(torch, plain), graph_ms(torch, plain)
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        log(f"  {label}: bit-equal to plain; kernel {ms:.4f} ms events, "
+            f"{g_ms:.4f} ms graph ({nbytes / g_ms / 1e6:.0f} GB/s); plain "
+            f"{plain_ms:.4f} ms events, {plain_g_ms:.4f} ms graph; bound "
+            f"{bound_ms:.4f} ms by bytes ({bound_ms / g_ms:.1%} of bound by "
+            f"graph)")
+        entry = results.setdefault(kid, dict(cases={}, max_abs_err=0.0))
+        entry["cases"][label] = dict(ms=ms, graph_ms=g_ms, plain_ms=plain_ms,
+                                     plain_graph_ms=plain_g_ms,
+                                     library_ms=None, bound_ms=bound_ms,
+                                     bound_by="bytes")
+    int8_chunk_forward(torch)
     return results
 
 
@@ -1217,7 +1371,8 @@ def generate_expect(pipe, n_frames: int) -> dict:
     program: K2 for the 48 tower layers per chunk of 64 encoded frames, K1
     the replay's (``k1_expect``, which the capture recorded), N1 and N2 the
     replay's (``norm_expect`` of its 24 evaluations: 2040 and 864 for
-    v2a_default()), nothing else."""
+    v2a_default()), Q1 and Q2 for the towers' int8 products
+    (``int8_tower_calls``; none under bf16 towers), nothing else."""
     from v2ap_torch.ops.flash_attention import launch_counts
 
     encoded = len(range(0, n_frames, pipe.frame_stride))
@@ -1226,7 +1381,25 @@ def generate_expect(pipe, n_frames: int) -> dict:
                                  * math.ceil(encoded / 64))
     expect["flash_attention_packed"] = k1_expect(pipe)
     expect.update(norm_expect(pipe.cfg.model, 25 - 1))
+    expect.update(int8_expect(int8_tower_calls(pipe, n_frames)))
     return expect
+
+
+def int8_tower_calls(pipe, n_frames: int) -> int:
+    """The towers' int8 ``Linear`` products over ``n_frames`` frames: every
+    tower runs each of its int8 Linears once a chunk of 64 encoded
+    frames."""
+    from v2ap_torch.ops.layers import Linear
+
+    encoded = len(range(0, n_frames, pipe.frame_stride))
+    return (sum(m.int8 for t in pipe.towers for m in t.model.modules()
+                if isinstance(m, Linear)) * math.ceil(encoded / 64))
+
+
+def int8_expect(calls: int) -> dict:
+    """Q1 and Q2 launches of ``calls`` int8 ``Linear`` products: two Q1
+    (activations, weight) and one Q2 each."""
+    return {"int8_quantize": 2 * calls, "int8_dequantize": calls}
 
 
 def norm_expect(m, forwards: int) -> dict:
@@ -1337,6 +1510,9 @@ def check_roll(pipe) -> None:
 PROFILE_GROUPS = (("K2 flash_fwd_sm90 d104", "flash_fwd_sm90_kernel<104>"),
                   ("N1 rms_norm", "rms_norm_kernel"),
                   ("N2 gated_residual", "gated_residual_kernel"),
+                  ("Q1 int8 quantize", "quantize_kernel<"),
+                  ("Q2 int8 dequantize", "dequantize_vec_kernel",
+                   "dequantize_scalar_kernel"),
                   ("K1/K3 flash_fwd_sm90 d64", "flash_fwd_sm90_kernel<64>"),
                   ("flash_fwd f32 (CUDA cores)", "flash_fwd_kernel<"),
                   ("K4 flash_bwd_dq_sm90", "flash_bwd_dq_sm90_kernel<"),
@@ -3425,7 +3601,8 @@ def tower_generate(torch, pipe, frames, label: str, expect_k2: int,
     """One warm-up generate, then ``runs`` timed ones from ``frames``
     (empty prompt, 25 steps), the launch counters zeroed before each and
     read after: K2 ``expect_k2`` times, K1, N1 and N2 the sampler
-    replay's ``k1_expect`` and ``norm_expect`` and nothing else. Every wall,
+    replay's ``k1_expect`` and ``norm_expect``, Q1 and Q2 the towers'
+    ``int8_tower_calls`` (the towers run eagerly) and nothing else. Every wall,
     each tower's seconds and the realtime factor printed, and put in
     ``stats`` (``wall``, ``video_encode_s``: medians). Returns K2's
     launches of the last run."""
@@ -3445,7 +3622,8 @@ def tower_generate(torch, pipe, frames, label: str, expect_k2: int,
     torch.cuda.reset_peak_memory_stats()
     expect = {**dict.fromkeys(launch_counts, 0), "flash_attention": expect_k2,
               "flash_attention_packed": k1_expect(pipe),
-              **norm_expect(pipe.cfg.model, 25 - 1)}
+              **norm_expect(pipe.cfg.model, 25 - 1),
+              **int8_expect(int8_tower_calls(pipe, len(frames)))}
     walls, towers, encodes = [], [], []
     for _ in range(runs):
         torch.cuda.synchronize()
@@ -4187,9 +4365,10 @@ def profile_int8_tower(torch, pipe, frames) -> None:
     pad = torch.zeros(1024, device="cuda")
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        # the trace can miss the first kernels after it starts (one run
-        # read 288 GEMMs of 289): small ones go first
-        for _ in range(32):
+        # the trace can miss the first kernels after it starts (runs read
+        # 288 GEMMs of 289, once with 32 of these before them and the
+        # first Linear's two Q1 lost too): small ones go first
+        for _ in range(256):
             pad.add_(1.0)
         torch.cuda.synchronize()
         run()
@@ -4214,10 +4393,13 @@ def profile_int8_tower(torch, pipe, frames) -> None:
 
 
 def phase_int8(torch, frames, out: str, mixed_cfg, held: dict,
-               root: str) -> None:
-    """Phase 24b and 24c (the V2A pipeline taken from ``held``)."""
+               root: str) -> dict:
+    """Phase 24b and 24c (the V2A pipeline taken from ``held``). Returns
+    the launch counts of the profiled int8-tower generate."""
     import numpy as np
 
+    from v2ap_torch.ops.flash_attention import (launch_counts,
+                                                reset_launch_counts)
     from v2ap_torch.ops.layers import Linear
     from v2ap_torch.pipelines.generate import V2APipeline
     from v2ap_torch.predict import Predictor
@@ -4233,13 +4415,13 @@ def phase_int8(torch, frames, out: str, mixed_cfg, held: dict,
         return pipe.generate(None, steps=25, cfg_strength=2.0, seed=0,
                              frames_cache=[(frames, CLIP_S, 1)])
 
-    expect = generate_expect(pipe, len(frames))
     res = {}
     for label, on in (("int8 towers", True), ("bf16 towers", False),
                       ("int8 towers again", True)):
         pipe.set_int8_towers(on)
         res[label] = phase_generate(torch, pipe, f"V2A generate, {label}",
-                                    gen, expect, runs=INT8_RUNS)
+                                    gen, generate_expect(pipe, len(frames)),
+                                    runs=INT8_RUNS)
     with torch.inference_mode():
         feats = {}
         for on in (True, False):
@@ -4258,8 +4440,9 @@ def phase_int8(torch, frames, out: str, mixed_cfg, held: dict,
     if not 0.0 < drift < 0.5:
         raise RuntimeError(f"int8: feature drift {drift} against bf16")
     profile_int8_tower(torch, pipe, frames)
-    phase_profile(torch, "int8-tower generate", lambda: gen(), SM90_FWD,
-                  expect, k1_expect(pipe))
+    int8_counts = phase_profile(torch, "int8-tower generate", lambda: gen(),
+                                SM90_FWD, generate_expect(pipe, len(frames)),
+                                k1_expect(pipe))
     sample_bf16 = bf["stages"]["sample_s"]
     del pipe
     torch.cuda.empty_cache()
@@ -4316,25 +4499,35 @@ def phase_int8(torch, frames, out: str, mixed_cfg, held: dict,
     x0, text, roll, ctx, cmask, mask = sampler_inputs(torch, pipe, frames)
     cfg25 = C.SamplerConfig(steps=25, cfg_strength=2.0)
     first = pipe._sample(x0, text, roll, ctx, cmask, mask, cfg25)
+    reset_launch_counts()
     again = pipe._sample(x0, text, roll, ctx, cmask, mask, cfg25)
+    replayed = {k: launch_counts[k] for k in int8_expect(0)}
+    reset_launch_counts()
     with torch.inference_mode():
         want = pipe.cfm.sample(x0, text_embed=text, frames_embed=roll,
                                context=ctx, context_mask=cmask, mask=mask,
                                sampler=cfg25)
+    sampler_q2 = launch_counts["int8_dequantize"]
     same = torch.equal(first, want) and torch.equal(again, want)
     log(f"  int8 CFM: captured sampler vs eager bit-equal {same} (max |diff| "
-        f"{(again - want).abs().max().item():.3e})")
+        f"{(again - want).abs().max().item():.3e}); Q1, Q2 launches of a "
+        f"replay {replayed}, of the eager sampler {int8_expect(sampler_q2)}")
     if not same or not torch.isfinite(want).all():
         raise RuntimeError("int8 CFM: the captured sampler differs from the "
                            "eager one")
+    if not sampler_q2 or replayed != int8_expect(sampler_q2):
+        raise RuntimeError("int8 CFM: a replay does not count the eager "
+                           "sampler's Q1 and Q2 launches")
 
     def gen_c():
         return pipe.generate(None, steps=25, cfg_strength=2.0, seed=0,
                              frames_cache=[(frames, CLIP_S, 1)])
 
+    expect = generate_expect(pipe, len(frames))
+    for key, n in int8_expect(sampler_q2).items():
+        expect[key] += n
     r = phase_generate(torch, pipe, "V2A generate, int8 CFM and towers",
-                       gen_c, generate_expect(pipe, len(frames)),
-                       runs=INT8_RUNS)
+                       gen_c, expect, runs=INT8_RUNS)
     log(f"  sample_s int8 CFM {r['stages']['sample_s']:.4f} s vs bf16 CFM "
         f"{sample_bf16:.4f} s (the int8-tower generates above)")
     del pipe
@@ -4357,12 +4550,14 @@ def phase_int8(torch, frames, out: str, mixed_cfg, held: dict,
     if verdict.get("clips") != 2 or not math.isfinite(
             verdict.get("fad_int8_vs_bf16", math.nan)):
         raise RuntimeError(f"int8 gate: verdict {verdict}")
+    return int8_counts
 
 
-def phase_24(torch, frames, after_24a=None) -> None:
+def phase_24(torch, frames, after_24a=None) -> dict:
     """Phase 24; ``after_24a()`` runs between 24a and 24b (phase 26b's
     background processes end there: 24b's profiles count kernels in the
-    card's trace)."""
+    card's trace). Returns the launch counts of 24b's profiled int8-tower
+    generate."""
     root = tempfile.mkdtemp(prefix="v2ap_chip_smoke_")
     os.environ.pop("V2AP_INT8_TOWERS", None)
     os.environ["V2AP_INT8_GATE_FILE"] = os.path.join(root, "none.json")
@@ -4373,12 +4568,13 @@ def phase_24(torch, frames, after_24a=None) -> None:
         log("[24b/27] int8: the Linear card vs CPU; int8 vs bf16 towers; the "
             "tower's profile; drift; mixed towers; V2AP_INT8_CFM=1")
         t0 = time.perf_counter()
-        phase_int8(torch, frames, out, mixed, held, root)
+        int8_counts = phase_int8(torch, frames, out, mixed, held, root)
         log(f"  phases 24b-c: {time.perf_counter() - t0:.2f} s")
     finally:
         del os.environ["V2AP_INT8_GATE_FILE"]
         shutil.rmtree(root, ignore_errors=True)
     torch.cuda.empty_cache()
+    return int8_counts
 
 
 # --------------------------------------------------------------- phase 25
@@ -5920,7 +6116,7 @@ def main() -> int:
             f"its start (with phase 24a) to its end")
 
     try:
-        phase_24(torch, frames, after_24a=finish_26b)
+        int8_counts = phase_24(torch, frames, after_24a=finish_26b)
     finally:
         phase_26_stop(tp_run)     # idempotent; stops them if 24a failed
         log(f"  phase 24 (24a beside 26b): "
@@ -5937,7 +6133,9 @@ def main() -> int:
                  "K5": "self-attn (8, 782, 16x64)",
                  "P1": "P1 probe (24, 768, 16x64)",
                  "N1": "N1 audio (1600, 1024), 1 + gamma",
-                 "N2": "N2 audio gate (1600, 1024)"}
+                 "N2": "N2 audio gate (1600, 1024)",
+                 "Q1": "Q1 fc1 activations (16448, 1664)",
+                 "Q2": "Q2 fc1 (16448, 8192) + bias"}
     src = "v2ap_tpu/ops/flash_attention.py"
     meta = {"K1": ("flash_attention_packed", "flash_fwd_sm90.cu",
                    f"{src}:503"),
@@ -5950,14 +6148,18 @@ def main() -> int:
             "P1": ("flash_bnhd", "flash_fwd_sm90.cu",
                    "scripts/probe_flash_bnhd.py:44"),
             "N1": ("rms_norm", "norms.cu", "none"),
-            "N2": ("gated_residual", "norms.cu", "none")}
+            "N2": ("gated_residual", "norms.cu", "none"),
+            "Q1": ("int8_quantize", "quantize.cu", "none"),
+            "Q2": ("int8_dequantize", "quantize.cu", "none")}
     counts = {**{k: gen_counts[k] for k in ("flash_attention_packed",
                                             "flash_attention")},
               **{k: train_counts[k] for k in ("flash_attention_lse",
                                               "flash_attention_bwd_dq",
                                               "flash_attention_bwd_dkv")},
               "flash_bnhd": kern["P1"]["launches"],
-              **{k: gen_counts[k] for k in ("rms_norm", "gated_residual")}}
+              **{k: gen_counts[k] for k in ("rms_norm", "gated_residual")},
+              **{k: int8_counts[k] for k in ("int8_quantize",
+                                             "int8_dequantize")}}
     # K2 a second time: its case at CLIP ViT-L/336's shape, the launches of
     # one clip_vit2 generate (phase 22)
     main_case["K2_CLIP_L"] = K2_CLIP_L

@@ -2,7 +2,8 @@
 the probe's P1: ``v2ap_torch/csrc/flash_fwd_sm90.cu`` on the tensor cores
 for bf16, ``flash_fwd.cu`` on the CUDA cores for f32; the backward K4 and
 K5: ``flash_bwd_sm90.cu`` for bf16, ``flash_bwd.cu`` for f32) and its fused
-norms (N1 ``rms_norm``, N2 ``gated_residual``: ``norms.cu``) on the card,
+norms (N1 ``rms_norm``, N2 ``gated_residual``: ``norms.cu``) and the int8
+``Linear``'s quantize and dequantize (Q1, Q2: ``quantize.cu``) on the card,
 against their plain PyTorch versions on the same inputs.
 
 Every test here needs an NVIDIA card and nvcc and skips without them. The
@@ -26,7 +27,8 @@ tensor-core cases of the forward are held as ``chip_smoke.py`` holds them:
 shapes likewise, 2^-7 times max(1, max|ref|). The fused norms are held
 against their plain version on the card in the same dtype: N1 within one
 bf16 step (only the order of the sum of squares differs; f32 1e-5 times
-max(1, |ref|)), N2 bit-equal (the same two roundings).
+max(1, |ref|)), N2 bit-equal (the same two roundings). Q1 and Q2 are
+bit-equal to the plain chain (the same roundings, step by step).
 """
 
 import numpy as np
@@ -902,6 +904,172 @@ def test_replayed_v2a_sampler_launches_2040_norms(cuda):
     assert _norm_launches(pipe.cfg.model, 24) == want
     assert {k: fa.launch_counts[k] for k in want} == want
     assert torch.isfinite(got).all()
+
+
+# --------------------------------------------------------------------------- #
+# The int8 Linear's kernels: Q1 quantize, Q2 dequantize (utils/quantize.py,
+# quantize.cu)
+# --------------------------------------------------------------------------- #
+
+# (m, k, n): ViT-bigG's served products on a 64-frame chunk (16 448 tokens)
+# and on the 20-frame tail of a 10 s clip at stride 3 (5140), the visual
+# projection of 64 class tokens; then the edges: m <= 16, k and n off the
+# multiple of 8, float32's k = 4 mod 8, a row wider than 8 warps hold (Q1's
+# scalar route)
+INT8_CASES = [
+    pytest.param((16448, 1664, 1664), id="bigg_qkvo"),
+    pytest.param((16448, 1664, 8192), id="bigg_fc1"),
+    pytest.param((16448, 8192, 1664), id="bigg_fc2"),
+    pytest.param((5140, 1664, 8192), id="tail_fc1"),
+    pytest.param((5140, 8192, 1664), id="tail_fc2"),
+    pytest.param((64, 1664, 1280), id="visual_projection"),
+    pytest.param((1, 1664, 1280), id="m1"),
+    pytest.param((16, 40, 51), id="m16_k40_n51"),
+    pytest.param((37, 1663, 1661), id="k1663_n1661"),
+    pytest.param((300, 1668, 1028), id="k1668"),
+    pytest.param((40, 20000, 24), id="k20000_wide"),
+]
+
+
+def _int8_inputs(m, k, n, dtype, device, seed=0):
+    """x (m, k) over many binades with a zero first row and a last row of
+    one huge value, weight (n, k) at a tower's scale with a zero row, bias
+    (n,)."""
+    gen = torch.Generator(device=device).manual_seed(seed + m + k + n)
+    x = torch.randn(m, k, generator=gen, device=device) * torch.exp2(
+        torch.randint(-12, 8, (m, 1), generator=gen, device=device).float())
+    x[-1, k // 2] = 3e4
+    x[0] = 0.0
+    w = torch.randn(n, k, generator=gen, device=device) / k ** 0.5
+    w[n // 2] = 0.0
+    b = torch.randn(n, generator=gen, device=device) * 0.02
+    return x.to(dtype), w.to(dtype), b.to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", INT8_CASES)
+def test_int8_kernels_are_bit_equal_to_the_plain_chain(cuda, case, dtype):
+    """Q1 on the activation and on the weight against ``quantize_rows``
+    (codes and scales bit-equal, the padding to ``torch._int_mm``'s shape
+    zero), Q2 against ``dequantize`` on the same int32 sums with and
+    without a bias, and ``Linear(int8)`` against the plain chain: all bit
+    for bit on the card, two Q1 and one Q2 launch a call."""
+    from v2ap_torch.ops.layers import Linear
+    from v2ap_torch.utils import quantize as q
+
+    m, k, n = case
+    x, w, b = _int8_inputs(m, k, n, dtype, cuda)
+    mp, kp, np_ = max(m, 17), -(-k // 8) * 8, -(-n // 8) * 8
+    before = dict(fa.launch_counts)
+    qx, sx = q.quantize_rows_padded(x, mp)
+    qw, sw = q.quantize_rows_padded(w, np_)
+    for (codes, scale), t, rows in (((qx, sx), x, mp), ((qw, sw), w, np_)):
+        want_codes, want_scale = q.quantize_rows(t)
+        assert codes.shape == (rows, kp) and scale.shape == want_scale.shape
+        assert torch.equal(codes[:t.shape[0], :k], want_codes)
+        assert not codes[t.shape[0]:].any() and not codes[:, k:].any()
+        assert scale.dtype == dtype and torch.equal(scale, want_scale)
+    acc = torch._int_mm(qx, qw.t())
+    for bias in (b, None):
+        got = q.dequantize_padded(acc, sx, sw, bias, m, n)
+        assert got.shape == (m, n) and got.is_contiguous()
+        assert torch.equal(got, q.dequantize(acc[:m, :n], sx, sw, bias))
+    lin = Linear(k, n, dtype=dtype, device=cuda)
+    with torch.no_grad():
+        lin.weight.copy_(w)
+        lin.bias.copy_(b)
+    q.quantize_linears_int8(lin)
+    with torch.inference_mode():
+        y = lin(x)
+    torch.cuda.synchronize()
+    assert torch.equal(y, q.int8_linear_reference(x, w, b))
+    assert torch.equal(y[0], b) and torch.isfinite(y).all()
+    assert fa.launch_counts["int8_quantize"] == before["int8_quantize"] + 4
+    assert fa.launch_counts["int8_dequantize"] == \
+        before["int8_dequantize"] + 3
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_int8_kernels_on_views_and_edge_rows(cuda, dtype):
+    """The scalar routes and the edges, bit-equal to the plain chain: a
+    3-D input whose rows are a strided, misaligned view (Q1's scalar
+    route), a bias that is a strided view (Q2's scalar route), rows of all
+    zeros, of one huge value, of subnormals, of values at the clip."""
+    from v2ap_torch.utils import quantize as q
+
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    base = torch.randn(3, 50, 1700, generator=gen, device=cuda).to(dtype)
+    x = base[:, ::2, 1:1665]                      # (3, 25, 1664) view
+    x[0, 0] = 0
+    x[0, 1] = 0
+    x[0, 1, 5] = 6e4
+    x[0, 2] = torch.finfo(dtype).tiny / 4
+    x[0, 3, :4] = torch.tensor([126.75, -127.25, 127.5, -0.5])
+    w = (torch.randn(1288, 1664, generator=gen, device=cuda) / 40).to(dtype)
+    b = torch.randn(1288, 2, generator=gen, device=cuda).to(dtype)[:, 1]
+    assert not q._vector_rows(x.reshape(-1, 1664))
+    assert not q._vector_bias(b, 1288, x.element_size())
+    with torch.inference_mode():
+        got = q.int8_linear(x, w, b)
+    want = q.int8_linear_reference(x, w, b)
+    torch.cuda.synchronize()
+    assert got.shape == (3, 25, 1288) and torch.equal(got, want)
+
+
+def test_int8_linear_refuses_what_it_does_not_take(cuda):
+    """The kernel path raises, launching nothing, on float16, mixed dtypes,
+    a weight of another width, a tensor on the CPU beside one on the card
+    and a call that needs a gradient; it does not fall back."""
+    from v2ap_torch.utils import quantize as q
+
+    bf = torch.bfloat16
+    x = torch.randn(32, 64, device=cuda, dtype=bf)
+    w = torch.randn(16, 64, device=cuda, dtype=bf)
+    before = dict(fa.launch_counts)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        q.int8_linear(x.half(), w.half())
+    with pytest.raises(TypeError, match="differ"):
+        q.int8_linear(x, w.float())
+    with pytest.raises(ValueError, match="product"):
+        q.int8_linear(x, w[:, :60])
+    with pytest.raises(ValueError, match="different devices"):
+        q.int8_linear(x, w.cpu())
+    with pytest.raises(RuntimeError, match="no gradient"):
+        q.int8_linear(x, w.clone().requires_grad_())
+    assert fa.launch_counts == before
+
+
+def test_captured_int8_linear_counts_its_launches_on_replay(cuda):
+    """Q1 and Q2 inside a captured CUDA graph (the int8 CFM's sampler):
+    each replay gives the eager call's bits and adds the capture's two Q1
+    and one Q2 launches a Linear to the counters."""
+    from v2ap_torch.ops.layers import Linear
+    from v2ap_torch.utils import quantize as q
+    from v2ap_torch.utils.jitting import CapturedPrograms
+
+    torch.manual_seed(0)
+    lins = [Linear(1024, 1024, dtype=torch.bfloat16, device=cuda),
+            Linear(1024, 51, dtype=torch.bfloat16, device=cuda)]
+    for lin in lins:
+        q.quantize_linears_int8(lin)
+
+    def fn(x):
+        return lins[1](torch.nn.functional.gelu(lins[0](x)))
+
+    x = torch.randn(2, 800, 1024, device=cuda).to(torch.bfloat16)
+    progs = CapturedPrograms()
+    with torch.inference_mode():
+        want = fn(x)
+        progs.run("int8", fn, (x,))                      # warm-up, capture
+        fa.reset_launch_counts()
+        for _ in range(3):
+            got = progs.run("int8", fn, (x,))
+            assert torch.equal(got, want)
+    torch.cuda.synchronize()
+    assert fa.launch_counts["int8_quantize"] == 3 * 4
+    assert fa.launch_counts["int8_dequantize"] == 3 * 2
 
 
 def _v2p_batch(cfg, b=2, n=24, nc=6, seed=5):

@@ -165,20 +165,20 @@ def test_misaligned_bf16_output_raises():
 
 def test_the_tensor_core_source_is_built():
     """The library's sources, and so its hash and ``chip_smoke.py``'s build,
-    include both tensor-core kernels (and the fused norms, built into the
-    same library); the header they share is part of the hash, so an edit to
-    it rebuilds the library."""
+    include both tensor-core kernels (and the fused norms and the int8
+    quantize and dequantize, built into the same library); the headers they
+    share are part of the hash, so an edit to one rebuilds the library."""
     names = [src.name for src in fa._SOURCES]
     assert names == ["flash_fwd_sm90.cu", "flash_bwd_sm90.cu", "flash_fwd.cu",
-                     "flash_bwd.cu", "norms.cu"]
-    assert [h.name for h in fa._HEADERS] == ["sm90_common.cuh"]
+                     "flash_bwd.cu", "norms.cu", "quantize.cu"]
+    assert [h.name for h in fa._HEADERS] == ["sm90_common.cuh", "vec16.cuh"]
     assert all(path.exists() for path in fa._SOURCES + fa._HEADERS)
     header = fa._HEADERS[0].read_text()
     assert "wgmma.mma_async" in header and "cp.async.bulk.tensor" in header
     included = set()
     for src in fa._SOURCES:
         included |= set(re.findall(r'#include "([^"]+)"', src.read_text()))
-    assert included == {"sm90_common.cuh"}
+    assert included == {"sm90_common.cuh", "vec16.cuh"}
     for src in fa._SOURCES[:2]:     # both tensor-core kernels use wgmma + TMA
         text = src.read_text()
         assert '#include "sm90_common.cuh"' in text
@@ -187,13 +187,17 @@ def test_the_tensor_core_source_is_built():
     assert "wgmma_rs(" in bwd           # dQ, dK, dV with register A operands
 
 
-def test_the_header_is_part_of_the_library_hash(tmp_path, monkeypatch):
-    """An edit to the shared header changes the digest that names the
+@pytest.mark.parametrize("which", [0, 1], ids=["sm90_common", "vec16"])
+def test_the_header_is_part_of_the_library_hash(tmp_path, monkeypatch,
+                                                which):
+    """An edit to a shared header changes the digest that names the
     library, as an edit to a source does."""
     before = fa._library_digest()
-    copy = tmp_path / "sm90_common.cuh"
-    copy.write_bytes(fa._HEADERS[0].read_bytes() + b"// edited\n")
-    monkeypatch.setattr(fa, "_HEADERS", (copy,))
+    headers = list(fa._HEADERS)
+    copy = tmp_path / headers[which].name
+    copy.write_bytes(headers[which].read_bytes() + b"// edited\n")
+    headers[which] = copy
+    monkeypatch.setattr(fa, "_HEADERS", tuple(headers))
     assert fa._library_digest() != before
 
 

@@ -64,18 +64,21 @@ NEG_INF = -1e30
 # K1 flash_attention_packed, K2 flash_attention, K3 flash_attention_lse,
 # K4 flash_attention_bwd_dq, K5 flash_attention_bwd_dkv, P1 flash_bnhd (the
 # packed-layout probe, v2ap_torch/scripts/probe_flash_bnhd.py); N1 rms_norm
-# and N2 gated_residual (ops/norms.py), built into the same library
+# and N2 gated_residual (ops/norms.py), Q1 int8_quantize and Q2
+# int8_dequantize (utils/quantize.py), built into the same library
 launch_counts = {"flash_attention": 0, "flash_attention_packed": 0,
                  "flash_attention_lse": 0, "flash_attention_bwd_dq": 0,
                  "flash_attention_bwd_dkv": 0, "flash_bnhd": 0,
-                 "rms_norm": 0, "gated_residual": 0}
+                 "rms_norm": 0, "gated_residual": 0,
+                 "int8_quantize": 0, "int8_dequantize": 0}
 
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 _SOURCES = (_CSRC / "flash_fwd_sm90.cu", _CSRC / "flash_bwd_sm90.cu",
             _CSRC / "flash_fwd.cu", _CSRC / "flash_bwd.cu",
-            _CSRC / "norms.cu")
-# included by the tensor-core sources: part of the library's hash
-_HEADERS = (_CSRC / "sm90_common.cuh",)
+            _CSRC / "norms.cu", _CSRC / "quantize.cu")
+# included by the sources (the tensor-core kernels; the norms and the int8
+# quantize): part of the library's hash
+_HEADERS = (_CSRC / "sm90_common.cuh", _CSRC / "vec16.cuh")
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "v2ap_torch"
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
                "-std=c++17", "-Xcompiler", "-fPIC")
@@ -275,7 +278,8 @@ def build_library() -> Path:
 def _c_argtypes() -> dict:
     """The argument types of the library's kernel entry points, each of
     which returns an int; the f32 and bf16 routes of a direction share one
-    parameter list. N1 and N2 are ``ops/norms.py``'s."""
+    parameter list. N1 and N2 are ``ops/norms.py``'s, Q1 and Q2
+    ``utils/quantize.py``'s."""
     ptr, i32, i64, f32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                           ctypes.c_float)
     fwd = [i32] + [ptr] * 6 + [i32] * 4 + [i64] * 13 + [f32, f32, ptr]
@@ -285,7 +289,11 @@ def _c_argtypes() -> dict:
             "v2ap_flash_bwd": bwd, "v2ap_flash_bwd_sm90": bwd,
             "v2ap_rms_norm": ([i32] + [ptr] * 3 + [i64] * 5
                               + [i32, i32, f32, f32, ptr]),
-            "v2ap_gated_residual": [i32] + [ptr] * 4 + [i64] * 7 + [i32, ptr]}
+            "v2ap_gated_residual": [i32] + [ptr] * 4 + [i64] * 7 + [i32, ptr],
+            "v2ap_int8_quantize": ([i32] * 2 + [ptr] * 3 + [i64] * 4
+                                   + [i32, i32, ptr]),
+            "v2ap_int8_dequantize": ([i32] * 2 + [ptr] * 5 + [i64] * 3
+                                     + [i32, ptr])}
 
 
 @functools.lru_cache(maxsize=None)
@@ -297,6 +305,14 @@ def _library() -> ctypes.CDLL:
     lib.v2ap_cuda_error_string.argtypes = [ctypes.c_int]
     lib.v2ap_cuda_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def raise_on_launch_error(err: int, what: str) -> None:
+    """Raise if an entry point of the library returned a CUDA error (the
+    norms' and the int8 kernels' convention: 0 on success)."""
+    if err != 0:
+        text = _library().v2ap_cuda_error_string(err).decode()
+        raise RuntimeError(f"{what} launch failed: {text} ({err})")
 
 
 def _check(q, k, v, kv_mask, others) -> torch.Tensor | None:

@@ -126,12 +126,6 @@ def _same_device(*tensors) -> None:
         raise ValueError(f"norm kernel inputs on different devices: {devices}")
 
 
-def _raise_on(err: int, what: str) -> None:
-    if err != 0:
-        text = fa._library().v2ap_cuda_error_string(err).decode()
-        raise RuntimeError(f"{what} launch failed: {text} ({err})")
-
-
 def _launch_rms_norm(x: torch.Tensor, gain: torch.Tensor,
                      plus_one: bool) -> torch.Tensor:
     _check_rows(x, "x")
@@ -152,7 +146,7 @@ def _launch_rms_norm(x: torch.Tensor, gain: torch.Tensor,
                 x.dtype == torch.bfloat16, x.data_ptr(), gain.data_ptr(),
                 out.data_ptr(), b * n, n, x.stride(0), x.stride(1), g_sb, d,
                 plus_one, float(d) ** 0.5, EPS * EPS, fa._stream(x))
-        _raise_on(err, "rms_norm kernel")
+        fa.raise_on_launch_error(err, "rms_norm kernel")
         fa.count_launch("rms_norm")
     return out
 
@@ -175,7 +169,7 @@ def _launch_gated_residual(x: torch.Tensor, branch: torch.Tensor,
                 gamma.data_ptr(), out.data_ptr(), b * n, n, x.stride(0),
                 x.stride(1), branch.stride(0), branch.stride(1),
                 gamma.stride(0), d, fa._stream(x))
-        _raise_on(err, "gated_residual kernel")
+        fa.raise_on_launch_error(err, "gated_residual kernel")
         fa.count_launch("gated_residual")
     return out
 
